@@ -1,16 +1,23 @@
 """Smoke run of the torch port on one CUDA card.
 
 Builds the NDiv CUDA kernels from ``ndivplanning_tpu_torch/csrc``, holds
-each against its plain PyTorch version, trains the goalcond preset at full
-width for 20 steps, plans with 1000 candidates on the trained EMA generator,
-and evaluates NDiv without a gradient.  Each phase prints one JSON line; any
-failure raises and exits non-zero.  The last line is the device summary.
+every kernel route (fwd, joint and bwd under the block, group and packed
+tilings) against its plain PyTorch version, then drives the port's main
+paths at full width: the goalcond preset trains 20 steps, plans with 1000
+candidates and evaluates NDiv without a gradient; the imagecond preset
+trains 20 steps, takes one step under each other NDiv route from one state,
+and plans with 1000 candidates on a rasterised scene.  Each phase prints one
+JSON line; any failure raises and exits non-zero.  The last line is the
+device summary.
 
     python3 chip_smoke.py            # from the repository root, one card
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -18,21 +25,39 @@ import subprocess
 import sys
 import time
 
-# Published H100 SXM rates: HBM bandwidth, and f32 and f64 outside the
-# tensor cores.
+# Published H100 SXM rates at its 700 W power limit (NVIDIA's data
+# sheet): HBM bandwidth, and f32 and f64 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 F64_FLOPS_PER_S = 34e12
 ALPHA = 0.8
-CHECK_SHAPES = [(256, 8, 2, 64), (256, 32, 2, 64), (1024, 32, 2, 64),
-                (3, 5, 3, 7), (1, 256, 4, 8)]
-MAIN_SHAPE = (256, 8, 2, 64)  # goalcond: B=256, k=8, dz=2, dx=H*S=64
+CHECK_SHAPES = [(256, 8, 2, 64), (512, 8, 2, 64), (256, 32, 2, 64),
+                (1024, 32, 2, 64), (3, 5, 3, 7), (1, 256, 4, 8)]
+GOALCOND_SHAPE = (256, 8, 2, 64)  # B=256, k=8, dz=2, dx=H*S=64
+IMAGECOND_SHAPE = (512, 8, 2, 64)
 # Kernel against plain, elementwise: |got - want| <= rtol |want| + atol,
 # with atol a share of the tensor's largest |want| (the unit grads are
 # ~1/(B k (k-1)) in size, so no fixed atol means anything).
 VAL_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-4, 1e-5
+G_CHECK = -2.5  # the upstream cotangent the backward kernels are checked at
 TRAIN_STEPS = 20
+# Every kernel route: (kernel, variant).  The JAX package has no joint
+# kernel under "packed" (its _vjp_fwd sends packed to fwd + bwd).
+ROUTES = [("joint", "block"), ("fwd", "block"), ("bwd", "block"),
+          ("joint", "group"), ("fwd", "group"), ("bwd", "group"),
+          ("fwd", "packed"), ("bwd", "packed")]
+# The TPU kernel each route replaces (ndivplanning_tpu/ops/ndiv_pallas.py).
+REPLACES = {("joint", "block"): 266, ("fwd", "block"): 212,
+            ("bwd", "block"): 229, ("joint", "group"): 266,
+            ("fwd", "group"): 212, ("bwd", "group"): 229,
+            ("fwd", "packed"): 126, ("bwd", "packed"): 142}
+# The imagecond step's NDiv routes besides the default (block, JOINT on),
+# and the launches each makes, as _vjp_fwd routes a differentiated loss.
+STEP_ROUTES = [("block", False, {"fwd": 1, "bwd": 1}),
+               ("group", True, {"joint_group": 1}),
+               ("group", False, {"fwd_group": 1, "bwd_group": 1}),
+               ("packed", True, {"fwd_packed": 1, "bwd_packed": 1})]
 
 
 def emit(obj) -> None:
@@ -103,53 +128,73 @@ def away_from_kinks(torch, draw, b):
 
 
 def check_kernels(torch, ndiv_cuda, b, k, dz, dx, gen):
-    """One shape: joint and fwd against their plain versions, and bitwise
-    repeatability.  Returns the largest errors."""
+    """One shape: every route against its plain version, bitwise
+    repeatability, and bitwise-equal grads across tilings.  Returns the
+    summary it prints, with the largest absolute error of each route."""
     z, x = away_from_kinks(torch, lambda n: (
         spread_latents(torch, n, k, dz, gen),
         torch.randn((n, k, dx), generator=gen, device="cuda")), b)
     return check_inputs(torch, ndiv_cuda, z, x, f"{b}x{k}x{dz}x{dx}")
 
 
+def run_route(ndiv_cuda, kernel, variant, z, x, g):
+    """(loss sum or None, gz or None, gx or None) of one kernel route."""
+    if kernel == "joint":
+        return ndiv_cuda.ndiv_joint(z, x, ALPHA, variant)
+    if kernel == "fwd":
+        return ndiv_cuda.ndiv_fwd(z, x, ALPHA, variant), None, None
+    return (None, *ndiv_cuda.ndiv_bwd(z, x, ALPHA, g, variant))
+
+
 def check_inputs(torch, ndiv_cuda, z, x, label):
     b, k = z.shape[:2]
     m = b * k * (k - 1)
-    total, gz, gx = ndiv_cuda.ndiv_joint(z, x, ALPHA)
-    total_fwd = ndiv_cuda.ndiv_fwd(z, x, ALPHA)
-    ref_total, ref_gz, ref_gx = ndiv_cuda.ndiv_joint_plain(z, x, ALPHA)
-    ref_fwd = ndiv_cuda.ndiv_fwd_plain(z, x, ALPHA)
-    torch.cuda.synchronize()
-    rel = {
-        "joint_loss": assert_close(torch, total, ref_total,
-                                   f"{label} joint loss", VAL_RTOL),
-        "fwd_loss": assert_close(torch, total_fwd, ref_fwd,
-                                 f"{label} fwd loss", VAL_RTOL),
-        "dz": assert_close(torch, gz, ref_gz, f"{label} dz", GRAD_RTOL,
-                           GRAD_ATOL_OF_MAX),
-        "dx": assert_close(torch, gx, ref_gx, f"{label} dx", GRAD_RTOL,
-                           GRAD_ATOL_OF_MAX),
-    }
-    again = ndiv_cuda.ndiv_joint(z, x, ALPHA)
-    bitwise = (torch.equal(again[0], total) and torch.equal(again[1], gz)
-               and torch.equal(again[2], gx)
-               and torch.equal(ndiv_cuda.ndiv_fwd(z, x, ALPHA), total_fwd))
-    if not bitwise:
-        raise AssertionError(f"{label}: repeated launches differ")
+    g = torch.tensor(G_CHECK, device="cuda")
+    plain_total, plain_gz, plain_gx = ndiv_cuda.ndiv_joint_plain(z, x, ALPHA)
+    plain = {"joint": (plain_total, plain_gz, plain_gx),
+             "fwd": (ndiv_cuda.ndiv_fwd_plain(z, x, ALPHA), None, None),
+             "bwd": (None, *ndiv_cuda.ndiv_bwd_plain(z, x, ALPHA, g))}
+    got, rel, errs = {}, {}, {}
+    for kernel, variant in ROUTES:
+        key = ndiv_cuda.launch_key(kernel, variant)
+        out = run_route(ndiv_cuda, kernel, variant, z, x, g)
+        again = run_route(ndiv_cuda, kernel, variant, z, x, g)
+        torch.cuda.synchronize()
+        if not all(a is None or torch.equal(a, c) for a, c in zip(out, again)):
+            raise AssertionError(f"{label} {key}: repeated launches differ")
+        rel[key], err = {}, 0.0
+        for name, o, want, rtol, atol in zip(
+                ("loss", "dz", "dx"), out, plain[kernel],
+                (VAL_RTOL, GRAD_RTOL, GRAD_RTOL),
+                (0.0, GRAD_ATOL_OF_MAX, GRAD_ATOL_OF_MAX)):
+            if o is None:
+                continue
+            rel[key][name] = assert_close(torch, o, want, f"{label} {key} "
+                                          f"{name}", rtol, atol)
+            err = max(err, max_err(o / m, want / m) if name == "loss"
+                      else max_err(o, want))
+        errs[key] = err
+        got[key] = out
+    # The tilings compute every per-condition value in one order: equal
+    # grads, bitwise; the loss sums in another tree.
+    tilings_bitwise = all(
+        torch.equal(got[a][i], got[c][i])
+        for a, c in (("joint", "joint_group"), ("bwd", "bwd_group"),
+                     ("bwd", "bwd_packed")) for i in (1, 2))
+    if not tilings_bitwise:
+        raise AssertionError(f"{label}: the tilings' grads differ")
     out = {
-        "shape": label, "loss": float(total / m),
-        "joint_loss_err": max_err(total / m, ref_total / m),
-        "fwd_loss_err": max_err(total_fwd / m, ref_fwd / m),
-        "dz_err": max_err(gz, ref_gz), "dx_err": max_err(gx, ref_gx),
-        "max_abs_dz": float(ref_gz.abs().max()),
-        "max_abs_dx": float(ref_gx.abs().max()),
-        "err_over_max": rel,
-        "bitwise_repeat": bitwise,
+        "shape": label, "loss": float(got["joint"][0] / m),
+        "max_abs_err": errs, "err_over_max": rel,
+        "max_abs_dz": float(plain_gz.abs().max()),
+        "max_abs_dx": float(plain_gx.abs().max()),
+        "bitwise_repeat": True, "tilings_grads_bitwise_equal": True,
     }
     emit({"phase": "kernel_check", **out})
     return out
 
 
-def check_step_inputs(torch, ndiv_cuda, z, x):
+def check_step_inputs(torch, ndiv_cuda, z, x, label):
     """The kernel on the inputs the first main-path step gives it.
 
     At init the generator's k samples of a condition sit ~1e-3..1e-1 apart
@@ -171,10 +216,11 @@ def check_step_inputs(torch, ndiv_cuda, z, x):
         scale = float(e.abs().max())
         out[name] = {
             "err_over_max": assert_close(torch, g.double(), e,
-                                         f"step inputs {name}", rtol, atol),
+                                         f"{label} step inputs {name}", rtol,
+                                         atol),
             "plain_f32_err_over_max": max_err(p.double(), e) / scale}
-    emit({"phase": "kernel_check_step_inputs", "shape": list(z.shape[:2])
-          + [z.shape[2], x.shape[2]], **out})
+    emit({"phase": "kernel_check_step_inputs", "preset": label,
+          "shape": list(z.shape[:2]) + [z.shape[2], x.shape[2]], **out})
     return float(got[0]) / (z.shape[0] * z.shape[1] * (z.shape[1] - 1))
 
 
@@ -225,7 +271,7 @@ def profile(torch, fn, n):
         "kernel_launches_per_call": sum(e.count for e in kernels) / n,
         "ndiv_kernels_ms_per_call": sum(
             e.self_device_time_total for e in kernels
-            if "ndiv_block_kernel" in e.key or "sum_partials" in e.key)
+            if "ndiv_tile_kernel" in e.key or "sum_partials" in e.key)
         / 1e3 / n,
         "top_kernels": [{"name": e.key[:60],
                          "ms_per_call": e.self_device_time_total / 1e3 / n,
@@ -233,11 +279,14 @@ def profile(torch, fn, n):
     }
 
 
-def bound(b, k, dz, dx, grads):
-    """Least time (ms) on the card: inputs read once and outputs written
-    once over HBM, or the f32 and f64 operations over their peaks."""
-    in_bytes = 4 * b * k * (dz + dx)
-    out_bytes = 4 * (b + 1) + (in_bytes if grads else 0)
+def bound(b, k, dz, dx, kernel):
+    """Least time (ms) on the card: the function's inputs read once and its
+    outputs written once over HBM, or the f32 and f64 operations over their
+    peaks.  The same for every tiling: the tilings compute one function."""
+    grads = kernel != "fwd"
+    io_bytes = 4 * b * k * (dz + dx)  # z and x; the grads are as large
+    in_bytes = io_bytes + (4 if kernel == "bwd" else 0)  # bwd reads g
+    out_bytes = (io_bytes if grads else 0) + (0 if kernel == "bwd" else 4)
     # Per condition and (i, j) entry, in f64: the two distance dot products
     # (2 flops per element) and, with grads, sum_j W_ij (a_i - a_j) (3 per
     # element).  In f32: ~12 flops of normalisation and hinge and, with
@@ -250,12 +299,131 @@ def bound(b, k, dz, dx, grads):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def reset(ndiv_cuda) -> None:
+    for key in ndiv_cuda.LAUNCHES:
+        ndiv_cuda.LAUNCHES[key] = 0
+
+
+def launched(ndiv_cuda) -> dict:
+    return {key: n for key, n in ndiv_cuda.LAUNCHES.items() if n}
+
+
+def clone_state(torch, state):
+    """A deep copy of a TrainState on the card (its generator re-seeded
+    from the same state)."""
+    rng = torch.Generator(device=state.rng.device)
+    rng.set_state(state.rng.get_state())
+    return dataclasses.replace(
+        state, rng=rng, g=copy.deepcopy(state.g), d=copy.deepcopy(state.d),
+        g_opt=copy.deepcopy(state.g_opt), d_opt=copy.deepcopy(state.d_opt),
+        g_ema=copy.deepcopy(state.g_ema),
+        ada={key: v.clone() for key, v in state.ada.items()})
+
+
+def first_step_inputs(torch, cfg, state, make_task):
+    """The first step's batch, z and G(z): its batch and then its z are the
+    first draws from state.rng, and G does not change before its NDiv."""
+    rng = torch.Generator(device="cuda")
+    rng.set_state(state.rng.get_state())
+    batch = make_task(cfg).sample(rng, cfg.batch_size)
+    z = torch.randn((cfg.batch_size, cfg.k, cfg.latent_dim), generator=rng,
+                    device="cuda")
+    with torch.no_grad():
+        x = state.g(batch.conditions, z).reshape(cfg.batch_size, cfg.k,
+                                                 -1).contiguous()
+    return batch, z, x
+
+
+def train(torch, ndiv_cuda, cfg, state, step_fn):
+    """TRAIN_STEPS steps from ``state``, with the launch counts reset just
+    before; returns (state, per-step metrics, step ms, launches)."""
+    before = [p.detach().clone() for p in state.g.parameters()]
+    d_before = [p.detach().clone() for p in state.d.parameters()]
+    reset(ndiv_cuda)
+    step_ms, history = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(cfg, state)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({key: float(v) for key, v in metrics.items()})
+    launches = launched(ndiv_cuda)
+    for rec in history:
+        for key, v in rec.items():
+            if v != v or abs(v) == float("inf"):
+                raise AssertionError(f"non-finite metric {key}={v}")
+    if all(torch.equal(a, p) for a, p in zip(before, state.g.parameters())):
+        raise AssertionError("G params did not change")
+    if all(torch.equal(a, p) for a, p in zip(d_before, state.d.parameters())):
+        raise AssertionError("D params did not change")
+    if launches != {"joint": TRAIN_STEPS}:
+        raise AssertionError(f"{cfg.name}: launches {launches} in "
+                             f"{TRAIN_STEPS} steps, want joint only, once "
+                             "a step")
+    return state, history, step_ms, launches
+
+
+def check_first_step(history, step_input_loss, name):
+    if abs(history[0]["g_ndiv"] - step_input_loss) > 1e-5 * step_input_loss:
+        raise AssertionError(
+            f"{name}: first step's g_ndiv {history[0]['g_ndiv']} is not the "
+            f"NDiv of the inputs checked above ({step_input_loss})")
+
+
+def plan_times(torch, plan, cfg, state, scene, condition, n=6):
+    plan_gen = torch.Generator(device="cuda")
+    plan_ms = []
+    for i in range(n):
+        plan_gen.manual_seed(i)
+        t0 = time.perf_counter()
+        result = plan(cfg, state, scene, condition, plan_gen)
+        torch.cuda.synchronize()
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    return result, plan_ms, plan_gen
+
+
+def check_plan(torch, plan, create_train_state, cfg, state, result, scene,
+               condition):
+    """Shapes, finiteness, distinct diverse picks, and agreement with the
+    CPU port (plain torch) on the same latents at n=64."""
+    if tuple(result.taus.shape) != (1000, cfg.horizon, 2):
+        raise AssertionError(f"taus shape {tuple(result.taus.shape)}")
+    if not (torch.isfinite(result.taus).all()
+            and torch.isfinite(result.scores).all()):
+        raise AssertionError("non-finite plan output")
+    idx = result.diverse_idx.tolist()
+    if len(set(idx)) != 8:
+        raise AssertionError(f"diverse indices not distinct: {idx}")
+    cpu_state = create_train_state(cfg, seed=0, device="cpu")
+    cpu_state.g_ema.load_state_dict(
+        {k: v.cpu() for k, v in state.g_ema.state_dict().items()})
+    z64 = torch.randn((1, 64, cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(9))
+    small_gpu = plan(cfg, state, scene, condition, n_candidates=64,
+                     z=z64.cuda())
+    cpu_scene = dataclasses.replace(
+        scene, **{f.name: getattr(scene, f.name).cpu()
+                  for f in dataclasses.fields(scene)})
+    small_cpu = plan(cfg, cpu_state, cpu_scene, condition.cpu(),
+                     n_candidates=64, z=z64)
+    score_err = max_err(small_gpu.scores.cpu(), small_cpu.scores)
+    if score_err > 1e-4:
+        raise AssertionError(f"plan scores cuda vs cpu differ by {score_err}")
+    return {"best_score": float(result.best_score),
+            "best_reached": float(result.best_reached), "diverse_idx": idx,
+            "vs_cpu_n64_max_score_err": score_err,
+            "vs_cpu_n64_same_diverse_idx":
+                small_gpu.diverse_idx.tolist()
+                == small_cpu.diverse_idx.tolist()}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from ndivplanning_tpu_torch.data.scenes import rasterize_scene
     from ndivplanning_tpu_torch.data.tasks import make_task
     from ndivplanning_tpu_torch.envs.types import Scene
     from ndivplanning_tpu_torch.ops import ndiv_cuda
@@ -287,7 +455,7 @@ def main() -> int:
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})
 
-    # 3. Kernels against their plain versions.
+    # 3. Every kernel route against its plain version.
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     checks = {s: check_kernels(torch, ndiv_cuda, *s, gen)
@@ -297,76 +465,73 @@ def main() -> int:
                         "identical")
     if same["loss"] != 0.0:
         raise AssertionError("identical samples: loss is not 0")
-    for name in ("fwd", "joint"):
-        if not ndiv_cuda.LAUNCHES[name]:
-            raise AssertionError(f"{name} kernel never launched")
+    for key, n in ndiv_cuda.LAUNCHES.items():
+        if not n:
+            raise AssertionError(f"{key} kernel never launched")
 
-    # 3b. One small train step on the card against the CPU port (plain NDiv).
-    small = get_config("goalcond", batch_size=8, k=4, horizon=8,
-                       g_hidden=(32, 32), d_hidden=(32, 32),
-                       ndiv_impl="pallas")
-    ref = {}
-    for dev in ("cpu", "cuda"):
-        st = create_train_state(small, seed=1, device=dev)
-        g = torch.Generator(device=dev)
-        g.manual_seed(5)
-        batch = make_task(small).sample(torch.Generator().manual_seed(6), 8)
-        batch.conditions = batch.conditions.to(dev)
-        batch.real_traj = batch.real_traj.to(dev)
-        z = torch.randn((8, 4, 2), generator=torch.Generator().manual_seed(7))
-        _, m = train_step_impl(small, st, batch, z=z.to(dev))
-        ref[dev] = {key: float(v) for key, v in m.items()}
-    for key, want in ref["cpu"].items():
-        # g_ndiv: Gram-form distances of the initial generator's near-
-        # duplicate samples lose ~3 digits on any device (see the parity
-        # tests), so it is held at 1e-2; every other metric at 1e-4.
-        rtol = 1e-2 if key == "g_ndiv" else 1e-4
-        if abs(ref["cuda"][key] - want) > rtol * abs(want) + 1e-6:
-            raise AssertionError(f"train step {key}: cuda {ref['cuda'][key]} "
-                                 f"vs cpu {want}")
-    emit({"phase": "train_step_vs_cpu", "cuda": ref["cuda"],
-          "cpu": ref["cpu"]})
+    # 3b. One small train step per preset on the card against the CPU port
+    # (plain NDiv).
+    for preset, extra in (("goalcond", {}), ("imagecond", {"image_size": 16})):
+        small = get_config(preset, batch_size=8, k=4, horizon=8,
+                           g_hidden=(32, 32), d_hidden=(32, 32),
+                           ndiv_impl="pallas", **extra)
+        ref = {}
+        for dev in ("cpu", "cuda"):
+            st = create_train_state(small, seed=1, device=dev)
+            batch = make_task(small).sample(torch.Generator().manual_seed(6),
+                                            8)
+            batch.conditions = batch.conditions.to(dev)
+            batch.real_traj = batch.real_traj.to(dev)
+            z = torch.randn((8, 4, 2),
+                            generator=torch.Generator().manual_seed(7))
+            _, m = train_step_impl(small, st, batch, z=z.to(dev))
+            ref[dev] = {key: float(v) for key, v in m.items()}
+        for key, want in ref["cpu"].items():
+            # g_ndiv: Gram-form distances of the initial generator's near-
+            # duplicate samples lose ~3 digits on any device (see the parity
+            # tests), so it is held at 1e-2; every other metric at 1e-4.
+            rtol = 1e-2 if key == "g_ndiv" else 1e-4
+            if abs(ref["cuda"][key] - want) > rtol * abs(want) + 1e-6:
+                raise AssertionError(f"{preset} train step {key}: cuda "
+                                     f"{ref['cuda'][key]} vs cpu {want}")
+        emit({"phase": "train_step_vs_cpu", "preset": preset,
+              "cuda": ref["cuda"], "cpu": ref["cpu"]})
 
-    # 4-5. Main path: train, plan, evaluate.  Counts read just after.
+    # 4. Goalcond main path: train, plan, evaluate, each with the counts
+    # set to 0 just before it and read just after.
+    path_launches = {}
     cfg = get_config("goalcond")
     state = create_train_state(cfg, seed=0)
-    # The first step's own NDiv inputs: its batch and then its z are the
-    # first draws from state.rng, and G does not change before its NDiv.
-    rng = torch.Generator(device="cuda")
-    rng.set_state(state.rng.get_state())
-    first_batch = make_task(cfg).sample(rng, cfg.batch_size)
-    z0 = torch.randn((cfg.batch_size, cfg.k, cfg.latent_dim), generator=rng,
-                     device="cuda")
-    with torch.no_grad():
-        x0 = state.g(first_batch.conditions, z0).reshape(
-            cfg.batch_size, cfg.k, -1).contiguous()
-    step_input_loss = check_step_inputs(torch, ndiv_cuda, z0, x0)
-
-    before = [p.detach().clone() for p in state.g.parameters()]
-    d_before = [p.detach().clone() for p in state.d.parameters()]
-    for name in ndiv_cuda.LAUNCHES:
-        ndiv_cuda.LAUNCHES[name] = 0
-
-    step_ms, history = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, metrics = train_step_fused(cfg, state)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        history.append({key: float(v) for key, v in metrics.items()})
-    joint_after_train = ndiv_cuda.LAUNCHES["joint"]
+    _, z0, x0 = first_step_inputs(torch, cfg, state, make_task)
+    goal_input_loss = check_step_inputs(torch, ndiv_cuda, z0, x0, "goalcond")
+    state, history, step_ms, path_launches["goalcond_train"] = train(
+        torch, ndiv_cuda, cfg, state, train_step_fused)
+    check_first_step(history, goal_input_loss, "goalcond")
+    first, last = history[0], history[-1]
+    emit({"phase": "train", "preset": "goalcond", "steps": TRAIN_STEPS,
+          "batch_size": cfg.batch_size, "k": cfg.k, "horizon": cfg.horizon,
+          "g_hidden": list(cfg.g_hidden), "d_hidden": list(cfg.d_hidden),
+          "launches": path_launches["goalcond_train"],
+          "first_g_ndiv_of_checked_inputs": goal_input_loss,
+          "first": {k: first[k] for k in ("d_loss", "g_adv", "g_ndiv")},
+          "last": {k: last[k] for k in ("d_loss", "g_adv", "g_ndiv")},
+          "step_ms_median": statistics.median(step_ms),
+          "step_ms_first": step_ms[0]})
 
     scene = Scene.create([0.1, 0.1], [0.9, 0.9], [[0.5, 0.5, 0.1]])
     condition = torch.tensor([0.1, 0.1, 0.9, 0.9], device="cuda")
-    plan_gen = torch.Generator(device="cuda")
-    plan_ms = []
-    for i in range(6):
-        plan_gen.manual_seed(i)
-        t0 = time.perf_counter()
-        result = plan(cfg, state, scene, condition, plan_gen)
-        torch.cuda.synchronize()
-        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    reset(ndiv_cuda)
+    result, plan_ms, plan_gen = plan_times(torch, plan, cfg, state, scene,
+                                           condition)
+    if launched(ndiv_cuda):
+        raise AssertionError(f"the plan launched {launched(ndiv_cuda)}")
+    emit({"phase": "plan", "preset": "goalcond", "n_candidates": 1000,
+          **check_plan(torch, plan, create_train_state, cfg, state, result,
+                       scene, condition),
+          "plan_ms_median": statistics.median(plan_ms),
+          "plan_ms_first": plan_ms[0]})
 
+    reset(ndiv_cuda)
     with torch.no_grad():
         eval_gen = torch.Generator(device="cuda")
         eval_gen.manual_seed(123)
@@ -376,104 +541,170 @@ def main() -> int:
         tau = gen_params(cfg, state)(batch.conditions, z)
         eval_ndiv = float(ndiv_loss(z, tau.reshape(cfg.batch_size, cfg.k, -1),
                                     cfg.ndiv_alpha))
-    launches = dict(ndiv_cuda.LAUNCHES)
-
-    if joint_after_train != TRAIN_STEPS or launches["joint"] != TRAIN_STEPS:
-        raise AssertionError(f"joint launches {launches['joint']} "
-                             f"(after training {joint_after_train}), "
-                             f"want {TRAIN_STEPS}")
-    if launches["fwd"] < 1:
-        raise AssertionError("the no-grad NDiv evaluation did not launch fwd")
-    if abs(history[0]["g_ndiv"] - step_input_loss) > 1e-5 * step_input_loss:
-        raise AssertionError(
-            f"first step's g_ndiv {history[0]['g_ndiv']} is not the NDiv of "
-            f"the inputs checked above ({step_input_loss})")
-    for rec in history:
-        for key, v in rec.items():
-            if v != v or abs(v) == float("inf"):
-                raise AssertionError(f"non-finite metric {key}={v}")
-    if all(torch.equal(a, p) for a, p in zip(before, state.g.parameters())):
-        raise AssertionError("G params did not change")
-    if all(torch.equal(a, p) for a, p in zip(d_before, state.d.parameters())):
-        raise AssertionError("D params did not change")
-    first, last = history[0], history[-1]
-    emit({"phase": "train", "preset": "goalcond", "steps": TRAIN_STEPS,
-          "batch_size": cfg.batch_size, "k": cfg.k, "horizon": cfg.horizon,
-          "g_hidden": list(cfg.g_hidden), "d_hidden": list(cfg.d_hidden),
-          "joint_launches": joint_after_train,
-          "first_g_ndiv_of_checked_inputs": step_input_loss,
-          "first": {k: first[k] for k in ("d_loss", "g_adv", "g_ndiv")},
-          "last": {k: last[k] for k in ("d_loss", "g_adv", "g_ndiv")},
-          "step_ms_median": statistics.median(step_ms),
-          "step_ms_first": step_ms[0]})
-
-    # The plan: shapes, finiteness, distinct diverse picks, and agreement
-    # with the CPU port (plain torch) on the same latents at n=64.
-    if tuple(result.taus.shape) != (1000, 32, 2):
-        raise AssertionError(f"taus shape {tuple(result.taus.shape)}")
-    if not (torch.isfinite(result.taus).all()
-            and torch.isfinite(result.scores).all()):
-        raise AssertionError("non-finite plan output")
-    idx = result.diverse_idx.tolist()
-    if len(set(idx)) != 8:
-        raise AssertionError(f"diverse indices not distinct: {idx}")
-    cpu_state = create_train_state(cfg, seed=0, device="cpu")
-    cpu_state.g_ema.load_state_dict(
-        {k: v.cpu() for k, v in state.g_ema.state_dict().items()})
-    z64 = torch.randn((1, 64, cfg.latent_dim),
-                      generator=torch.Generator().manual_seed(9))
-    small_gpu = plan(cfg, state, scene, condition, n_candidates=64,
-                     z=z64.cuda())
-    small_cpu = plan(cfg, cpu_state,
-                     Scene.create([0.1, 0.1], [0.9, 0.9], [[0.5, 0.5, 0.1]],
-                                  device="cpu"),
-                     condition.cpu(), n_candidates=64, z=z64)
-    score_err = max_err(small_gpu.scores.cpu(), small_cpu.scores)
-    if score_err > 1e-4:
-        raise AssertionError(f"plan scores cuda vs cpu differ by {score_err}")
-    emit({"phase": "plan", "n_candidates": 1000,
-          "best_score": float(result.best_score),
-          "best_reached": float(result.best_reached),
-          "diverse_idx": idx, "plan_ms_median": statistics.median(plan_ms),
-          "plan_ms_first": plan_ms[0],
-          "vs_cpu_n64_max_score_err": score_err,
-          "vs_cpu_n64_same_diverse_idx":
-              small_gpu.diverse_idx.tolist() == small_cpu.diverse_idx.tolist()})
+    path_launches["goalcond_eval"] = launched(ndiv_cuda)
+    if path_launches["goalcond_eval"] != {"fwd": 1}:
+        raise AssertionError(f"the no-grad NDiv evaluation launched "
+                             f"{path_launches['goalcond_eval']}, want fwd")
     emit({"phase": "eval_ndiv_no_grad", "g_ndiv": eval_ndiv,
-          "fwd_launches": launches["fwd"]})
+          "launches": path_launches["goalcond_eval"]})
 
     # Where the time goes: device busy time of a few steps and plans.
-    emit({"phase": "profile_train_step",
+    emit({"phase": "profile_train_step", "preset": "goalcond",
           **profile(torch, lambda: train_step_fused(cfg, state), 5)})
-    emit({"phase": "profile_plan",
+    emit({"phase": "profile_plan", "preset": "goalcond",
           **profile(torch, lambda: plan(cfg, state, scene, condition,
                                         plan_gen), 3)})
+    goal_times = {}
+    for kernel in ("joint", "fwd"):
+        fn = getattr(ndiv_cuda, f"ndiv_{kernel}")
+        plain = getattr(ndiv_cuda, f"ndiv_{kernel}_plain")
+        goal_times[f"ndiv_{kernel}"] = {
+            "ms": device_ms(torch, functools.partial(fn, z0, x0, ALPHA), 200,
+                            50_000_000),
+            "plain_ms": device_ms(torch, functools.partial(plain, z0, x0,
+                                                           ALPHA),
+                                  8, 200_000_000),
+            "bound_ms": bound(*GOALCOND_SHAPE, kernel)[0]}
+    emit({"phase": "kernel_times_goalcond", "shape": list(GOALCOND_SHAPE),
+          "kernels": goal_times, "card": smi})
 
-    # 6. Kernel times on the first main-path step's inputs.
-    b, k, dz, dx = MAIN_SHAPE
-    z, x = z0, x0
+    # 5. Imagecond main path: 20 steps through the default route.
+    icfg = get_config("imagecond")
+    istate = create_train_state(icfg, seed=0)
+    _, iz0, ix0 = first_step_inputs(torch, icfg, istate, make_task)
+    image_input_loss = check_step_inputs(torch, ndiv_cuda, iz0, ix0,
+                                         "imagecond")
+    istate, ihistory, istep_ms, path_launches["imagecond_train"] = train(
+        torch, ndiv_cuda, icfg, istate, train_step_fused)
+    check_first_step(ihistory, image_input_loss, "imagecond")
+    first, last = ihistory[0], ihistory[-1]
+    emit({"phase": "imagecond_train", "preset": "imagecond",
+          "steps": TRAIN_STEPS, "batch_size": icfg.batch_size, "k": icfg.k,
+          "horizon": icfg.horizon, "image_size": icfg.image_size,
+          "encoder_features": list(icfg.encoder_features),
+          "g_hidden": list(icfg.g_hidden), "d_hidden": list(icfg.d_hidden),
+          "launches": path_launches["imagecond_train"],
+          "first_g_ndiv_of_checked_inputs": image_input_loss,
+          "first": {k: first[k] for k in ("d_loss", "g_adv", "g_ndiv")},
+          "last": {k: last[k] for k in ("d_loss", "g_adv", "g_ndiv")},
+          "step_ms_median": statistics.median(istep_ms),
+          "step_ms_first": istep_ms[0]})
+
+    # 6. One imagecond step from one state, batch and z under each other
+    # NDiv route, against the default route's.
+    route_gen = torch.Generator(device="cuda")
+    route_gen.manual_seed(77)
+    rbatch = make_task(icfg).sample(route_gen, icfg.batch_size)
+    rz = torch.randn((icfg.batch_size, icfg.k, icfg.latent_dim),
+                     generator=route_gen, device="cuda")
+    ref_state, ref = train_step_impl(icfg, clone_state(torch, istate), rbatch,
+                                     z=rz)
+    # The default route twice: the step is bitwise repeatable.
+    again_state, again = train_step_impl(icfg, clone_state(torch, istate),
+                                         rbatch, z=rz)
+    repeat_bitwise = all(torch.equal(again[key], v) for key, v in ref.items())
+    repeat_bitwise &= all(
+        torch.equal(p, q) for p, q in zip(ref_state.g.parameters(),
+                                          again_state.g.parameters()))
+    repeat_bitwise &= all(
+        torch.equal(p, q) for p, q in zip(ref_state.d.parameters(),
+                                          again_state.d.parameters()))
+    if not repeat_bitwise:
+        raise AssertionError("the imagecond step is not bitwise repeatable")
+    routes_out, path_launches["imagecond_routes"] = [], {}
+    for variant, joint, want in STEP_ROUTES:
+        ndiv_cuda.VARIANT, ndiv_cuda.JOINT = variant, joint
+        reset(ndiv_cuda)
+        try:
+            st, m = train_step_impl(icfg, clone_state(torch, istate), rbatch,
+                                    z=rz)
+            torch.cuda.synchronize()
+        finally:
+            ndiv_cuda.VARIANT, ndiv_cuda.JOINT = "block", True
+        got = launched(ndiv_cuda)
+        if got != want:
+            raise AssertionError(f"route {variant}/joint={joint}: launches "
+                                 f"{got}, want {want}")
+        for key, n in got.items():
+            path_launches["imagecond_routes"][key] = (
+                path_launches["imagecond_routes"].get(key, 0) + n)
+        ndiv_rel = assert_close(torch, m["g_ndiv"], ref["g_ndiv"],
+                                f"route {variant} g_ndiv", VAL_RTOL)
+        grad_rel = max(
+            assert_close(torch, st.g_opt.mu[name], mu,
+                         f"route {variant} G grad {name}", GRAD_RTOL,
+                         GRAD_ATOL_OF_MAX)
+            for name, mu in ref_state.g_opt.mu.items())
+        routes_out.append({
+            "variant": variant, "joint": joint, "launches": got,
+            "g_ndiv": float(m["g_ndiv"]), "g_ndiv_err_over_ref": ndiv_rel,
+            "g_grads_err_over_max": grad_rel,
+            "g_grads_bitwise_equal": all(
+                torch.equal(st.g_opt.mu[name], mu)
+                for name, mu in ref_state.g_opt.mu.items())})
+    emit({"phase": "imagecond_routes", "ref_g_ndiv": float(ref["g_ndiv"]),
+          "default_route_repeats_bitwise": repeat_bitwise,
+          "routes": routes_out})
+
+    # 7. Image-conditioned planning on a rasterised scene.
+    iscene = Scene.create([0.1, 0.1], [0.9, 0.9],
+                          [[0.5, 0.5, 0.12], [0.35, 0.65, 0.08],
+                           [0.65, 0.35, 0.1]])
+    image = rasterize_scene(iscene, icfg.image_size)
+    reset(ndiv_cuda)
+    iresult, iplan_ms, iplan_gen = plan_times(torch, plan, icfg, istate,
+                                              iscene, image)
+    if launched(ndiv_cuda):
+        raise AssertionError(f"the plan launched {launched(ndiv_cuda)}")
+    emit({"phase": "imagecond_plan", "preset": "imagecond",
+          "n_candidates": 1000, "image_shape": list(image.shape),
+          **check_plan(torch, plan, create_train_state, icfg, istate,
+                       iresult, iscene, image),
+          "plan_ms_median": statistics.median(iplan_ms),
+          "plan_ms_first": iplan_ms[0]})
+    emit({"phase": "profile_imagecond_train_step", "preset": "imagecond",
+          **profile(torch, lambda: train_step_fused(icfg, istate), 5)})
+    emit({"phase": "profile_imagecond_plan", "preset": "imagecond",
+          **profile(torch, lambda: plan(icfg, istate, iscene, image,
+                                        iplan_gen), 3)})
+
+    # 8. Kernel times on the first imagecond step's inputs, every route.
+    totals = {}
+    for launches in path_launches.values():
+        for key, n in launches.items():
+            totals[key] = totals.get(key, 0) + n
+    g = torch.ones((), device="cuda")
     kernels = []
-    for name, fn, plain, grads, replaces in (
-            ("ndiv_joint", ndiv_cuda.ndiv_joint, ndiv_cuda.ndiv_joint_plain,
-             True, "ndivplanning_tpu/ops/ndiv_pallas.py:505"),
-            ("ndiv_fwd", ndiv_cuda.ndiv_fwd, ndiv_cuda.ndiv_fwd_plain, False,
-             "ndivplanning_tpu/ops/ndiv_pallas.py:402")):
-        c = checks[MAIN_SHAPE]
-        err = (max(c["joint_loss_err"], c["dz_err"], c["dx_err"]) if grads
-               else c["fwd_loss_err"])
-        ms = device_ms(torch, lambda: fn(z, x, ALPHA), 200, 50_000_000)
+    for kernel, variant in ROUTES:
+        key = ndiv_cuda.launch_key(kernel, variant)
+        plain_args = (iz0, ix0, ALPHA) + ((g,) if kernel == "bwd" else ())
+        plain = functools.partial(getattr(ndiv_cuda, f"ndiv_{kernel}_plain"),
+                                  *plain_args)
+        ms = device_ms(torch, functools.partial(run_route, ndiv_cuda, kernel,
+                                                variant, iz0, ix0, g),
+                       200, 50_000_000)
         # Few calls: the plain version issues ~60 launches per call, and
         # the queue must not fill while the sleep kernel holds the card.
-        plain_ms = device_ms(torch, lambda: plain(z, x, ALPHA), 8,
-                             200_000_000)
-        bound_ms, bound_by = bound(b, k, dz, dx, grads)
+        plain_ms = device_ms(torch, plain, 8, 200_000_000)
+        bound_ms, bound_by = bound(*IMAGECOND_SHAPE, kernel)
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": f"ndiv_{key}", "route": "cuda", "variant": variant,
             "source": "ndivplanning_tpu_torch/csrc/ndiv.cu",
-            "replaces": replaces, "launches": launches[name[5:]],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": list(MAIN_SHAPE), "card": smi})
+            "replaces": "ndivplanning_tpu/ops/ndiv_pallas.py:"
+                        f"{REPLACES[(kernel, variant)]}",
+            "launches": totals.get(key, 0),
+            "launches_by_path": {p: n[key] for p, n in path_launches.items()
+                                 if key in n},
+            "max_abs_err": checks[IMAGECOND_SHAPE]["max_abs_err"][key],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": list(IMAGECOND_SHAPE), "card": smi})
+    for row in kernels:
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} never ran on a main path")
+    emit({"phase": "no_joint_packed", "note": "the JAX package has no "
+          "joint kernel under 'packed' (_vjp_fwd sends packed to fwd + "
+          "bwd), so neither has the port"})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,6 +5,9 @@ never crosses from the host.
 
 - ``pointmass2d``: paths from the box centre to one of 8 anchor modes.
 - ``goalcond``: minimum-jerk start->goal paths with a left or right detour.
+- ``imagecond`` / ``planning``: random obstacle scenes as images; expert
+  paths are quadratic Beziers whose control point detours perpendicular on
+  a random side.
 """
 
 from __future__ import annotations
@@ -16,14 +19,19 @@ from typing import Callable
 
 import torch
 
+from ndivplanning_tpu_torch.data.scenes import (
+    rasterize_batch,
+    random_scene_batch,
+)
 from ndivplanning_tpu_torch.envs.types import Scene
 from ndivplanning_tpu_torch.utils.config import Config
 
 
 @dataclasses.dataclass
 class Batch:
-    """``conditions`` ``[B, 0]`` (none) or ``[B, 4]`` (startgoal);
-    ``real_traj [B, horizon, state_dim]``; the batch's ``scenes``."""
+    """``conditions`` ``[B, 0]`` (none), ``[B, 4]`` (startgoal) or
+    ``[B, S, S, 3]`` (image); ``real_traj [B, horizon, state_dim]``; the
+    batch's ``scenes``."""
 
     conditions: torch.Tensor
     real_traj: torch.Tensor
@@ -102,6 +110,38 @@ def _sample_goalcond(gen: torch.Generator, batch: int, horizon: int) -> Batch:
                  scenes=Scene.create_batch(start, goal))
 
 
+def _bezier(start, ctrl, goal, t):
+    """Quadratic Beziers ``[B, H, 2]`` through ``[B, 2]`` points."""
+    u = t[None, :, None]
+    return ((1 - u) ** 2 * start[:, None, :]
+            + 2 * (1 - u) * u * ctrl[:, None, :] + u**2 * goal[:, None, :])
+
+
+def imagecond_batch(scenes: Scene, amp: torch.Tensor, noise: torch.Tensor,
+                    image_size: int) -> Batch:
+    """The imagecond batch of given scenes, signed detour amplitudes
+    ``amp [B]`` and unit path noise ``noise [B, H, 2]``."""
+    t = _timegrid(noise.shape[1], noise.device)
+    d = scenes.goal - scenes.start
+    norm = torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True) + 1e-12)
+    perp = torch.stack([-d[:, 1], d[:, 0]], dim=-1) / norm
+    ctrl = (scenes.start + scenes.goal) / 2.0 + amp[:, None] * perp
+    traj = _bezier(scenes.start, ctrl, scenes.goal, t)
+    return Batch(conditions=rasterize_batch(scenes, size=image_size),
+                 real_traj=torch.clamp(traj + 0.005 * noise, 0.0, 1.0),
+                 scenes=scenes)
+
+
+def _sample_imagecond(gen: torch.Generator, batch: int, horizon: int,
+                      image_size: int) -> Batch:
+    scenes = random_scene_batch(gen, batch)
+    side = 2.0 * (torch.rand((batch,), generator=gen, device=gen.device)
+                  < 0.5).float() - 1.0
+    amp = side * _uniform(gen, (batch,), 0.1, 0.35)
+    return imagecond_batch(scenes, amp, _normal(gen, (batch, horizon, 2)),
+                           image_size)
+
+
 def make_task(cfg: Config) -> Task:
     """The task sampler for a config."""
     if cfg.rollout_mode != "waypoints":
@@ -116,6 +156,7 @@ def make_task(cfg: Config) -> Task:
         return Task("goalcond", "startgoal",
                     functools.partial(_sample_goalcond, horizon=cfg.horizon))
     if cfg.conditioning == "image":
-        raise NotImplementedError(
-            "conditioning='image' tasks are not ported yet")
+        return Task("imagecond", "image",
+                    functools.partial(_sample_imagecond, horizon=cfg.horizon,
+                                      image_size=cfg.image_size))
     raise ValueError(f"unknown conditioning {cfg.conditioning!r}")

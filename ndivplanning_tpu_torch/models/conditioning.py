@@ -1,8 +1,8 @@
 """Condition encoders; counterpart of ``ndivplanning_tpu/models/conditioning.py``.
 
-Modes "none" (a ``[B, 0]`` embedding) and "startgoal" (``[B, 4]`` start xy,
-goal xy -> MLP embedding).  Mode "image" needs the conv encoder, which is
-not ported yet.
+Modes "none" (a ``[B, 0]`` embedding), "startgoal" (``[B, 4]`` start xy,
+goal xy -> MLP embedding) and "image" (``[B, S, S, 3]`` scene images ->
+conv embedding, ``models/encoder.py``).
 """
 
 from __future__ import annotations
@@ -13,9 +13,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ndivplanning_tpu_torch.data.scenes import IMAGE_CHANNELS
+from ndivplanning_tpu_torch.models.encoder import SceneEncoderCNN
 from ndivplanning_tpu_torch.models.mlp import dense
 
-CONDITION_DIMS = {"none": 0, "startgoal": 4}
+MODES = ("none", "startgoal", "image")
 
 
 class ConditionEncoder(nn.Module):
@@ -23,24 +25,28 @@ class ConditionEncoder(nn.Module):
 
     def __init__(self, mode: str, embed_dim: int = 64,
                  hidden: Sequence[int] = (64,),
+                 encoder_features: Sequence[int] = (16, 32, 64),
+                 image_size: int = 32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if mode == "image":
-            raise NotImplementedError(
-                "conditioning='image' needs the conv scene encoder, which "
-                "the torch port does not have yet")
-        if mode not in CONDITION_DIMS:
+        if mode not in MODES:
             raise ValueError(f"unknown conditioning mode {mode!r}")
         self.mode = mode
-        self.embed_dim = embed_dim if mode == "startgoal" else 0
-        dims = [CONDITION_DIMS[mode], *hidden, embed_dim]
-        self.layers = nn.ModuleList(
-            dense(a, b, generator) for a, b in zip(dims[:-1], dims[1:])
-        ) if mode == "startgoal" else nn.ModuleList()
+        self.embed_dim = 0 if mode == "none" else embed_dim
+        self.layers = nn.ModuleList()
+        if mode == "startgoal":
+            dims = [4, *hidden, embed_dim]
+            self.layers.extend(dense(a, b, generator)
+                               for a, b in zip(dims[:-1], dims[1:]))
+        elif mode == "image":
+            self.cnn = SceneEncoderCNN(embed_dim, encoder_features,
+                                       image_size, IMAGE_CHANNELS, generator)
 
     def forward(self, conditions: torch.Tensor) -> torch.Tensor:
         if self.mode == "none":
             return conditions.new_zeros((conditions.shape[0], 0))
+        if self.mode == "image":
+            return self.cnn(conditions)
         x = conditions
         for layer in self.layers[:-1]:
             x = F.relu(layer(x))

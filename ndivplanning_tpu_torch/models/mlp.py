@@ -16,17 +16,19 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def lecun_normal_(linear: nn.Linear, generator: torch.Generator | None) -> None:
-    """flax's default Dense init: truncated-normal weights of variance
-    1/fan_in (cut at 2 sigma), zero bias."""
-    fan_in = linear.in_features
+def lecun_normal_(layer: nn.Linear | nn.Conv2d,
+                  generator: torch.Generator | None) -> None:
+    """flax's default Dense and Conv init: truncated-normal weights of
+    variance 1/fan_in (cut at 2 sigma), zero bias.  fan_in is the inputs
+    of one output unit (in_channels x kernel area for a conv)."""
+    fan_in = layer.weight[0].numel()
     # Std of a unit normal truncated to [-2, 2]; dividing by it restores
     # unit variance after truncation, as jax.nn.initializers does.
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
-        nn.init.trunc_normal_(linear.weight, std=std, a=-2.0 * std,
+        nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std,
                               b=2.0 * std, generator=generator)
-        linear.bias.zero_()
+        layer.bias.zero_()
 
 
 def dense(in_dim: int, out_dim: int,

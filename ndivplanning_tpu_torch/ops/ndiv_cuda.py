@@ -1,17 +1,30 @@
 """Fused NDiv loss through hand-written CUDA kernels; counterpart of ``ndivplanning_tpu/ops/ndiv_pallas.py``.
 
-Two kernels in ``csrc/ndiv.cu``, built with ``nvcc`` for ``sm_90a`` at first
-use and bound through ``ctypes``:
+Three kernels in ``csrc/ndiv.cu``, built with ``nvcc`` for ``sm_90a`` at
+first use and bound through ``ctypes``:
 
 - ``ndiv_joint``: the hinge sum plus dL/dz and dL/dx at unit cotangent, in
   one pass (replaces ``_joint_kernel_block``).  Under differentiation the
   backward is then a scalar multiply.
-- ``ndiv_fwd``: the hinge sum alone (replaces ``_fwd_kernel_block``), for a
-  loss that no input needs a gradient of.
+- ``ndiv_fwd``: the hinge sum alone (replaces ``_fwd_kernel_block`` and the
+  packed ``_fwd_kernel``).
+- ``ndiv_bwd``: dL/dz and dL/dx at an upstream cotangent ``g``, recomputing
+  the forward (replaces ``_bwd_kernel_block`` and the packed ``_bwd_kernel``).
+
+Each takes the JAX package's ``variant``: "block", "group" or "packed", the
+TPU's three layouts of the same function, which here choose how many
+conditions one thread block holds (``_TILE_ROWS``).  :func:`ndiv_loss_fused`
+routes as ``_vjp_fwd`` does: under differentiation block and group run the
+joint kernel when ``JOINT`` is set, and otherwise (and always for packed)
+the forward kernel, whose backward is ``ndiv_bwd``.  ``VARIANT`` and
+``JOINT`` are read from ``NDIV_VARIANT`` and ``NDIV_JOINT`` at import, as
+the JAX module reads them.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses its
-plain version, :func:`ndiv_joint_plain` or :func:`ndiv_fwd_plain`, only for
-CPU tensors.  ``LAUNCHES`` counts kernel launches per kernel.
+plain version (:func:`ndiv_joint_plain`, :func:`ndiv_fwd_plain`,
+:func:`ndiv_bwd_plain`) only for CPU tensors.  ``LAUNCHES`` counts kernel
+launches by kernel and variant ("joint", "fwd", "bwd" for block,
+"joint_group", "fwd_packed" and so on for the others).
 """
 
 from __future__ import annotations
@@ -40,8 +53,25 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches since the last reset, by kernel.
-LAUNCHES = {"joint": 0, "fwd": 0}
+# Rows of the TPU tile each layout packs conditions into (0: one condition
+# per tile): a thread block holds max(1, rows // round_up(k, 8)) conditions.
+_TILE_ROWS = {"block": 0, "group": 128, "packed": 256}
+_MODES = {"fwd": 0, "joint": 1, "bwd": 2}
+
+VARIANT = os.environ.get("NDIV_VARIANT", "block")
+JOINT = os.environ.get("NDIV_JOINT", "1") != "0"
+
+
+def launch_key(kernel: str, variant: str) -> str:
+    """``LAUNCHES`` key of a kernel under a variant: "joint", "fwd_group"..."""
+    return kernel if variant == "block" else f"{kernel}_{variant}"
+
+
+# Kernel launches since the last reset.  The JAX package has no joint
+# kernel under "packed", so neither has the port.
+LAUNCHES = {launch_key(kern, v): 0 for v in _TILE_ROWS
+            for kern in ("joint", "fwd", "bwd")
+            if (kern, v) != ("joint", "packed")}
 
 _lib = None
 
@@ -53,6 +83,17 @@ def _round_up(n: int, m: int) -> int:
 def fused_available(k: int) -> bool:
     """The k the kernels take, as the JAX fused path: 2 <= k, round_up(k, 8) <= 1024."""
     return 2 <= k and _round_up(k, _SUBLANE) <= _MAX_KP
+
+
+def check_variant(variant: str, kernel: str = "fwd") -> None:
+    """Raise ``ValueError`` for a layout the JAX package does not have."""
+    if variant not in _TILE_ROWS:
+        raise ValueError(
+            f"unknown NDiv kernel variant {variant!r}; "
+            "choose from 'block', 'group', 'packed'")
+    if (kernel, variant) == ("joint", "packed"):
+        raise ValueError("the packed layout has no joint kernel (as in the "
+                         "JAX package): use ndiv_fwd and ndiv_bwd")
 
 
 # ----------------------------------------------------------- plain versions
@@ -79,32 +120,48 @@ def _unit_grad(a, d, r, n, g_n, valid):
     return row_w * a - torch.matmul(w, a)
 
 
-def _valid(k: int, device) -> torch.Tensor:
-    return ~torch.eye(k, dtype=torch.bool, device=device)
+def _hinge_and_grads(z, x, alpha, s_on):
+    """(hinge sum, dL/dz, dL/dx) with slack ``s_on`` (a 0-d tensor) on
+    every pair whose hinge is active."""
+    k = z.shape[1]
+    valid = ~torch.eye(k, dtype=torch.bool, device=z.device)
+    dz, rz, nz = _distances(z)
+    dx, rx, nx = _distances(x)
+    hinge = torch.clamp(alpha * nz - nx, min=0.0)
+    s = torch.where((hinge > 0.0) & valid, s_on,
+                    torch.zeros((), dtype=z.dtype, device=z.device))
+    gz = _unit_grad(z, dz, rz, nz, alpha * s, valid)
+    gx = _unit_grad(x, dx, rx, nx, -s, valid)
+    return torch.sum(hinge), gz, gx
+
+
+def _pairs(z: torch.Tensor) -> int:
+    """M = B k (k-1), the ordered pairs the loss averages over."""
+    b, k = z.shape[:2]
+    return b * k * (k - 1)
+
+
+def _inv_m(z: torch.Tensor) -> float:
+    return 1.0 / _pairs(z)
 
 
 def ndiv_fwd_plain(z: torch.Tensor, x: torch.Tensor,
                    alpha: float) -> torch.Tensor:
     """Hinge sum over ``z [B, k, dz]``, ``x [B, k, dx]`` (plain torch)."""
-    b, k = z.shape[:2]
-    return ndiv_loss_reference(z, x, alpha) * (b * k * (k - 1))
+    return ndiv_loss_reference(z, x, alpha) * _pairs(z)
 
 
 def ndiv_joint_plain(z: torch.Tensor, x: torch.Tensor, alpha: float):
     """(hinge sum, dL/dz, dL/dx) at unit cotangent, L = sum / (B k (k-1))."""
-    b, k = z.shape[:2]
-    inv_m = 1.0 / (b * k * (k - 1))
-    valid = _valid(k, z.device)
-    dz, rz, nz = _distances(z)
-    dx, rx, nx = _distances(x)
-    hinge = torch.clamp(alpha * nz - nx, min=0.0)
-    zero = torch.zeros((), dtype=z.dtype, device=z.device)
-    s = torch.where((hinge > 0.0) & valid,
-                    torch.full((), inv_m, dtype=z.dtype, device=z.device),
-                    zero)
-    gz = _unit_grad(z, dz, rz, nz, alpha * s, valid)
-    gx = _unit_grad(x, dx, rx, nx, -s, valid)
-    return torch.sum(hinge), gz, gx
+    return _hinge_and_grads(
+        z, x, alpha, torch.full((), _inv_m(z), dtype=z.dtype, device=z.device))
+
+
+def ndiv_bwd_plain(z: torch.Tensor, x: torch.Tensor, alpha: float,
+                   g: torch.Tensor):
+    """(dL/dz, dL/dx) at the upstream cotangent ``g`` (a 0-d tensor)."""
+    _, gz, gx = _hinge_and_grads(z, x, alpha, g.to(z.dtype) * _inv_m(z))
+    return gz, gx
 
 
 # ------------------------------------------------------------------ build
@@ -144,11 +201,15 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(build()[0])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ndiv_joint.argtypes = [p, p, i, i, i, i, f, f, p, p, p, p, p, p]
-        lib.ndiv_joint.restype = i
-        lib.ndiv_fwd.argtypes = [p, p, i, i, i, i, f, p, p, p, p]
-        lib.ndiv_fwd.restype = i
-        lib.ndiv_scratch_floats.argtypes = [i, i]
+        lib.ndiv_joint.argtypes = [p, p, i, i, i, i, f, f, i, p, p, p, p, p,
+                                   p]
+        lib.ndiv_fwd.argtypes = [p, p, i, i, i, i, f, i, p, p, p, p]
+        lib.ndiv_bwd.argtypes = [p, p, p, i, i, i, i, f, f, i, p, p, p, p]
+        for fn in (lib.ndiv_joint, lib.ndiv_fwd, lib.ndiv_bwd):
+            fn.restype = i
+        lib.ndiv_grid_blocks.argtypes = [i, i, i]
+        lib.ndiv_grid_blocks.restype = i
+        lib.ndiv_scratch_floats.argtypes = [i, i, i]
         lib.ndiv_scratch_floats.restype = ctypes.c_longlong
         lib.ndiv_error_string.argtypes = [i]
         lib.ndiv_error_string.restype = ctypes.c_char_p
@@ -183,51 +244,79 @@ def _check_cuda(z: torch.Tensor, x: torch.Tensor) -> None:
                          f"2 <= k, round_up(k, 8) <= {_MAX_KP}")
 
 
-def _launch(grads: bool, z: torch.Tensor, x: torch.Tensor, alpha: float):
+def _launch(kernel: str, variant: str, z: torch.Tensor, x: torch.Tensor,
+            alpha: float, g: torch.Tensor | None = None):
     _check_cuda(z, x)
     lib = load()
     b, k, dz = z.shape
     dx = x.shape[2]
+    rows = _TILE_ROWS[variant]
     f32 = dict(dtype=torch.float32, device=z.device)
-    partial = torch.empty(b, **f32)
-    total = torch.empty((), **f32)
-    n_scratch = lib.ndiv_scratch_floats(k, int(grads))
+    n_scratch = lib.ndiv_scratch_floats(k, _MODES[kernel], rows)
     scratch = torch.empty(b * n_scratch, **f32) if n_scratch else None
     scratch_ptr = scratch.data_ptr() if scratch is not None else None
+    if kernel != "bwd":
+        partial = torch.empty(lib.ndiv_grid_blocks(b, k, rows), **f32)
+        total = torch.empty((), **f32)
+    if kernel != "fwd":
+        gz = torch.empty_like(z)
+        gx = torch.empty_like(x)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if grads:
-            gz = torch.empty_like(z)
-            gx = torch.empty_like(x)
+        if kernel == "joint":
             err = lib.ndiv_joint(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
-                                 float(alpha), 1.0 / (b * k * (k - 1)),
+                                 float(alpha), _inv_m(z), rows,
                                  partial.data_ptr(), total.data_ptr(),
                                  gz.data_ptr(), gx.data_ptr(), scratch_ptr,
                                  stream)
-        else:
+        elif kernel == "fwd":
             err = lib.ndiv_fwd(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
-                               float(alpha), partial.data_ptr(),
+                               float(alpha), rows, partial.data_ptr(),
                                total.data_ptr(), scratch_ptr, stream)
+        else:
+            err = lib.ndiv_bwd(z.data_ptr(), x.data_ptr(), g.data_ptr(), b, k,
+                               dz, dx, float(alpha), _inv_m(z), rows,
+                               gz.data_ptr(), gx.data_ptr(), scratch_ptr,
+                               stream)
     if err != 0:
-        name = "ndiv_joint" if grads else "ndiv_fwd"
-        raise RuntimeError(
-            f"{name} launch failed: {lib.ndiv_error_string(err).decode()}")
-    LAUNCHES["joint" if grads else "fwd"] += 1
-    return (total, gz, gx) if grads else total
+        raise RuntimeError(f"ndiv_{kernel} ({variant}) launch failed: "
+                           f"{lib.ndiv_error_string(err).decode()}")
+    LAUNCHES[launch_key(kernel, variant)] += 1
+    if kernel == "joint":
+        return total, gz, gx
+    return total if kernel == "fwd" else (gz, gx)
 
 
-def ndiv_joint(z: torch.Tensor, x: torch.Tensor, alpha: float):
+def ndiv_joint(z: torch.Tensor, x: torch.Tensor, alpha: float,
+               variant: str = "block"):
     """(hinge sum, dL/dz, dL/dx at unit cotangent) for ``[B, k, d]`` inputs."""
+    check_variant(variant, "joint")
     if _on_cpu(z, x):
         return ndiv_joint_plain(z, x, alpha)
-    return _launch(True, z, x, alpha)
+    return _launch("joint", variant, z, x, alpha)
 
 
-def ndiv_fwd(z: torch.Tensor, x: torch.Tensor, alpha: float) -> torch.Tensor:
+def ndiv_fwd(z: torch.Tensor, x: torch.Tensor, alpha: float,
+             variant: str = "block") -> torch.Tensor:
     """Hinge sum for ``[B, k, d]`` inputs."""
+    check_variant(variant)
     if _on_cpu(z, x):
         return ndiv_fwd_plain(z, x, alpha)
-    return _launch(False, z, x, alpha)
+    return _launch("fwd", variant, z, x, alpha)
+
+
+def ndiv_bwd(z: torch.Tensor, x: torch.Tensor, alpha: float, g: torch.Tensor,
+             variant: str = "block"):
+    """(dL/dz, dL/dx) at the cotangent ``g`` (a 0-d tensor on z's device)
+    of L = hinge sum / (B k (k-1)), for ``[B, k, d]`` inputs."""
+    check_variant(variant)
+    if _on_cpu(z, x):
+        return ndiv_bwd_plain(z, x, alpha, g)
+    if g.numel() != 1 or g.device != z.device:
+        raise ValueError(f"g must be one value on {z.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    return _launch("bwd", variant, z, x, alpha,
+                   g.to(torch.float32).contiguous())
 
 
 class _NDivFused(torch.autograd.Function):
@@ -235,27 +324,47 @@ class _NDivFused(torch.autograd.Function):
     grads are the saved residuals and the backward scales them."""
 
     @staticmethod
-    def forward(ctx, z, x, alpha):
-        b, k = z.shape[:2]
-        total, gz, gx = ndiv_joint(z, x, alpha)
+    def forward(ctx, z, x, alpha, variant):
+        total, gz, gx = ndiv_joint(z, x, alpha, variant)
         ctx.save_for_backward(gz, gx)
-        return total / (b * k * (k - 1))
+        return total / _pairs(z)
 
     @staticmethod
     def backward(ctx, g):
         gz, gx = ctx.saved_tensors
         return (gz * g if ctx.needs_input_grad[0] else None,
-                gx * g if ctx.needs_input_grad[1] else None, None)
+                gx * g if ctx.needs_input_grad[1] else None, None, None)
 
 
-def ndiv_loss_fused(z: torch.Tensor, x: torch.Tensor,
-                    alpha: float = 0.8) -> torch.Tensor:
+class _NDivRecompute(torch.autograd.Function):
+    """Loss = hinge sum / M from the forward kernel, with (z, x) as the
+    residuals; the backward kernel recomputes the rest at the cotangent."""
+
+    @staticmethod
+    def forward(ctx, z, x, alpha, variant):
+        ctx.save_for_backward(z, x)
+        ctx.alpha, ctx.variant = alpha, variant
+        return ndiv_fwd(z, x, alpha, variant) / _pairs(z)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, x = ctx.saved_tensors
+        gz, gx = ndiv_bwd(z, x, ctx.alpha, g, ctx.variant)
+        return (gz if ctx.needs_input_grad[0] else None,
+                gx if ctx.needs_input_grad[1] else None, None, None)
+
+
+def ndiv_loss_fused(z: torch.Tensor, x: torch.Tensor, alpha: float = 0.8,
+                    variant: str | None = None) -> torch.Tensor:
     """NDiv loss over ``z [..., k, dz]``, ``x [..., k, dx]`` through the kernels.
 
-    For k outside the kernels' range the plain reference computes it, as
-    the JAX fused path does.
+    ``variant`` ("block", "group" or "packed") picks the layout, ``VARIANT``
+    when None.  For k outside the kernels' range the plain reference
+    computes the loss, as the JAX fused path does.
     """
     check_shapes(z, x)
+    v = VARIANT if variant is None else variant
+    check_variant(v)
     k = z.shape[-2]
     if not fused_available(k):
         return ndiv_loss_reference(z, x, alpha)
@@ -265,5 +374,7 @@ def ndiv_loss_fused(z: torch.Tensor, x: torch.Tensor,
     # gradient is wanted is decided here: the forward kernel serves a loss
     # that nothing differentiates.
     if torch.is_grad_enabled() and (z.requires_grad or x.requires_grad):
-        return _NDivFused.apply(z3, x3, float(alpha))
-    return ndiv_fwd(z3, x3, alpha) / (z3.shape[0] * k * (k - 1))
+        if JOINT and v in ("block", "group"):
+            return _NDivFused.apply(z3, x3, float(alpha), v)
+        return _NDivRecompute.apply(z3, x3, float(alpha), v)
+    return ndiv_fwd(z3, x3, alpha, v) / _pairs(z3)

@@ -87,7 +87,8 @@ def plan(cfg: Config, state: TrainState, scene: Scene,
     """One planning step for a single scene.
 
     ``condition`` is the scene's raw condition without a batch axis
-    (``[0]`` or ``[4]``).  ``z [1, N, zdim]`` replaces the latent draw."""
+    (``[0]``, ``[4]`` or the ``[S, S, 3]`` image of ``data/scenes.py``).
+    ``z [1, N, zdim]`` replaces the latent draw."""
     n = cfg.n_candidates if n_candidates is None else n_candidates
     taus = generate_candidates(cfg, state, condition, n, generator, z)
     results = score_rollouts(cfg, scene, taus, weights)

@@ -19,7 +19,7 @@ from ndivplanning_tpu_torch.utils.device import resolve_device
 
 
 def check_model_knobs(cfg: Config) -> None:
-    """Raise for model and optimizer options the port does not have yet."""
+    """Raise for model options the port does not have yet."""
     if cfg.g_arch != "mlp":
         raise NotImplementedError(
             f"g_arch={cfg.g_arch!r} is not ported yet (only 'mlp')")
@@ -29,6 +29,11 @@ def check_model_knobs(cfg: Config) -> None:
             "(only 'f32')")
     if cfg.d_spectral_norm:
         raise NotImplementedError("d_spectral_norm is not ported yet")
+
+
+def check_optimizer_knobs(cfg: Config) -> None:
+    """Raise for optimizer options the port does not have yet.  Models
+    build and plan under any of them; training needs them."""
     if cfg.lr_schedule != "constant" or cfg.warmup_steps:
         raise NotImplementedError(
             f"lr_schedule={cfg.lr_schedule!r} with warmup_steps="
@@ -41,8 +46,10 @@ class ConditionedGenerator(nn.Module):
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
         check_model_knobs(cfg)
-        self.encoder = ConditionEncoder(cfg.conditioning, cfg.cond_embed_dim,
-                                        generator=generator)
+        self.encoder = ConditionEncoder(
+            cfg.conditioning, cfg.cond_embed_dim,
+            encoder_features=cfg.encoder_features,
+            image_size=cfg.image_size, generator=generator)
         self.generator = Generator(
             self.encoder.embed_dim, cfg.latent_dim, cfg.horizon,
             cfg.state_dim, cfg.g_hidden, cfg.generator_output, generator)
@@ -58,8 +65,10 @@ class ConditionedDiscriminator(nn.Module):
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
         check_model_knobs(cfg)
-        self.encoder = ConditionEncoder(cfg.conditioning, cfg.cond_embed_dim,
-                                        generator=generator)
+        self.encoder = ConditionEncoder(
+            cfg.conditioning, cfg.cond_embed_dim,
+            encoder_features=cfg.encoder_features,
+            image_size=cfg.image_size, generator=generator)
         self.discriminator = Discriminator(
             self.encoder.embed_dim, cfg.traj_dim, cfg.d_hidden, generator)
 
@@ -146,6 +155,7 @@ def create_train_state(cfg: Config, seed: int | None = None,
 
     ``device=None`` means the CUDA card.  Weights are drawn on the CPU from
     one seeded generator, so they are the same on every device."""
+    check_optimizer_knobs(cfg)
     device = resolve_device(device)
     seed = cfg.seed if seed is None else seed
     g, d = build_models(cfg, torch.Generator().manual_seed(seed))

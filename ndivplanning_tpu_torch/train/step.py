@@ -3,8 +3,8 @@
 Alternating updates as in the JAX step: D updates on detached fakes, then
 G updates against the already-updated D with the adversarial loss plus
 ``ndiv_weight`` x NDiv, whose fused kernel runs once per step on the card.
-Covers the default path of the goalcond and pointmass2d presets; every
-stabiliser knob raises until it is ported.
+Covers the default path of the goalcond, pointmass2d, imagecond and
+planning presets; every stabiliser knob raises until it is ported.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from ndivplanning_tpu_torch.ops.ndiv import ndiv_loss
 from ndivplanning_tpu_torch.train.state import (
     TrainState,
     check_model_knobs,
+    check_optimizer_knobs,
     f32_pow,
 )
 from ndivplanning_tpu_torch.utils.config import Config
@@ -27,6 +28,7 @@ _F32_TINY = torch.finfo(torch.float32).tiny
 def check_step_knobs(cfg: Config) -> None:
     """Raise ``NotImplementedError`` naming the first unported knob set."""
     check_model_knobs(cfg)
+    check_optimizer_knobs(cfg)
     knobs = {
         "instance_noise_sigma": cfg.instance_noise_sigma > 0,
         "diffaug": bool(cfg.diffaug),

@@ -3,8 +3,11 @@
 Takes the JAX package's parameter trees as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, tree)``) and returns ``state_dict``s of the
 port's modules.  A flax Dense kernel is ``[in, out]``; a torch
-``Linear.weight`` is ``[out, in]``.  The concat orders match already
-(``[cond_embed, z]``, ``[cond_embed, flat_traj]``).
+``Linear.weight`` is ``[out, in]``.  A flax Conv kernel is HWIO; a torch
+``Conv2d.weight`` is OIHW.  The concat orders match already
+(``[cond_embed, z]``, ``[cond_embed, flat_traj]``), and the conv encoder
+flattens in NHWC order as flax does (``models/encoder.py``), so its dense
+kernel carries over as any other.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from ndivplanning_tpu_torch.train.state import Adam, TrainState, create_train_st
 from ndivplanning_tpu_torch.utils.config import Config
 
 _MODULES = {"ConditionEncoder_0": "encoder", "Generator_0": "generator",
-            "Discriminator_0": "discriminator", "MLPTrunk_0": "trunk"}
+            "Discriminator_0": "discriminator", "MLPTrunk_0": "trunk",
+            "SceneEncoderCNN_0": "cnn"}
 
 
 def _flatten(tree, prefix=()):
@@ -30,11 +34,15 @@ def _flatten(tree, prefix=()):
 
 
 def _torch_name(path: tuple) -> str:
-    *mods, dense, leaf = path
+    *mods, layer, leaf = path
     parts = [_MODULES[m] for m in mods]
-    idx = int(re.fullmatch(r"Dense_(\d+)", dense).group(1))
-    if parts[-1] in ("encoder", "trunk"):
-        parts += ["layers", str(idx)]
+    kind, idx = re.fullmatch(r"(Dense|Conv)_(\d+)", layer).groups()
+    if kind == "Conv":
+        parts += ["convs", idx]
+    elif parts[-1] in ("encoder", "trunk"):
+        parts += ["layers", idx]
+    elif parts[-1] == "cnn":
+        parts.append("dense")
     else:  # the generator's or discriminator's own Dense is its head
         parts.append("head")
     return ".".join(parts + ["weight" if leaf == "kernel" else "bias"])
@@ -48,8 +56,8 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     out = {}
     for path, value in _flatten(tree):
         value = np.asarray(value, dtype=np.float32)
-        if path[-1] == "kernel":
-            value = value.T
+        if path[-1] == "kernel":  # [in, out] -> [out, in]; HWIO -> OIHW
+            value = value.T if value.ndim == 2 else value.transpose(3, 2, 0, 1)
         out[_torch_name(path)] = torch.tensor(value)
     return out
 

@@ -18,4 +18,8 @@ def resolve_device(device=None) -> torch.device:
         # starts on the card.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # The JAX package's step is bitwise repeatable; cuDNN's default
+        # conv backward algorithms (the image encoder's) sum with atomics.
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     return dev

@@ -72,3 +72,23 @@ def test_create_train_state_defaults_to_cuda(monkeypatch):
         create_train_state(get_config("goalcond"))
     state = create_train_state(get_config("goalcond"), device="cpu")
     assert next(state.g.parameters()).device.type == "cpu"
+
+
+def test_the_card_runs_in_full_float32_and_deterministically(monkeypatch):
+    """TF32 off (the JAX paths compute at Precision.HIGHEST) and cuDNN's
+    deterministic algorithms (the JAX step is bitwise repeatable)."""
+    from ndivplanning_tpu_torch.utils.device import resolve_device
+
+    for mod, name, value in ((torch.backends.cuda.matmul, "allow_tf32", True),
+                             (torch.backends.cudnn, "allow_tf32", True),
+                             (torch.backends.cudnn, "deterministic", False),
+                             (torch.backends.cudnn, "benchmark", True)):
+        monkeypatch.setattr(mod, name, value)
+    assert resolve_device("cpu").type == "cpu"
+    assert torch.backends.cudnn.benchmark  # the CPU leaves them alone
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None).type == "cuda"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.benchmark

@@ -1,4 +1,4 @@
-"""The torch port's G and D against the JAX modules on converted goalcond weights."""
+"""The torch port's G, D and condition encoders against the JAX modules on converted weights."""
 
 import jax
 import jax.numpy as jnp
@@ -6,10 +6,17 @@ import numpy as np
 import pytest
 import torch
 
+from ndivplanning_tpu.models.conditioning import (
+    ConditionEncoder as JaxConditionEncoder,
+)
 from ndivplanning_tpu.train.state import build_models as jax_build_models
 from ndivplanning_tpu.train.state import create_train_state as jax_create
 from ndivplanning_tpu.utils.config import get_config as jax_get_config
-from ndivplanning_tpu_torch.train.state import build_models
+from ndivplanning_tpu_torch.models.conditioning import ConditionEncoder
+from ndivplanning_tpu_torch.train.state import (
+    build_models,
+    create_train_state,
+)
 from ndivplanning_tpu_torch.utils.config import get_config
 from ndivplanning_tpu_torch.utils.convert import params_from_flax
 
@@ -109,9 +116,64 @@ def test_init_matches_flax_scale():
 
 
 def test_unported_knobs_raise():
+    """Model knobs raise where the modules are built; the LR schedule, an
+    optimizer setting, where the optimizers are (models of any schedule
+    build, as the planning512 checkpoint's cosine config needs)."""
     for kw in (dict(g_arch="transformer"), dict(compute_dtype="bf16"),
-               dict(d_spectral_norm=True), dict(lr_schedule="cosine")):
+               dict(d_spectral_norm=True)):
         with pytest.raises(NotImplementedError):
             build_models(get_config("goalcond", **kw))
-    with pytest.raises(NotImplementedError, match="image"):
-        build_models(get_config("imagecond"))
+    for kw in (dict(lr_schedule="cosine"), dict(warmup_steps=10)):
+        build_models(get_config("imagecond", **kw))
+        with pytest.raises(NotImplementedError, match="lr_schedule"):
+            create_train_state(get_config("goalcond", **kw), device="cpu")
+
+
+# The image encoder at the smaller sizes the module takes: 16 and an odd
+# 15 (flax "SAME" pads (1, 1) at stride 2 there, (0, 1) at even sizes).
+@pytest.mark.parametrize("size", [16, 15])
+def test_image_condition_encoder_matches_jax(size):
+    rng = np.random.default_rng(size)
+    images = rng.uniform(0, 1, (4, size, size, 3)).astype(np.float32)
+    jenc = JaxConditionEncoder(mode="image", embed_dim=64,
+                               encoder_features=(16, 32, 64))
+    params = jenc.init(jax.random.PRNGKey(size), jnp.zeros((1, size, size, 3)))
+    enc = ConditionEncoder("image", 64, image_size=size)
+    sd = params_from_flax(_np(params))
+    assert set(sd) == set(enc.state_dict())
+    enc.load_state_dict(sd)
+    want = np.asarray(jenc.apply(params, jnp.asarray(images)))
+    with torch.no_grad():
+        got = enc(torch.from_numpy(images))
+        # The conv encoder alone, as the JAX SceneEncoderCNN computes it.
+        alone = enc.cnn(torch.from_numpy(images))
+    np.testing.assert_array_equal(alone.numpy(), got.numpy())
+    assert got.shape == (4, 64)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_imagecond_models_match_jax():
+    """Both image-conditioned modules, full widths at 16 x 16 images."""
+    jcfg = jax_get_config("imagecond", image_size=16)
+    jstate = jax_create(jcfg, seed=2)
+    g, d = build_models(get_config("imagecond", image_size=16))
+    for module, tree in ((g, jstate.g_params), (d, jstate.d_params)):
+        sd = params_from_flax(_np(tree))
+        assert set(sd) == set(module.state_dict())
+        module.load_state_dict(sd)
+    rng = np.random.default_rng(1)
+    cond = rng.uniform(0, 1, (3, 16, 16, 3)).astype(np.float32)
+    z = rng.normal(size=(3, 8, 2)).astype(np.float32)
+    jg, jd = jax_build_models(jcfg)
+    tau = np.array(jg.apply(jstate.g_params, jnp.asarray(cond),
+                            jnp.asarray(z)))
+    want_logit, want_feats = jd.apply(jstate.d_params, jnp.asarray(cond),
+                                      jnp.asarray(tau), return_features=True)
+    with torch.no_grad():
+        got = g(torch.from_numpy(cond), torch.from_numpy(z))
+        logit, feats = d(torch.from_numpy(cond), torch.from_numpy(tau),
+                         return_features=True)
+    assert got.shape == (3, 8, 32, 2)
+    np.testing.assert_allclose(got.numpy(), tau, **TOL)
+    np.testing.assert_allclose(logit.numpy(), np.asarray(want_logit), **TOL)
+    np.testing.assert_allclose(feats.numpy(), np.asarray(want_feats), **TOL)

@@ -9,12 +9,18 @@ the largest |grad|: the grads are ~1/(B k (k-1)) in size, so a fixed atol
 of 1e-6 would hide those of the larger shapes.
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ndivplanning_tpu.ops import ndiv_pallas
 from ndivplanning_tpu.ops.ndiv import ndiv_loss_reference as jax_reference
 from ndivplanning_tpu.ops.ndiv_pallas import ndiv_loss_fused as jax_fused
 from ndivplanning_tpu.ops.pairwise import pairwise_l2 as jax_pairwise_l2
@@ -200,3 +206,87 @@ def test_pairwise_zero_safe_gradient():
     assert torch.count_nonzero(d) == 0
     d.sum().backward()
     assert torch.count_nonzero(a.grad) == 0
+
+
+VARIANTS = ("block", "group", "packed")
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("b,k,dz,dx", [(3, 8, 2, 16), (2, 5, 3, 7)])
+def test_bwd_plain_matches_jax_bwd_kernel(b, k, dz, dx, variant):
+    """The recompute backward at a cotangent g != 1, against the JAX
+    ``_bwd_grads`` of each layout in interpret mode."""
+    z, x = _case(200 + b + k, b, k, dz, dx)
+    g = np.float32(-2.5)
+    want_gz, want_gx = ndiv_pallas._bwd_grads(
+        jnp.asarray(z), jnp.asarray(x), 0.8, jnp.asarray(g), variant)
+    gz, gx = ndiv_cuda.ndiv_bwd(torch.from_numpy(z), torch.from_numpy(x), 0.8,
+                                torch.tensor(g), variant)
+    _assert_grads_close(gz.numpy(), np.asarray(want_gz))
+    _assert_grads_close(gx.numpy(), np.asarray(want_gx))
+    # The joint kernel's unit grads, scaled, are the same function.
+    _, ugz, ugx = ndiv_cuda.ndiv_joint_plain(torch.from_numpy(z),
+                                             torch.from_numpy(x), 0.8)
+    _assert_grads_close(gz.numpy(), float(g) * ugz.numpy())
+    _assert_grads_close(gx.numpy(), float(g) * ugx.numpy())
+
+
+@pytest.mark.parametrize("joint", [True, False])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_fused_routes_match_reference_autograd_and_jax(monkeypatch, variant,
+                                                       joint):
+    """Each (variant, JOINT) route of the port and of the JAX package:
+    loss and grads at a cotangent of 3 against reference autograd."""
+    monkeypatch.setattr(ndiv_cuda, "JOINT", joint)
+    monkeypatch.setattr(ndiv_pallas, "_JOINT", joint)
+    z, x = _case(300, 3, 8, 2, 16)
+    zt = torch.from_numpy(z).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    loss = ndiv_cuda.ndiv_loss_fused(zt, xt, 0.8, variant=variant)
+    (3.0 * loss).backward()
+    zr = torch.from_numpy(z).requires_grad_()
+    xr = torch.from_numpy(x).requires_grad_()
+    ref = ndiv_loss_reference(zr, xr, 0.8)
+    (3.0 * ref).backward()
+    np.testing.assert_allclose(loss.item(), ref.item(), **VAL)
+    _assert_grads_close(zt.grad.numpy(), zr.grad.numpy())
+    _assert_grads_close(xt.grad.numpy(), xr.grad.numpy())
+    want, (jgz, jgx) = jax.value_and_grad(
+        lambda a, c: 3.0 * jax_fused(a, c, 0.8, variant=variant),
+        argnums=(0, 1))(jnp.asarray(z), jnp.asarray(x))
+    np.testing.assert_allclose(3.0 * loss.item(), float(want), **VAL)
+    _assert_grads_close(zt.grad.numpy(), np.asarray(jgz))
+    _assert_grads_close(xt.grad.numpy(), np.asarray(jgx))
+
+
+def test_unknown_variant_and_joint_under_packed_raise():
+    z, x = (torch.from_numpy(a) for a in _case(4, 2, 4, 2, 2))
+    with pytest.raises(ValueError, match="unknown NDiv kernel variant"):
+        ndiv_cuda.ndiv_loss_fused(z, x, variant="blcok")
+    for fn in (ndiv_cuda.ndiv_fwd, ndiv_cuda.ndiv_joint):
+        with pytest.raises(ValueError, match="unknown NDiv kernel variant"):
+            fn(z, x, 0.8, "blcok")
+    with pytest.raises(ValueError, match="unknown NDiv kernel variant"):
+        ndiv_cuda.ndiv_bwd(z, x, 0.8, torch.ones(()), "blcok")
+    with pytest.raises(ValueError, match="no joint kernel"):
+        ndiv_cuda.ndiv_joint(z, x, 0.8, "packed")
+    assert set(ndiv_cuda.LAUNCHES) == {
+        "joint", "fwd", "bwd", "joint_group", "fwd_group", "bwd_group",
+        "fwd_packed", "bwd_packed"}
+
+
+def test_variant_and_joint_defaults_come_from_the_environment():
+    """NDIV_VARIANT and NDIV_JOINT are read at import, as the JAX module
+    reads them."""
+    probe = ("import json; from ndivplanning_tpu_torch.ops import ndiv_cuda;"
+             "print(json.dumps([ndiv_cuda.VARIANT, ndiv_cuda.JOINT]))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for env, want in (({}, ["block", True]),
+                      ({"NDIV_VARIANT": "packed", "NDIV_JOINT": "0"},
+                       ["packed", False])):
+        full = {k: v for k, v in os.environ.items()
+                if k not in ("NDIV_VARIANT", "NDIV_JOINT")}
+        out = subprocess.run([sys.executable, "-c", probe], cwd=root,
+                             env={**full, **env}, capture_output=True,
+                             text=True, check=True, timeout=300)
+        assert json.loads(out.stdout.strip().splitlines()[-1]) == want
