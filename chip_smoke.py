@@ -6,9 +6,12 @@ tilings) against its plain PyTorch version, then drives the port's main
 paths at full width: the goalcond preset trains 20 steps, plans with 1000
 candidates and evaluates NDiv without a gradient; the imagecond preset
 trains 20 steps, takes one step under each other NDiv route from one state,
-and plans with 1000 candidates on a rasterised scene.  Each phase prints one
-JSON line; any failure raises and exits non-zero.  The last line is the
-device summary.
+and plans with 1000 candidates on a rasterised scene; the pod_dp preset
+(B=8192, k=32, bf16) checks the sharded NDiv call site's per-rank function
+for virtual ranks, trains 10 steps through the data-parallel step on a 1x1
+mesh of one NCCL rank, and runs two gloo ranks on the card against one.
+Each phase prints one JSON line; any failure raises and exits non-zero.
+The last line is the device summary.
 
     python3 chip_smoke.py            # from the repository root, one card
 """
@@ -20,9 +23,14 @@ import dataclasses
 import functools
 import json
 import math
+import multiprocessing
+import os
+import queue
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published H100 SXM rates at its 700 W power limit (NVIDIA's data
@@ -58,6 +66,49 @@ STEP_ROUTES = [("block", False, {"fwd": 1, "bwd": 1}),
                ("group", True, {"joint_group": 1}),
                ("group", False, {"fwd_group": 1, "bwd_group": 1}),
                ("packed", True, {"fwd_packed": 1, "bwd_packed": 1})]
+
+# The pod_dp preset's per-rank NDiv shape on a 1x1 mesh: B=8192, k=32,
+# dz=2, dx=H*S=64.  The sharded call site's per-rank function runs for
+# virtual ranks at these (dp, div) and shapes, the last one ragged.
+POD_DP_SHAPE = (8192, 32, 2, 64)
+VIRTUAL_RANKS = [((1, 2), POD_DP_SHAPE), ((1, 4), POD_DP_SHAPE),
+                 ((2, 2), POD_DP_SHAPE), ((2, 2), (6, 8, 2, 16))]
+SHARDED_RTOL = 1e-6  # virtual ranks against the unsharded kernel
+POD_DP_STEPS = 10
+# Two ranks on one card against one: the meshes, the steps, and the
+# tolerances.  f32 is tests/test_parallel.py:121-126's, with the rule of
+# tests/test_torch_train_step.py: an element whose gradient is within
+# rounding of zero (|Adam moment| < 1% of its tensor's largest) may flip
+# its first Adam update (lr * g / |g|), so it lies within 2 lr a step.
+# bf16: each rank's weight gradient rounds to bf16 on its own, 2^-9 of
+# that half at most, and where the halves cancel to within that the sum
+# can change sign whatever its size against the tensor's largest: such an
+# element flips.  For a gradient summed from many noisy rows that is about
+# 2 * 2^-9 of the elements a step; over 3 steps, with flips moving the
+# next step's gradients, up to 2^-6 of G's elements may lie off, each
+# within 2 lr a step.  The rest: each of the ~4 bf16 layers of the
+# backward chain rounds on its own (4 x 2^-8 = 2^-6 of a gradient) and
+# Adam's normalised update doubles that: 2^-5 of lr a step.  Metrics,
+# means over bf16-rounded logits, move by at most one bf16 epsilon (2^-7).
+# d_rt and d_rt_ema are means of sign(logit), not of logits: a real logit
+# that rounds across 0 moves them by 2/B, so in bf16 they are held at one
+# bf16 epsilon of their range [-1, 1], absolute (a sign flip in at most
+# 0.4% of the reals).
+TWO_RANK_MESHES = [(2, 1), (1, 2)]
+TWO_RANK_STEPS = 3
+BF16_EPS = 2.0 ** -7
+METRIC_ATOL = 1e-5
+SIGN_METRICS = ("d_rt", "d_rt_ema")
+# "param_atol_of_lr": the params' atol as a share of lr per step;
+# "off_share": the share of G's elements that may lie off (None: only
+# those whose gradient is within rounding of zero, the f32 rule).
+TWO_RANK_TOL = {"f32": {"metric_rtol": 1e-3, "sign_atol": METRIC_ATOL,
+                        "param_rtol": 1e-3, "param_atol": 1e-5,
+                        "param_atol_of_lr": 0.0, "off_share": None},
+                "bf16": {"metric_rtol": BF16_EPS, "sign_atol": BF16_EPS,
+                         "param_rtol": 1e-3, "param_atol": 0.0,
+                         "param_atol_of_lr": 2.0 ** -5,
+                         "off_share": 2.0 ** -6}}
 
 
 def emit(obj) -> None:
@@ -299,13 +350,17 @@ def bound(b, k, dz, dx, kernel):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def reset(ndiv_cuda) -> None:
-    for key in ndiv_cuda.LAUNCHES:
-        ndiv_cuda.LAUNCHES[key] = 0
+def reset(*counted) -> None:
+    """Zero the ``LAUNCHES`` counts of the given modules."""
+    for module in counted:
+        for key in module.LAUNCHES:
+            module.LAUNCHES[key] = 0
 
 
-def launched(ndiv_cuda) -> dict:
-    return {key: n for key, n in ndiv_cuda.LAUNCHES.items() if n}
+def launched(*counted) -> dict:
+    """The nonzero ``LAUNCHES`` counts of the given modules."""
+    return {key: n for module in counted
+            for key, n in module.LAUNCHES.items() if n}
 
 
 def clone_state(torch, state):
@@ -334,20 +389,24 @@ def first_step_inputs(torch, cfg, state, make_task):
     return batch, z, x
 
 
-def train(torch, ndiv_cuda, cfg, state, step_fn):
-    """TRAIN_STEPS steps from ``state``, with the launch counts reset just
-    before; returns (state, per-step metrics, step ms, launches)."""
+def train(torch, ndiv_cuda, cfg, state, step_fn, steps=TRAIN_STEPS,
+          counted=(), want=None):
+    """``steps`` steps from ``state``, with the launch counts of
+    ``ndiv_cuda`` and ``counted`` reset just before; returns (state,
+    per-step metrics, step ms, launches).  The launches must be ``want``
+    (the joint kernel once a step by default)."""
+    want = {"joint": steps} if want is None else want
     before = [p.detach().clone() for p in state.g.parameters()]
     d_before = [p.detach().clone() for p in state.d.parameters()]
-    reset(ndiv_cuda)
+    reset(ndiv_cuda, *counted)
     step_ms, history = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step_fn(cfg, state)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         history.append({key: float(v) for key, v in metrics.items()})
-    launches = launched(ndiv_cuda)
+    launches = launched(ndiv_cuda, *counted)
     for rec in history:
         for key, v in rec.items():
             if v != v or abs(v) == float("inf"):
@@ -356,10 +415,9 @@ def train(torch, ndiv_cuda, cfg, state, step_fn):
         raise AssertionError("G params did not change")
     if all(torch.equal(a, p) for a, p in zip(d_before, state.d.parameters())):
         raise AssertionError("D params did not change")
-    if launches != {"joint": TRAIN_STEPS}:
-        raise AssertionError(f"{cfg.name}: launches {launches} in "
-                             f"{TRAIN_STEPS} steps, want joint only, once "
-                             "a step")
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: launches {launches} in {steps} "
+                             f"steps, want {want}")
     return state, history, step_ms, launches
 
 
@@ -417,8 +475,177 @@ def check_plan(torch, plan, create_train_state, cfg, state, result, scene,
                 == small_cpu.diverse_idx.tolist()}
 
 
+def check_virtual_ranks(torch, ndiv_cuda, sharded, z, x, dp, div):
+    """The sharded call site's per-rank function, for dp x div virtual
+    ranks in this process, against the unsharded ``ndiv_joint``: the
+    partials summed on the host in rank order, and the grads, each
+    condition's from exactly one rank's kernel."""
+    b, k = z.shape[:2]
+    m = b * k * (k - 1)
+    total, want_gz, want_gx = ndiv_cuda.ndiv_joint(z, x, ALPHA)
+    reset(ndiv_cuda, sharded)
+    partials = []
+    gz, gx = torch.zeros_like(z), torch.zeros_like(x)
+    bl = b // dp
+    for i in range(dp):
+        rows = slice(i * bl, (i + 1) * bl)
+        z_full = z[rows].clone().requires_grad_()
+        x_full = x[rows].clone().requires_grad_()
+        for j in range(div):
+            part = sharded.ndiv_rank_partial(z_full, x_full, ALPHA, j, div)
+            g_z, g_x = torch.autograd.grad(part / m, (z_full, x_full))
+            partials.append(float(part.detach()))
+            gz[rows] += g_z
+            gx[rows] += g_x
+    torch.cuda.synchronize()
+    launches = launched(ndiv_cuda, sharded)
+    if launches != {"joint": dp * div, "ndiv_sharded": dp * div}:
+        raise AssertionError(f"virtual ranks {dp}x{div}: launches {launches}")
+    want = float(total) / m
+    loss_rel = abs(sum(partials) / m - want) / abs(want)
+    grad_rel = max(max_err(gz, want_gz) / float(want_gz.abs().max()),
+                   max_err(gx, want_gx) / float(want_gx.abs().max()))
+    if loss_rel > SHARDED_RTOL or grad_rel > SHARDED_RTOL:
+        raise AssertionError(
+            f"virtual ranks {dp}x{div} at {list(z.shape)}: loss {loss_rel:.2e}"
+            f" and grads {grad_rel:.2e} of the largest off the unsharded "
+            f"kernel (tolerance {SHARDED_RTOL})")
+    return {"mesh": [dp, div], "shape": list(z.shape[:2])
+            + [z.shape[2], x.shape[2]], "loss": want,
+            "loss_rel_err": loss_rel, "grad_err_over_max": grad_rel,
+            "launches": launches}
+
+
+def pod_dp_run(dtype, dp, div, steps, mesh=None):
+    """pod_dp at full width from seed 0, ``steps`` sharded steps on a
+    (dp, div) mesh (``mesh``, or one made over the default process group):
+    per-step metrics, G's params and G's Adam first moments, on the host."""
+    from ndivplanning_tpu_torch.parallel import (
+        make_sharded_train_step,
+        shard_state,
+    )
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    cfg = get_config("pod_dp", dp_shards=dp, div_shards=div,
+                     compute_dtype=dtype)
+    step_fn, mesh = make_sharded_train_step(cfg, mesh)
+    state = shard_state(create_train_state(cfg, seed=0), mesh)
+    history = []
+    for _ in range(steps):
+        state, metrics = step_fn(state)
+        history.append({key: float(v) for key, v in metrics.items()})
+    return (history,
+            {n: p.detach().cpu().numpy()
+             for n, p in state.g.named_parameters()},
+            {n: v.cpu().numpy() for n, v in state.g_opt.mu.items()})
+
+
+def two_rank_worker(rank, store_path, runs, results):
+    """One of two ranks sharing the card through gloo (NCCL refuses two
+    ranks on one device): every (dtype, dp, div) of ``runs``, through
+    ``pod_dp_run``.  Puts (rank, ok, results or traceback) on ``results``."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, 2),
+                                rank=rank, world_size=2)
+        try:
+            out = {run: pod_dp_run(*run, TWO_RANK_STEPS) for run in runs}
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:  # reported to the parent, which raises
+        results.put((rank, False, traceback.format_exc()))
+
+
+def run_two_ranks(runs, tmpdir, timeout=600):
+    """``two_rank_worker`` in two spawned processes; their results by rank.
+    Kills both and raises if either fails or they outlast ``timeout``."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    store_path = os.path.join(tmpdir, "two_rank_store")
+    procs = [ctx.Process(target=two_rank_worker,
+                         args=(rank, store_path, runs, results))
+             for rank in range(2)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in procs:  # drain the queue before joining
+            try:
+                rank, ok, value = results.get(timeout=timeout)
+            except queue.Empty:
+                raise AssertionError(
+                    f"two ranks did not finish in {timeout} s") from None
+            if not ok:
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            out[rank] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [out[0], out[1]]
+
+
+def compare_runs(ref, got, dtype, lr, steps, label):
+    """A sharded run against the 1x1 run from the same state, at
+    TWO_RANK_TOL[dtype]: metrics, and G's params (see TWO_RANK_TOL for the
+    elements whose gradient is within rounding of zero)."""
+    import numpy as np
+
+    tol = TWO_RANK_TOL[dtype]
+    ref_history, ref_params, ref_mu = ref
+    history, params, _ = got
+    metric_err = {}
+    for step, (rec, want) in enumerate(zip(history, ref_history)):
+        for key, w in want.items():
+            atol = tol["sign_atol"] if key in SIGN_METRICS else METRIC_ATOL
+            if abs(rec[key] - w) > atol + tol["metric_rtol"] * abs(w):
+                raise AssertionError(
+                    f"{label} step {step} {key}: {rec[key]} vs 1x1 {w} "
+                    f"(rtol {tol['metric_rtol']}, atol {atol})")
+            metric_err[key] = max(metric_err.get(key, 0.0),
+                                  abs(rec[key] - w) / max(abs(w), 1e-30))
+    param_err, resolved_err, flipped, total = 0.0, 0.0, 0, 0
+    atol = tol["param_atol"] + tol["param_atol_of_lr"] * lr * steps
+    for name, want in ref_params.items():
+        diff = np.abs(params[name] - want)
+        off = diff > atol + tol["param_rtol"] * np.abs(want)
+        mu = np.abs(ref_mu[name])
+        resolved = mu > 1e-2 * mu.max()
+        if tol["off_share"] is None and np.any(off & resolved):
+            raise AssertionError(
+                f"{label} G param {name}: {float(diff[off & resolved].max())}"
+                f" off the 1x1 run where its gradient is resolved")
+        if float(diff.max()) > 2.0 * lr * steps + 1e-6:
+            raise AssertionError(f"{label} G param {name}: "
+                                 f"{float(diff.max())} > 2 lr per step")
+        param_err = max(param_err, float(diff.max()))
+        resolved_err = max(resolved_err, float(diff[resolved].max()))
+        flipped += int(np.sum(off))
+        total += diff.size
+    if tol["off_share"] is not None and flipped > tol["off_share"] * total:
+        raise AssertionError(f"{label}: {flipped} of {total} G params off "
+                             f"the 1x1 run, over {tol['off_share']}")
+    return {"metrics_max_rel_err": metric_err,
+            "metrics_1x1_last": ref_history[-1],
+            "g_params_max_abs_err": param_err,
+            "g_params_resolved_grad_max_abs_err": resolved_err,
+            "g_params_outside_tol": flipped,
+            "g_params": total, "tolerance": tol}
+
+
 def main() -> int:
     import torch
+    import torch.distributed as dist
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -428,6 +655,12 @@ def main() -> int:
     from ndivplanning_tpu_torch.envs.types import Scene
     from ndivplanning_tpu_torch.ops import ndiv_cuda
     from ndivplanning_tpu_torch.ops.ndiv import ndiv_loss
+    from ndivplanning_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_train_step,
+        shard_state,
+    )
+    from ndivplanning_tpu_torch.parallel import sharded_step as sharded
     from ndivplanning_tpu_torch.planning.planner import plan
     from ndivplanning_tpu_torch.train.state import (
         create_train_state,
@@ -668,7 +901,125 @@ def main() -> int:
           **profile(torch, lambda: plan(icfg, istate, iscene, image,
                                         iplan_gen), 3)})
 
-    # 8. Kernel times on the first imagecond step's inputs, every route.
+    # 8. The pod_dp path.  First the sharded call site's per-rank function
+    # for virtual ranks, against the unsharded kernel.
+    for (dp, div), (b, k, dz, dx) in VIRTUAL_RANKS:
+        z, x = away_from_kinks(torch, lambda n: (
+            spread_latents(torch, n, k, dz, gen),
+            torch.randn((n, k, dx), generator=gen, device="cuda")), b)
+        emit({"phase": "sharded_ndiv_ranks",
+              **check_virtual_ranks(torch, ndiv_cuda, sharded, z, x, dp,
+                                    div)})
+
+    # 8b. pod_dp at full width through make_sharded_train_step on a 1x1
+    # mesh of one NCCL rank (the one cut: 8 chips to 1).
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmpdir, "store"), 1),
+        rank=0, world_size=1)
+    pcfg = get_config("pod_dp", dp_shards=1, div_shards=1)
+    mesh = make_mesh(cfg=pcfg)
+    pstep, _ = make_sharded_train_step(pcfg, mesh)
+    pstate = shard_state(create_train_state(pcfg, seed=0), mesh)
+    start_state = clone_state(torch, pstate)
+    pstate, phistory, pstep_ms, path_launches["pod_dp_train"] = train(
+        torch, ndiv_cuda, pcfg, pstate, lambda c, s: pstep(s),
+        steps=POD_DP_STEPS, counted=(sharded,),
+        want={"joint": POD_DP_STEPS, "ndiv_sharded": POD_DP_STEPS})
+    # The same first step twice from clones of the start: bitwise equal.
+    # Then once without a mesh: the only difference is the NDiv partial's
+    # rescale by m_local / m.
+    s1, m1 = pstep(clone_state(torch, start_state))
+    s2, m2 = pstep(clone_state(torch, start_state))
+    repeat_bitwise = all(torch.equal(m1[key], m2[key]) for key in m1)
+    repeat_bitwise &= all(
+        torch.equal(p, q) for p, q in zip(
+            [*s1.g.parameters(), *s1.d.parameters()],
+            [*s2.g.parameters(), *s2.d.parameters()]))
+    if not repeat_bitwise:
+        raise AssertionError("the sharded pod_dp step is not bitwise "
+                             "repeatable")
+    _, m3 = train_step_fused(pcfg, clone_state(torch, start_state))
+    unsharded_rel = {key: abs(float(m3[key]) - float(m1[key][0]))
+                     / abs(float(m1[key][0])) for key in m3}
+    if max(unsharded_rel.values()) > 1e-5:
+        raise AssertionError(f"pod_dp: the step without a mesh is "
+                             f"{unsharded_rel} relative off the sharded one")
+    first, last = phistory[0], phistory[-1]
+    emit({"phase": "pod_dp_train", "preset": "pod_dp",
+          "steps": POD_DP_STEPS, "mesh": mesh.shape,
+          "backend": dist.get_backend(), "batch_size": pcfg.batch_size,
+          "k": pcfg.k, "horizon": pcfg.horizon,
+          "g_hidden": list(pcfg.g_hidden), "d_hidden": list(pcfg.d_hidden),
+          "cond_embed_dim": pcfg.cond_embed_dim,
+          "compute_dtype": pcfg.compute_dtype,
+          "launches": path_launches["pod_dp_train"],
+          "first": {k: first[k] for k in ("d_loss", "g_adv", "g_ndiv")},
+          "last": {k: last[k] for k in ("d_loss", "g_adv", "g_ndiv")},
+          "step_ms_median": statistics.median(pstep_ms),
+          "step_ms_first": pstep_ms[0],
+          "repeat_bitwise": repeat_bitwise,
+          "unsharded_step_rel_err": unsharded_rel})
+
+    # 8c. Two ranks on the card (gloo) against the 1x1 run, f32 and bf16.
+    runs = [(dtype, dp, div) for dtype in ("f32", "bf16")
+            for dp, div in TWO_RANK_MESHES]
+    refs = {dtype: pod_dp_run(dtype, 1, 1, TWO_RANK_STEPS, mesh)
+            for dtype in ("f32", "bf16")}
+    t0 = time.perf_counter()
+    ranks = run_two_ranks(runs, tmpdir)
+    two_rank_s = time.perf_counter() - t0
+    compared = []
+    for run in runs:
+        for rank, out in enumerate(ranks):
+            compared.append({
+                "dtype": run[0], "mesh": list(run[1:]), "rank": rank,
+                **compare_runs(refs[run[0]], out[run], run[0], pcfg.g_lr,
+                               TWO_RANK_STEPS,
+                               f"{run[0]} {run[1]}x{run[2]} rank {rank}")})
+    emit({"phase": "pod_dp_two_ranks", "backend": "gloo",
+          "steps": TWO_RANK_STEPS, "seconds": two_rank_s,
+          "runs": compared})
+    emit({"phase": "profile_pod_dp_train_step", "preset": "pod_dp",
+          **profile(torch, lambda: pstep(pstate), 5)})
+
+    # 8d. The sharded call site and ndiv_joint at pod_dp's per-rank shape,
+    # on inputs away from the hinge's kinks: the call site (loss and both
+    # grads) against its plain version, the "jnp" row-block strategy.
+    b, k, dz, dx = POD_DP_SHAPE
+    zp, xp = away_from_kinks(torch, lambda n: (
+        spread_latents(torch, n, k, dz, gen),
+        torch.randn((n, k, dx), generator=gen, device="cuda")), b)
+
+    def call_site(impl):
+        zr, xr = zp.clone().requires_grad_(), xp.clone().requires_grad_()
+
+        def fn():
+            loss = sharded.ndiv_loss_sharded(zr, xr, ALPHA, mesh, impl)
+            return (loss, *torch.autograd.grad(loss, (zr, xr)))
+        return fn
+
+    site, site_plain = call_site("pallas"), call_site("jnp")
+    got, want = site(), site_plain()
+    site_err = 0.0
+    for name, g, w, rtol, atol in zip(
+            ("loss", "dz", "dx"), got, want, (VAL_RTOL, GRAD_RTOL, GRAD_RTOL),
+            (0.0, GRAD_ATOL_OF_MAX, GRAD_ATOL_OF_MAX)):
+        assert_close(torch, g, w, f"sharded call site {name}", rtol, atol)
+        site_err = max(site_err, max_err(g, w))
+    pod_times = {
+        "site_ms": device_ms(torch, site, 50, 50_000_000),
+        "site_plain_ms": device_ms(torch, site_plain, 4, 200_000_000),
+        "joint_ms": device_ms(torch, functools.partial(
+            ndiv_cuda.ndiv_joint, zp, xp, ALPHA), 100, 50_000_000),
+        "joint_plain_ms": device_ms(torch, functools.partial(
+            ndiv_cuda.ndiv_joint_plain, zp, xp, ALPHA), 4, 200_000_000)}
+    emit({"phase": "kernel_times_pod_dp", "shape": list(POD_DP_SHAPE),
+          "site_max_abs_err": site_err, **pod_times, "card": smi})
+    dist.destroy_process_group()
+    shutil.rmtree(tmpdir)
+
+    # 9. Kernel times on the first imagecond step's inputs, every route.
     totals = {}
     for launches in path_launches.values():
         for key, n in launches.items():
@@ -699,6 +1050,30 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "shape": list(IMAGECOND_SHAPE), "card": smi})
+        if key == "joint":
+            kernels[-1].update(
+                ms_pod_dp=pod_times["joint_ms"],
+                plain_ms_pod_dp=pod_times["joint_plain_ms"],
+                bound_ms_pod_dp=bound(*POD_DP_SHAPE, "joint")[0],
+                shape_pod_dp=list(POD_DP_SHAPE))
+    # The sharded call site on the 1x1 mesh: the joint kernel, a sum over
+    # the world and the division by the global pair count.  At div > 1 its
+    # least time adds the all-gather of z and x (k/div of them per rank,
+    # the rest received); at div = 1 nothing is gathered.
+    site_bound, site_by = bound(*POD_DP_SHAPE, "joint")
+    kernels.append({
+        "name": "ndiv_sharded_call_site", "route": "cuda",
+        "source": "ndivplanning_tpu_torch/parallel/sharded_step.py "
+                  "(kernel: ndivplanning_tpu_torch/csrc/ndiv.cu)",
+        "replaces": "ndivplanning_tpu/parallel/sharded_step.py:187",
+        "launches": totals.get("ndiv_sharded", 0),
+        "launches_by_path": {p: n["ndiv_sharded"]
+                             for p, n in path_launches.items()
+                             if "ndiv_sharded" in n},
+        "max_abs_err": site_err, "ms": pod_times["site_ms"],
+        "plain_ms": pod_times["site_plain_ms"], "bound_ms": site_bound,
+        "bound_by": site_by, "allgather_bytes": 0, "library_ms": None,
+        "mesh": mesh.shape, "shape": list(POD_DP_SHAPE), "card": smi})
     for row in kernels:
         if not row["launches"]:
             raise AssertionError(f"{row['name']} never ran on a main path")

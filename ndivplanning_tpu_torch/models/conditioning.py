@@ -2,7 +2,8 @@
 
 Modes "none" (a ``[B, 0]`` embedding), "startgoal" (``[B, 4]`` start xy,
 goal xy -> MLP embedding) and "image" (``[B, S, S, 3]`` scene images ->
-conv embedding, ``models/encoder.py``).
+conv embedding, ``models/encoder.py``).  ``dtype`` is the compute dtype:
+the embedding comes out in it, as from the flax module.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from torch import nn
 
 from ndivplanning_tpu_torch.data.scenes import IMAGE_CHANNELS
 from ndivplanning_tpu_torch.models.encoder import SceneEncoderCNN
-from ndivplanning_tpu_torch.models.mlp import dense
+from ndivplanning_tpu_torch.models.mlp import dense, linear
 
 MODES = ("none", "startgoal", "image")
 
@@ -27,11 +28,12 @@ class ConditionEncoder(nn.Module):
                  hidden: Sequence[int] = (64,),
                  encoder_features: Sequence[int] = (16, 32, 64),
                  image_size: int = 32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"unknown conditioning mode {mode!r}")
-        self.mode = mode
+        self.mode, self.compute_dtype = mode, dtype
         self.embed_dim = 0 if mode == "none" else embed_dim
         self.layers = nn.ModuleList()
         if mode == "startgoal":
@@ -40,14 +42,15 @@ class ConditionEncoder(nn.Module):
                                for a, b in zip(dims[:-1], dims[1:]))
         elif mode == "image":
             self.cnn = SceneEncoderCNN(embed_dim, encoder_features,
-                                       image_size, IMAGE_CHANNELS, generator)
+                                       image_size, IMAGE_CHANNELS, generator,
+                                       dtype)
 
     def forward(self, conditions: torch.Tensor) -> torch.Tensor:
         if self.mode == "none":
             return conditions.new_zeros((conditions.shape[0], 0))
         if self.mode == "image":
             return self.cnn(conditions)
-        x = conditions
+        x, dtype = conditions.to(self.compute_dtype), self.compute_dtype
         for layer in self.layers[:-1]:
-            x = F.relu(layer(x))
-        return self.layers[-1](x)
+            x = F.relu(linear(layer, x, dtype))
+        return linear(self.layers[-1], x, dtype)

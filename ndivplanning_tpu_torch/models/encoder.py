@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ndivplanning_tpu_torch.models.mlp import dense, lecun_normal_
+from ndivplanning_tpu_torch.models.mlp import dense, lecun_normal_, linear
 
 _STRIDE = 2
 _KERNEL = 3
@@ -39,8 +39,10 @@ class SceneEncoderCNN(nn.Module):
     def __init__(self, embed_dim: int = 64,
                  features: Sequence[int] = (16, 32, 64),
                  image_size: int = 32, in_channels: int = 3,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         convs, channels, size = [], in_channels, image_size
         for f in features:
             conv = nn.Conv2d(channels, f, _KERNEL, stride=_STRIDE)
@@ -51,10 +53,17 @@ class SceneEncoderCNN(nn.Module):
         self.dense = dense(channels * size * size, embed_dim, generator)
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
-        x = image.float().permute(0, 3, 1, 2)  # NHWC -> NCHW for the convs
+        dtype = self.compute_dtype
+        x = image.to(dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW for the convs
         for conv in self.convs:
             top, bottom = _same_pad(x.shape[2])
             left, right = _same_pad(x.shape[3])
-            x = F.relu(conv(F.pad(x, (left, right, top, bottom))))
+            x = F.pad(x, (left, right, top, bottom))
+            if dtype == torch.float32:
+                x = conv(x)
+            else:
+                x = (F.conv2d(x, conv.weight.to(dtype), stride=_STRIDE)
+                     + conv.bias.to(dtype)[:, None, None])
+            x = F.relu(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten as NHWC
-        return self.dense(x)
+        return linear(self.dense, x, dtype)

@@ -4,6 +4,11 @@ Layouts follow the JAX modules: the condition embedding is concatenated
 before the latent (``[cond_embed, z]``) or the flattened trajectory
 (``[cond_embed, flat_traj]``), and the k samples fold into the batch axis
 before the dense stack.
+
+``dtype`` is the compute dtype, as flax's ``Dense(dtype=...)``: parameters
+stay float32 and each layer casts its input, weight and bias to ``dtype``,
+rounds the product to it and then adds the bias (:func:`linear`).  The
+outputs (trajectories, logits, features) come back as float32.
 """
 
 from __future__ import annotations
@@ -38,19 +43,32 @@ def dense(in_dim: int, out_dim: int,
     return layer
 
 
+def linear(layer: nn.Linear, x: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` in ``dtype`` as flax computes ``Dense(dtype=dtype)``:
+    the product rounded to ``dtype``, then the bias added in it."""
+    if dtype == torch.float32:
+        return layer(x)
+    return (torch.matmul(x.to(dtype), layer.weight.to(dtype).t())
+            + layer.bias.to(dtype))
+
+
 class MLPTrunk(nn.Module):
-    """Dense-ReLU trunk shared by G and D."""
+    """Dense-ReLU trunk shared by G and D; casts its input to ``dtype``."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int],
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         dims = [in_dim, *hidden]
+        self.compute_dtype = dtype
         self.layers = nn.ModuleList(
             dense(a, b, generator) for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
         for layer in self.layers:
-            x = F.relu(layer(x))
+            x = F.relu(linear(layer, x, self.compute_dtype))
         return x
 
 
@@ -69,19 +87,20 @@ class Generator(nn.Module):
     def __init__(self, cond_dim: int, latent_dim: int, horizon: int,
                  state_dim: int = 2, hidden: Sequence[int] = (256, 256),
                  output: str = "linear",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if output not in ("linear", "sigmoid"):
             raise ValueError(f"unknown output activation {output!r}")
         self.horizon, self.state_dim, self.output = horizon, state_dim, output
-        self.trunk = MLPTrunk(cond_dim + latent_dim, hidden, generator)
+        self.trunk = MLPTrunk(cond_dim + latent_dim, hidden, generator, dtype)
         self.head = dense(hidden[-1], horizon * state_dim, generator)
 
     def forward(self, cond_embed: torch.Tensor,
                 z: torch.Tensor) -> torch.Tensor:
         b, k, _ = z.shape
         x = _with_condition(cond_embed, z).reshape(b * k, -1)
-        x = self.head(self.trunk(x)).float()
+        x = linear(self.head, self.trunk(x), self.trunk.compute_dtype).float()
         if self.output == "sigmoid":
             x = torch.sigmoid(x)
         return x.reshape(b, k, self.horizon, self.state_dim)
@@ -92,9 +111,10 @@ class Discriminator(nn.Module):
 
     def __init__(self, cond_dim: int, traj_dim: int,
                  hidden: Sequence[int] = (256, 256),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.trunk = MLPTrunk(cond_dim + traj_dim, hidden, generator)
+        self.trunk = MLPTrunk(cond_dim + traj_dim, hidden, generator, dtype)
         self.head = dense(hidden[-1], 1, generator)
 
     def forward(self, cond_embed: torch.Tensor, traj: torch.Tensor,
@@ -113,7 +133,8 @@ class Discriminator(nn.Module):
                 x = torch.cat([cond_embed, x], dim=-1)
             lead = (b,)
         feats = self.trunk(x)
-        logit = self.head(feats).float().reshape(*lead)
+        logit = linear(self.head, feats,
+                       self.trunk.compute_dtype).float().reshape(*lead)
         if return_features:
             return logit, feats.float().reshape(*lead, feats.shape[-1])
         return logit

@@ -20,6 +20,12 @@ the forward kernel, whose backward is ``ndiv_bwd``.  ``VARIANT`` and
 ``JOINT`` are read from ``NDIV_VARIANT`` and ``NDIV_JOINT`` at import, as
 the JAX module reads them.
 
+The kernels compute in float32 (accumulating in float64).  As the JAX
+kernels do, the wrappers upcast bf16 and f16 inputs to float32 first and
+cast the grads back to each input's dtype; under differentiation the unit
+grads are cast back, then scaled by the cotangent in float32 and cast
+again (``_vjp_bwd``).  The loss is float32.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses its
 plain version (:func:`ndiv_joint_plain`, :func:`ndiv_fwd_plain`,
 :func:`ndiv_bwd_plain`) only for CPU tensors.  ``LAUNCHES`` counts kernel
@@ -220,6 +226,12 @@ def load():
 # ---------------------------------------------------------------- wrappers
 
 
+def _upcast(a: torch.Tensor) -> torch.Tensor:
+    """bf16 and f16 inputs in float32, as the JAX kernels' ``_pack``
+    casts them."""
+    return a.float() if a.is_floating_point() and a.element_size() < 4 else a
+
+
 def _on_cpu(z: torch.Tensor, x: torch.Tensor) -> bool:
     if z.device.type == "cpu" and x.device.type == "cpu":
         return True
@@ -291,18 +303,22 @@ def ndiv_joint(z: torch.Tensor, x: torch.Tensor, alpha: float,
                variant: str = "block"):
     """(hinge sum, dL/dz, dL/dx at unit cotangent) for ``[B, k, d]`` inputs."""
     check_variant(variant, "joint")
+    z32, x32 = _upcast(z), _upcast(x)
     if _on_cpu(z, x):
-        return ndiv_joint_plain(z, x, alpha)
-    return _launch("joint", variant, z, x, alpha)
+        total, gz, gx = ndiv_joint_plain(z32, x32, alpha)
+    else:
+        total, gz, gx = _launch("joint", variant, z32, x32, alpha)
+    return total, gz.to(z.dtype), gx.to(x.dtype)
 
 
 def ndiv_fwd(z: torch.Tensor, x: torch.Tensor, alpha: float,
              variant: str = "block") -> torch.Tensor:
     """Hinge sum for ``[B, k, d]`` inputs."""
     check_variant(variant)
+    z32, x32 = _upcast(z), _upcast(x)
     if _on_cpu(z, x):
-        return ndiv_fwd_plain(z, x, alpha)
-    return _launch("fwd", variant, z, x, alpha)
+        return ndiv_fwd_plain(z32, x32, alpha)
+    return _launch("fwd", variant, z32, x32, alpha)
 
 
 def ndiv_bwd(z: torch.Tensor, x: torch.Tensor, alpha: float, g: torch.Tensor,
@@ -310,13 +326,16 @@ def ndiv_bwd(z: torch.Tensor, x: torch.Tensor, alpha: float, g: torch.Tensor,
     """(dL/dz, dL/dx) at the cotangent ``g`` (a 0-d tensor on z's device)
     of L = hinge sum / (B k (k-1)), for ``[B, k, d]`` inputs."""
     check_variant(variant)
+    z32, x32 = _upcast(z), _upcast(x)
     if _on_cpu(z, x):
-        return ndiv_bwd_plain(z, x, alpha, g)
-    if g.numel() != 1 or g.device != z.device:
-        raise ValueError(f"g must be one value on {z.device}, got "
-                         f"{tuple(g.shape)} on {g.device}")
-    return _launch("bwd", variant, z, x, alpha,
-                   g.to(torch.float32).contiguous())
+        gz, gx = ndiv_bwd_plain(z32, x32, alpha, g)
+    else:
+        if g.numel() != 1 or g.device != z.device:
+            raise ValueError(f"g must be one value on {z.device}, got "
+                             f"{tuple(g.shape)} on {g.device}")
+        gz, gx = _launch("bwd", variant, z32, x32, alpha,
+                         g.to(torch.float32).contiguous())
+    return gz.to(z.dtype), gx.to(x.dtype)
 
 
 class _NDivFused(torch.autograd.Function):
@@ -331,9 +350,14 @@ class _NDivFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        def scale(unit):
+            # As _vjp_bwd: scaled in float32 (or wider), cast back.
+            wide = _upcast(unit)
+            return (wide * g.to(wide.dtype)).to(unit.dtype)
+
         gz, gx = ctx.saved_tensors
-        return (gz * g if ctx.needs_input_grad[0] else None,
-                gx * g if ctx.needs_input_grad[1] else None, None, None)
+        return (scale(gz) if ctx.needs_input_grad[0] else None,
+                scale(gx) if ctx.needs_input_grad[1] else None, None, None)
 
 
 class _NDivRecompute(torch.autograd.Function):

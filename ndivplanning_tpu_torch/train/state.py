@@ -18,15 +18,25 @@ from ndivplanning_tpu_torch.utils.config import Config
 from ndivplanning_tpu_torch.utils.device import resolve_device
 
 
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The models' compute dtype; parameters, optimizer state and EMA stay
+    float32 whatever it is."""
+    try:
+        return _DTYPES[cfg.compute_dtype]
+    except KeyError:
+        raise ValueError(
+            f"unknown compute_dtype {cfg.compute_dtype!r}; "
+            f"choose from {sorted(_DTYPES)}") from None
+
+
 def check_model_knobs(cfg: Config) -> None:
     """Raise for model options the port does not have yet."""
     if cfg.g_arch != "mlp":
         raise NotImplementedError(
             f"g_arch={cfg.g_arch!r} is not ported yet (only 'mlp')")
-    if cfg.compute_dtype != "f32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported yet "
-            "(only 'f32')")
     if cfg.d_spectral_norm:
         raise NotImplementedError("d_spectral_norm is not ported yet")
 
@@ -46,13 +56,15 @@ class ConditionedGenerator(nn.Module):
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
         check_model_knobs(cfg)
+        dtype = compute_dtype(cfg)
         self.encoder = ConditionEncoder(
             cfg.conditioning, cfg.cond_embed_dim,
             encoder_features=cfg.encoder_features,
-            image_size=cfg.image_size, generator=generator)
+            image_size=cfg.image_size, generator=generator, dtype=dtype)
         self.generator = Generator(
             self.encoder.embed_dim, cfg.latent_dim, cfg.horizon,
-            cfg.state_dim, cfg.g_hidden, cfg.generator_output, generator)
+            cfg.state_dim, cfg.g_hidden, cfg.generator_output, generator,
+            dtype)
 
     def forward(self, conditions: torch.Tensor,
                 z: torch.Tensor) -> torch.Tensor:
@@ -65,12 +77,14 @@ class ConditionedDiscriminator(nn.Module):
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
         check_model_knobs(cfg)
+        dtype = compute_dtype(cfg)
         self.encoder = ConditionEncoder(
             cfg.conditioning, cfg.cond_embed_dim,
             encoder_features=cfg.encoder_features,
-            image_size=cfg.image_size, generator=generator)
+            image_size=cfg.image_size, generator=generator, dtype=dtype)
         self.discriminator = Discriminator(
-            self.encoder.embed_dim, cfg.traj_dim, cfg.d_hidden, generator)
+            self.encoder.embed_dim, cfg.traj_dim, cfg.d_hidden, generator,
+            dtype)
 
     def forward(self, conditions: torch.Tensor, traj: torch.Tensor,
                 return_features: bool = False):

@@ -18,6 +18,10 @@ def resolve_device(device=None) -> torch.device:
         # starts on the card.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # bf16 products accumulate in float32 as XLA's do: no split-K
+        # partial sums rounded to bf16.
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
         # The JAX package's step is bitwise repeatable; cuDNN's default
         # conv backward algorithms (the image encoder's) sum with atomics.
         torch.backends.cudnn.deterministic = True

@@ -178,3 +178,103 @@ def test_wrappers_raise_instead_of_converting(cuda):
     with pytest.raises(ValueError, match="no joint kernel"):
         ndiv_cuda.ndiv_joint(z, torch.zeros((2, 8, 4), device="cuda"), 0.8,
                              "packed")
+
+
+def test_bf16_inputs_compute_in_f32_and_return_bf16_grads(cuda):
+    """bf16 z and x: the kernel runs on their float32 upcast; the grads come
+    back as bf16, within an ulp (2^-8 to 2^-7 of a value) of the plain
+    version's on the CPU: the two round different float32 values."""
+    z = _spread_latents(cuda, 64, 8, 2).bfloat16().requires_grad_()
+    x = torch.randn((64, 8, 32), generator=cuda,
+                    device="cuda").bfloat16().requires_grad_()
+    before = ndiv_cuda.LAUNCHES["joint"]
+    loss = ndiv_cuda.ndiv_loss_fused(z, x, 0.8)
+    gz, gx = torch.autograd.grad(3.0 * loss, (z, x))
+    assert ndiv_cuda.LAUNCHES["joint"] == before + 1
+    assert loss.dtype == torch.float32 and gz.dtype == torch.bfloat16
+    zc = z.detach().cpu().requires_grad_()
+    xc = x.detach().cpu().requires_grad_()
+    ref = ndiv_cuda.ndiv_loss_fused(zc, xc, 0.8)
+    ref_gz, ref_gx = torch.autograd.grad(3.0 * ref, (zc, xc))
+    torch.testing.assert_close(loss.cpu(), ref, rtol=1e-5, atol=0.0)
+    for got, want in ((gz, ref_gz), (gx, ref_gx)):
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=2.0 ** -7,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dp,div,b", [(1, 2, 64), (2, 2, 64), (2, 2, 6)])
+def test_sharded_call_site_ranks_match_the_unsharded_kernel(cuda, dp, div, b):
+    """The per-rank function of the sharded call site for dp x div virtual
+    ranks: one joint launch each, and partials and grads that sum to the
+    unsharded kernel's."""
+    from ndivplanning_tpu_torch.parallel import sharded_step
+
+    z, x = _inputs(cuda, b, 8, 2, 16)
+    m = b * 8 * 7
+    total, want_gz, want_gx = ndiv_cuda.ndiv_joint(z, x, 0.8)
+    before = (ndiv_cuda.LAUNCHES["joint"],
+              sharded_step.LAUNCHES["ndiv_sharded"])
+    partial, gz, gx = 0.0, torch.zeros_like(z), torch.zeros_like(x)
+    bl = b // dp
+    for i in range(dp):
+        rows = slice(i * bl, (i + 1) * bl)
+        zf = z[rows].clone().requires_grad_()
+        xf = x[rows].clone().requires_grad_()
+        for j in range(div):
+            p = sharded_step.ndiv_rank_partial(zf, xf, 0.8, j, div)
+            g_z, g_x = torch.autograd.grad(p / m, (zf, xf))
+            partial += float(p.detach())
+            gz[rows] += g_z
+            gx[rows] += g_x
+    assert (ndiv_cuda.LAUNCHES["joint"] - before[0],
+            sharded_step.LAUNCHES["ndiv_sharded"] - before[1]) == (dp * div,
+                                                                    dp * div)
+    assert abs(partial - float(total)) <= 1e-6 * float(total)
+    for got, want in ((gz, want_gz), (gx, want_gx)):
+        torch.testing.assert_close(got, want, rtol=0.0,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+def test_pod_dp_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
+    """A shrunk bf16 pod_dp step through make_sharded_train_step on a 1x1
+    NCCL mesh: the joint kernel once a step through the sharded call site,
+    and the step without a mesh within 1e-5 of it."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from ndivplanning_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_train_step,
+        shard_state,
+    )
+    from ndivplanning_tpu_torch.parallel import sharded_step
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.train.step import train_step_fused
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    cfg = get_config("pod_dp", batch_size=256, k=8, dp_shards=1)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        step_fn, mesh = make_sharded_train_step(cfg, make_mesh(cfg=cfg))
+        state = shard_state(create_train_state(cfg, seed=0), mesh)
+        rng = torch.Generator(device="cuda")
+        rng.set_state(state.rng.get_state())
+        unsharded = dataclasses.replace(
+            copy.deepcopy(dataclasses.replace(state, rng=None)), rng=rng)
+        before = (ndiv_cuda.LAUNCHES["joint"],
+                  sharded_step.LAUNCHES["ndiv_sharded"])
+        state, m = step_fn(state)
+        torch.cuda.synchronize()
+        assert (ndiv_cuda.LAUNCHES["joint"] - before[0],
+                sharded_step.LAUNCHES["ndiv_sharded"] - before[1]) == (1, 1)
+        _, want = train_step_fused(cfg, unsharded)
+        for key, value in want.items():
+            assert m[key].shape == (1,)
+            torch.testing.assert_close(m[key][0], value, rtol=1e-5,
+                                       atol=0.0)
+    finally:
+        dist.destroy_process_group()

@@ -49,6 +49,9 @@ def _forbidden(names):
 def test_every_port_module_imports_without_jax_or_the_jax_package():
     mods = _port_modules()
     assert "ndivplanning_tpu_torch.ops.ndiv_cuda" in mods
+    assert {"ndivplanning_tpu_torch.parallel",
+            "ndivplanning_tpu_torch.parallel.mesh",
+            "ndivplanning_tpu_torch.parallel.sharded_step"} <= set(mods)
     assert len(mods) >= 20
     new = _new_modules(mods)
     assert "torch" in new or "torch" in sys.modules
@@ -75,11 +78,14 @@ def test_create_train_state_defaults_to_cuda(monkeypatch):
 
 
 def test_the_card_runs_in_full_float32_and_deterministically(monkeypatch):
-    """TF32 off (the JAX paths compute at Precision.HIGHEST) and cuDNN's
-    deterministic algorithms (the JAX step is bitwise repeatable)."""
+    """TF32 off (the JAX paths compute at Precision.HIGHEST), bf16 products
+    summed in float32, and cuDNN's deterministic algorithms (the JAX step
+    is bitwise repeatable)."""
     from ndivplanning_tpu_torch.utils.device import resolve_device
 
     for mod, name, value in ((torch.backends.cuda.matmul, "allow_tf32", True),
+                             (torch.backends.cuda.matmul,
+                              "allow_bf16_reduced_precision_reduction", True),
                              (torch.backends.cudnn, "allow_tf32", True),
                              (torch.backends.cudnn, "deterministic", False),
                              (torch.backends.cudnn, "benchmark", True)):
@@ -89,6 +95,7 @@ def test_the_card_runs_in_full_float32_and_deterministically(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None).type == "cuda"
     assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     assert not torch.backends.cudnn.allow_tf32
     assert torch.backends.cudnn.deterministic
     assert not torch.backends.cudnn.benchmark

@@ -118,11 +118,15 @@ def test_init_matches_flax_scale():
 def test_unported_knobs_raise():
     """Model knobs raise where the modules are built; the LR schedule, an
     optimizer setting, where the optimizers are (models of any schedule
-    build, as the planning512 checkpoint's cosine config needs)."""
-    for kw in (dict(g_arch="transformer"), dict(compute_dtype="bf16"),
-               dict(d_spectral_norm=True)):
+    build, as the planning512 checkpoint's cosine config needs).  bf16
+    compute is ported; an unknown compute dtype raises ValueError, as in
+    the JAX package."""
+    for kw in (dict(g_arch="transformer"), dict(d_spectral_norm=True)):
         with pytest.raises(NotImplementedError):
             build_models(get_config("goalcond", **kw))
+    build_models(get_config("goalcond", compute_dtype="bf16"))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        build_models(get_config("goalcond", compute_dtype="fp8"))
     for kw in (dict(lr_schedule="cosine"), dict(warmup_steps=10)):
         build_models(get_config("imagecond", **kw))
         with pytest.raises(NotImplementedError, match="lr_schedule"):
