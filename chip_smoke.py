@@ -23,9 +23,7 @@ import dataclasses
 import functools
 import json
 import math
-import multiprocessing
 import os
-import queue
 import shutil
 import statistics
 import subprocess
@@ -34,10 +32,9 @@ import tempfile
 import time
 
 # Published H100 SXM rates at its 700 W power limit (NVIDIA's data
-# sheet): HBM bandwidth, and f32 and f64 outside the tensor cores.
+# sheet): HBM bandwidth, and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-F64_FLOPS_PER_S = 34e12
 ALPHA = 0.8
 CHECK_SHAPES = [(256, 8, 2, 64), (512, 8, 2, 64), (256, 32, 2, 64),
                 (1024, 32, 2, 64), (3, 5, 3, 7), (1, 256, 4, 8)]
@@ -332,21 +329,23 @@ def profile(torch, fn, n):
 
 def bound(b, k, dz, dx, kernel):
     """Least time (ms) on the card: the function's inputs read once and its
-    outputs written once over HBM, or the f32 and f64 operations over their
-    peaks.  The same for every tiling: the tilings compute one function."""
+    outputs written once over HBM, or its float32 operations (the
+    reference's precision) over the float32 peak.  The same for every
+    tiling: the tilings compute one function."""
     grads = kernel != "fwd"
-    io_bytes = 4 * b * k * (dz + dx)  # z and x; the grads are as large
+    d = dz + dx
+    io_bytes = 4 * b * k * d  # z and x; the grads are as large
     in_bytes = io_bytes + (4 if kernel == "bwd" else 0)  # bwd reads g
     out_bytes = (io_bytes if grads else 0) + (0 if kernel == "bwd" else 4)
-    # Per condition and (i, j) entry, in f64: the two distance dot products
-    # (2 flops per element) and, with grads, sum_j W_ij (a_i - a_j) (3 per
-    # element).  In f32: ~12 flops of normalisation and hinge and, with
-    # grads, ~18 of slack, dL/dD and W.
-    f64_flops = b * k * k * (2 + (3 if grads else 0)) * (dz + dx)
-    f32_flops = b * k * k * (12 + (18 if grads else 0))
+    # Per condition: the distances of the k(k-1)/2 distinct pairs (the
+    # matrix is symmetric), a difference and a multiply-add per element;
+    # with grads, sum_j W_ij (a_i - a_j) = rowsum(W)_i a_i - (W a)_i, a
+    # k x k x d product (2 flops per term).  Per (i, j) entry, ~12 flops
+    # of normalisation and hinge and, with grads, ~18 of slack, dL/dD and W.
+    flops = b * (k * (k - 1) * d + (2 * k * k * d if grads else 0)
+                 + k * k * (12 + (18 if grads else 0)))
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = (f32_flops / F32_FLOPS_PER_S
-             + f64_flops / F64_FLOPS_PER_S) * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -389,16 +388,14 @@ def first_step_inputs(torch, cfg, state, make_task):
     return batch, z, x
 
 
-def train(torch, ndiv_cuda, cfg, state, step_fn, steps=TRAIN_STEPS,
-          counted=(), want=None):
+def train(torch, ndiv_cuda, cfg, state, step_fn, steps=TRAIN_STEPS):
     """``steps`` steps from ``state``, with the launch counts of
-    ``ndiv_cuda`` and ``counted`` reset just before; returns (state,
-    per-step metrics, step ms, launches).  The launches must be ``want``
-    (the joint kernel once a step by default)."""
-    want = {"joint": steps} if want is None else want
+    ``ndiv_cuda`` reset just before; returns (state, per-step metrics,
+    step ms, launches).  The joint kernel must launch once a step."""
+    want = {"joint": steps}
     before = [p.detach().clone() for p in state.g.parameters()]
     d_before = [p.detach().clone() for p in state.d.parameters()]
-    reset(ndiv_cuda, *counted)
+    reset(ndiv_cuda)
     step_ms, history = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -406,7 +403,7 @@ def train(torch, ndiv_cuda, cfg, state, step_fn, steps=TRAIN_STEPS,
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         history.append({key: float(v) for key, v in metrics.items()})
-    launches = launched(ndiv_cuda, *counted)
+    launches = launched(ndiv_cuda)
     for rec in history:
         for key, v in rec.items():
             if v != v or abs(v) == float("inf"):
@@ -483,7 +480,7 @@ def check_virtual_ranks(torch, ndiv_cuda, sharded, z, x, dp, div):
     b, k = z.shape[:2]
     m = b * k * (k - 1)
     total, want_gz, want_gx = ndiv_cuda.ndiv_joint(z, x, ALPHA)
-    reset(ndiv_cuda, sharded)
+    reset(ndiv_cuda)
     partials = []
     gz, gx = torch.zeros_like(z), torch.zeros_like(x)
     bl = b // dp
@@ -498,8 +495,8 @@ def check_virtual_ranks(torch, ndiv_cuda, sharded, z, x, dp, div):
             gz[rows] += g_z
             gx[rows] += g_x
     torch.cuda.synchronize()
-    launches = launched(ndiv_cuda, sharded)
-    if launches != {"joint": dp * div, "ndiv_sharded": dp * div}:
+    launches = launched(ndiv_cuda)
+    if launches != {"joint": dp * div}:
         raise AssertionError(f"virtual ranks {dp}x{div}: launches {launches}")
     want = float(total) / m
     loss_rel = abs(sum(partials) / m - want) / abs(want)
@@ -541,58 +538,11 @@ def pod_dp_run(dtype, dp, div, steps, mesh=None):
             {n: v.cpu().numpy() for n, v in state.g_opt.mu.items()})
 
 
-def two_rank_worker(rank, store_path, runs, results):
+def two_rank_worker(runs):
     """One of two ranks sharing the card through gloo (NCCL refuses two
     ranks on one device): every (dtype, dp, div) of ``runs``, through
-    ``pod_dp_run``.  Puts (rank, ok, results or traceback) on ``results``."""
-    import traceback
-
-    try:
-        import torch
-        import torch.distributed as dist
-
-        torch.cuda.set_device(0)
-        dist.init_process_group("gloo", store=dist.FileStore(store_path, 2),
-                                rank=rank, world_size=2)
-        try:
-            out = {run: pod_dp_run(*run, TWO_RANK_STEPS) for run in runs}
-        finally:
-            dist.destroy_process_group()
-        results.put((rank, True, out))
-    except BaseException:  # reported to the parent, which raises
-        results.put((rank, False, traceback.format_exc()))
-
-
-def run_two_ranks(runs, tmpdir, timeout=600):
-    """``two_rank_worker`` in two spawned processes; their results by rank.
-    Kills both and raises if either fails or they outlast ``timeout``."""
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    store_path = os.path.join(tmpdir, "two_rank_store")
-    procs = [ctx.Process(target=two_rank_worker,
-                         args=(rank, store_path, runs, results))
-             for rank in range(2)]
-    for p in procs:
-        p.start()
-    out = {}
-    try:
-        for _ in procs:  # drain the queue before joining
-            try:
-                rank, ok, value = results.get(timeout=timeout)
-            except queue.Empty:
-                raise AssertionError(
-                    f"two ranks did not finish in {timeout} s") from None
-            if not ok:
-                raise AssertionError(f"rank {rank} failed:\n{value}")
-            out[rank] = value
-        for p in procs:
-            p.join(timeout=60)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return [out[0], out[1]]
+    ``pod_dp_run``."""
+    return {run: pod_dp_run(*run, TWO_RANK_STEPS) for run in runs}
 
 
 def compare_runs(ref, got, dtype, lr, steps, label):
@@ -661,6 +611,7 @@ def main() -> int:
         shard_state,
     )
     from ndivplanning_tpu_torch.parallel import sharded_step as sharded
+    from ndivplanning_tpu_torch.parallel.spawn import run_ranks
     from ndivplanning_tpu_torch.planning.planner import plan
     from ndivplanning_tpu_torch.train.state import (
         create_train_state,
@@ -924,8 +875,7 @@ def main() -> int:
     start_state = clone_state(torch, pstate)
     pstate, phistory, pstep_ms, path_launches["pod_dp_train"] = train(
         torch, ndiv_cuda, pcfg, pstate, lambda c, s: pstep(s),
-        steps=POD_DP_STEPS, counted=(sharded,),
-        want={"joint": POD_DP_STEPS, "ndiv_sharded": POD_DP_STEPS})
+        steps=POD_DP_STEPS)
     # The same first step twice from clones of the start: bitwise equal.
     # Then once without a mesh: the only difference is the NDiv partial's
     # rescale by m_local / m.
@@ -967,7 +917,8 @@ def main() -> int:
     refs = {dtype: pod_dp_run(dtype, 1, 1, TWO_RANK_STEPS, mesh)
             for dtype in ("f32", "bf16")}
     t0 = time.perf_counter()
-    ranks = run_two_ranks(runs, tmpdir)
+    ranks = run_ranks(two_rank_worker, 2, tmpdir, runs, cuda_device=0,
+                      timeout=600)
     two_rank_s = time.perf_counter() - t0
     compared = []
     for run in runs:
@@ -1056,20 +1007,22 @@ def main() -> int:
                 plain_ms_pod_dp=pod_times["joint_plain_ms"],
                 bound_ms_pod_dp=bound(*POD_DP_SHAPE, "joint")[0],
                 shape_pod_dp=list(POD_DP_SHAPE))
-    # The sharded call site on the 1x1 mesh: the joint kernel, a sum over
-    # the world and the division by the global pair count.  At div > 1 its
-    # least time adds the all-gather of z and x (k/div of them per rank,
-    # the rest received); at div = 1 nothing is gathered.
+    # The sharded call site on the 1x1 mesh: a call site over ndiv_joint,
+    # with no kernel of its own: the joint kernel, a sum over the world and
+    # the division by the global pair count.  Its launches are the joint
+    # kernel's on the pod_dp path.  At div > 1 its least time adds the
+    # all-gather of z and x (k/div of them per rank, the rest received); at
+    # div = 1 nothing is gathered.
     site_bound, site_by = bound(*POD_DP_SHAPE, "joint")
     kernels.append({
         "name": "ndiv_sharded_call_site", "route": "cuda",
+        "call_site_over": "ndiv_joint",
         "source": "ndivplanning_tpu_torch/parallel/sharded_step.py "
                   "(kernel: ndivplanning_tpu_torch/csrc/ndiv.cu)",
         "replaces": "ndivplanning_tpu/parallel/sharded_step.py:187",
-        "launches": totals.get("ndiv_sharded", 0),
-        "launches_by_path": {p: n["ndiv_sharded"]
-                             for p, n in path_launches.items()
-                             if "ndiv_sharded" in n},
+        "launches": path_launches["pod_dp_train"]["joint"],
+        "launches_by_path": {
+            "pod_dp_train": path_launches["pod_dp_train"]["joint"]},
         "max_abs_err": site_err, "ms": pod_times["site_ms"],
         "plain_ms": pod_times["site_plain_ms"], "bound_ms": site_bound,
         "bound_by": site_by, "allgather_bytes": 0, "library_ms": None,

@@ -1,10 +1,4 @@
-"""Adversarial losses on discriminator logits; counterpart of ``ndivplanning_tpu/ops/gan_losses.py``.
-
-Each loss is a mean over its logits.  A data-parallel rank holds some of
-them and passes the global count of each kind (``n_real``, ``n_fake``):
-its loss is then its share, the sum of its terms over that count, and the
-ranks' shares sum to the global loss.
-"""
+"""Adversarial losses on discriminator logits; counterpart of ``ndivplanning_tpu/ops/gan_losses.py``."""
 
 from __future__ import annotations
 
@@ -12,52 +6,40 @@ import torch
 import torch.nn.functional as F
 
 
-def mean_share(t: torch.Tensor, count: int | None) -> torch.Tensor:
-    """Mean of ``t``; with ``count``, its share of a mean over ``count``
-    terms (its sum over ``count``)."""
-    return torch.mean(t) if count is None else torch.sum(t) / count
-
-
-def d_loss_bce(real_logits: torch.Tensor, fake_logits: torch.Tensor,
-               n_real: int | None = None,
-               n_fake: int | None = None) -> torch.Tensor:
+def d_loss_bce(real_logits: torch.Tensor,
+               fake_logits: torch.Tensor) -> torch.Tensor:
     """Discriminator BCE loss: -log sig(real) - log(1 - sig(fake))."""
-    return (mean_share(F.softplus(-real_logits), n_real)
-            + mean_share(F.softplus(fake_logits), n_fake))
+    return (torch.mean(F.softplus(-real_logits))
+            + torch.mean(F.softplus(fake_logits)))
 
 
-def g_loss_bce(fake_logits: torch.Tensor,
-               n_fake: int | None = None) -> torch.Tensor:
+def g_loss_bce(fake_logits: torch.Tensor) -> torch.Tensor:
     """Non-saturating generator loss: -log sig(fake)."""
-    return mean_share(F.softplus(-fake_logits), n_fake)
+    return torch.mean(F.softplus(-fake_logits))
 
 
-def d_loss_lsgan(real_logits: torch.Tensor, fake_logits: torch.Tensor,
-                 n_real: int | None = None,
-                 n_fake: int | None = None) -> torch.Tensor:
+def d_loss_lsgan(real_logits: torch.Tensor,
+                 fake_logits: torch.Tensor) -> torch.Tensor:
     """Least-squares D loss: (D(real) - 1)^2 + D(fake)^2, halved."""
-    return 0.5 * (mean_share(torch.square(real_logits - 1.0), n_real)
-                  + mean_share(torch.square(fake_logits), n_fake))
+    return 0.5 * (torch.mean(torch.square(real_logits - 1.0))
+                  + torch.mean(torch.square(fake_logits)))
 
 
-def g_loss_lsgan(fake_logits: torch.Tensor,
-                 n_fake: int | None = None) -> torch.Tensor:
+def g_loss_lsgan(fake_logits: torch.Tensor) -> torch.Tensor:
     """Least-squares G loss: (D(fake) - 1)^2, halved."""
-    return 0.5 * mean_share(torch.square(fake_logits - 1.0), n_fake)
+    return 0.5 * torch.mean(torch.square(fake_logits - 1.0))
 
 
-def d_loss_hinge(real_logits: torch.Tensor, fake_logits: torch.Tensor,
-                 n_real: int | None = None,
-                 n_fake: int | None = None) -> torch.Tensor:
+def d_loss_hinge(real_logits: torch.Tensor,
+                 fake_logits: torch.Tensor) -> torch.Tensor:
     """Hinge D loss: relu(1 - D(real)) + relu(1 + D(fake))."""
-    return (mean_share(F.relu(1.0 - real_logits), n_real)
-            + mean_share(F.relu(1.0 + fake_logits), n_fake))
+    return (torch.mean(F.relu(1.0 - real_logits))
+            + torch.mean(F.relu(1.0 + fake_logits)))
 
 
-def g_loss_hinge(fake_logits: torch.Tensor,
-                 n_fake: int | None = None) -> torch.Tensor:
+def g_loss_hinge(fake_logits: torch.Tensor) -> torch.Tensor:
     """Hinge G loss: -D(fake)."""
-    return -mean_share(fake_logits, n_fake)
+    return -torch.mean(fake_logits)
 
 
 GAN_LOSSES = {

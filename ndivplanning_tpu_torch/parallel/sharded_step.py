@@ -45,10 +45,6 @@ from ndivplanning_tpu_torch.utils.config import Config
 
 IMPLS = ("jnp", "pallas")
 
-# Calls of the kernel at the sharded call site (one per rank per step),
-# made on CUDA tensors since the last reset.
-LAUNCHES = {"ndiv_sharded": 0}
-
 
 class _GatherK(torch.autograd.Function):
     """All-gather along k over the div group.  Every rank of the group
@@ -106,8 +102,6 @@ def ndiv_rank_partial(z_full: torch.Tensor, x_full: torch.Tensor,
         x_full = F.pad(x_full, (0, 0, 0, 0, 0, pad))
     lo = div_index * chunk
     z_my, x_my = z_full[lo:lo + chunk], x_full[lo:lo + chunk]
-    if z_my.is_cuda:
-        LAUNCHES["ndiv_sharded"] += 1
     return ndiv_loss_fused(z_my, x_my, alpha) * (chunk * k * (k - 1))
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ndivplanning_tpu_torch.data.tasks import Batch, make_task
-from ndivplanning_tpu_torch.ops.gan_losses import get_gan_losses, mean_share
+from ndivplanning_tpu_torch.ops.gan_losses import get_gan_losses
 from ndivplanning_tpu_torch.ops.ndiv import ndiv_loss
 from ndivplanning_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_, flat_
 from ndivplanning_tpu_torch.train.state import (
@@ -104,11 +104,13 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
     With a ``mesh`` (``parallel/mesh.py``) this is the explicit form of the
     JAX step under GSPMD: ``batch`` and ``z`` are global and every rank
     keeps its block of them; its losses are its shares of the global ones,
-    which sum over the ranks to the unsharded objective (a term over
-    conditions only, as the real logits, is replicated over the div group
-    and counts 1/div on each of its ranks); D's and G's grads are summed
-    over the world before every rank's identical Adam step, and the
-    metrics are the summed shares.
+    which sum over the ranks to the unsharded objective.  The blocks divide
+    the batch and k evenly, so a GAN term's share is its local mean over
+    the world size (a real logit, replicated over the div group, counts
+    1/div on each of its ranks), and NDiv's is the call site's partial
+    over the global pair count.  D's and G's grads are summed over the
+    world before every rank's identical Adam step, and the metrics are the
+    summed shares.
     Returns (state, metrics), metrics a dict of 0-d float32 tensors.
     """
     check_step_knobs(cfg, mesh)
@@ -118,11 +120,12 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
         z = torch.randn((b, cfg.k, cfg.latent_dim), generator=state.rng,
                         device=state.rng.device)
     if mesh is None:
-        conditions, real, n_real, n_fake = (batch.conditions,
-                                            batch.real_traj, None, None)
+        conditions, real = batch.conditions, batch.real_traj
     else:
         conditions, real, z = _local_block(batch, z, mesh)
-        n_real, n_fake = b * mesh.div, b * cfg.k
+
+    def share(loss):
+        return loss if mesh is None else loss / (mesh.dp * mesh.div)
 
     def world_sum_(tensors):
         if mesh is not None:
@@ -134,13 +137,13 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
         tau_fake = state.g(conditions, z)
     real_logits = state.d(conditions, real)
     fake_logits = state.d(conditions, tau_fake)
-    d_loss = d_loss_fn(real_logits, fake_logits, n_real, n_fake)
+    d_loss = share(d_loss_fn(real_logits, fake_logits))
     d_grads = torch.autograd.grad(d_loss, list(state.d.parameters()))
     state.d_opt.step(state.d, world_sum_(list(d_grads)))
 
     # ---------------- G update against the updated D ----------------
     tau = state.g(conditions, z)
-    g_adv = g_loss_fn(state.d(conditions, tau), n_fake)
+    g_adv = share(g_loss_fn(state.d(conditions, tau)))
     g_ndiv = _ndiv(cfg, z, tau, mesh)
     g_total = g_adv + cfg.ndiv_weight * g_ndiv
     g_grads = torch.autograd.grad(g_total, list(state.g.parameters()))
@@ -156,7 +159,7 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
     # ADA overfitting heuristic r_t, tracked by every run.  Its centre is
     # the loss variant's decision boundary (0.5 for lsgan's scores).
     rt_center = 0.5 if cfg.gan_loss == "lsgan" else 0.0
-    rt = mean_share(torch.sign(real_logits.detach() - rt_center), n_real)
+    rt = share(torch.mean(torch.sign(real_logits.detach() - rt_center)))
     metrics = {"d_loss": d_loss.detach(), "g_adv": g_adv.detach(),
                "g_ndiv": g_ndiv.detach(), "g_total": g_total.detach(),
                "d_rt": rt}

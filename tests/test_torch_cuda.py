@@ -213,8 +213,7 @@ def test_sharded_call_site_ranks_match_the_unsharded_kernel(cuda, dp, div, b):
     z, x = _inputs(cuda, b, 8, 2, 16)
     m = b * 8 * 7
     total, want_gz, want_gx = ndiv_cuda.ndiv_joint(z, x, 0.8)
-    before = (ndiv_cuda.LAUNCHES["joint"],
-              sharded_step.LAUNCHES["ndiv_sharded"])
+    before = ndiv_cuda.LAUNCHES["joint"]
     partial, gz, gx = 0.0, torch.zeros_like(z), torch.zeros_like(x)
     bl = b // dp
     for i in range(dp):
@@ -227,9 +226,7 @@ def test_sharded_call_site_ranks_match_the_unsharded_kernel(cuda, dp, div, b):
             partial += float(p.detach())
             gz[rows] += g_z
             gx[rows] += g_x
-    assert (ndiv_cuda.LAUNCHES["joint"] - before[0],
-            sharded_step.LAUNCHES["ndiv_sharded"] - before[1]) == (dp * div,
-                                                                    dp * div)
+    assert ndiv_cuda.LAUNCHES["joint"] - before == dp * div
     assert abs(partial - float(total)) <= 1e-6 * float(total)
     for got, want in ((gz, want_gz), (gx, want_gx)):
         torch.testing.assert_close(got, want, rtol=0.0,
@@ -250,7 +247,6 @@ def test_pod_dp_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
         make_sharded_train_step,
         shard_state,
     )
-    from ndivplanning_tpu_torch.parallel import sharded_step
     from ndivplanning_tpu_torch.train.state import create_train_state
     from ndivplanning_tpu_torch.train.step import train_step_fused
     from ndivplanning_tpu_torch.utils.config import get_config
@@ -265,12 +261,10 @@ def test_pod_dp_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
         rng.set_state(state.rng.get_state())
         unsharded = dataclasses.replace(
             copy.deepcopy(dataclasses.replace(state, rng=None)), rng=rng)
-        before = (ndiv_cuda.LAUNCHES["joint"],
-                  sharded_step.LAUNCHES["ndiv_sharded"])
+        before = ndiv_cuda.LAUNCHES["joint"]
         state, m = step_fn(state)
         torch.cuda.synchronize()
-        assert (ndiv_cuda.LAUNCHES["joint"] - before[0],
-                sharded_step.LAUNCHES["ndiv_sharded"] - before[1]) == (1, 1)
+        assert ndiv_cuda.LAUNCHES["joint"] - before == 1
         _, want = train_step_fused(cfg, unsharded)
         for key, value in want.items():
             assert m[key].shape == (1,)

@@ -51,7 +51,8 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert "ndivplanning_tpu_torch.ops.ndiv_cuda" in mods
     assert {"ndivplanning_tpu_torch.parallel",
             "ndivplanning_tpu_torch.parallel.mesh",
-            "ndivplanning_tpu_torch.parallel.sharded_step"} <= set(mods)
+            "ndivplanning_tpu_torch.parallel.sharded_step",
+            "ndivplanning_tpu_torch.parallel.spawn"} <= set(mods)
     assert len(mods) >= 20
     new = _new_modules(mods)
     assert "torch" in new or "torch" in sys.modules

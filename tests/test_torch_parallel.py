@@ -1,8 +1,9 @@
 """The torch port's mesh, sharded NDiv and sharded train step on gloo ranks.
 
-Ranks are spawned processes (``tests/torch_dist_workers.py``) joined
-through a ``FileStore`` in ``tmp_path``; the kernels run as their plain
-versions on the CPU.  The sharded NDiv is held against the JAX package's
+Ranks are spawned processes (``parallel/spawn.py::run_ranks``, workers in
+``tests/torch_dist_workers.py``) joined through a ``FileStore`` in
+``tmp_path``; the kernels run as their plain versions on the CPU.  The
+sharded NDiv is held against the JAX package's
 ``ndiv_loss_sharded`` on its 8 virtual CPU devices (``conftest.py``), at
 ``tests/test_parallel.py``'s tolerances; the sharded step against the
 port's unsharded step on the same injected batches and latents.
@@ -21,12 +22,12 @@ from ndivplanning_tpu.parallel.sharded_step import (
 from ndivplanning_tpu_torch.data.tasks import Batch, make_task
 from ndivplanning_tpu_torch.envs.types import Scene
 from ndivplanning_tpu_torch.parallel import make_mesh
+from ndivplanning_tpu_torch.parallel.spawn import run_ranks
 from ndivplanning_tpu_torch.train.state import create_train_state
 from ndivplanning_tpu_torch.train.step import train_step_impl
 from ndivplanning_tpu_torch.utils.config import get_config
 from tests.torch_dist_workers import (
     ndiv_mesh_state_worker,
-    run_ranks,
     sharded_step_worker,
 )
 
@@ -217,3 +218,43 @@ def test_two_sharded_runs_are_bitwise_equal(step_ranks):
         assert all(np.array_equal(p1[n][k], p2[n][k])
                    for n in p1 for k in p1[n])
         assert all(np.array_equal(mu1[k], mu2[k]) for k in mu1)
+
+
+@pytest.mark.parametrize("impl,want", [("pallas", "pallas"), ("jnp", "jnp"),
+                                       ("auto", "jnp")])
+def test_step_ndiv_with_a_mesh_goes_through_the_sharded_call_site(
+        monkeypatch, impl, want):
+    """A mesh is authoritative, even a 1x1 one: the step's NDiv is the
+    sharded share, through the fused call site for "pallas" and the
+    row-block strategy for "jnp" ("auto" on CPU tensors), as the JAX step
+    dispatches; on one rank the share is the unsharded loss."""
+    from ndivplanning_tpu_torch.ops.ndiv import ndiv_loss
+    from ndivplanning_tpu_torch.parallel import sharded_step
+    from ndivplanning_tpu_torch.parallel.mesh import Mesh
+    from ndivplanning_tpu_torch.train.step import _ndiv
+
+    seen = []
+    real = sharded_step.ndiv_share_sharded
+
+    def spy(z, x, alpha, mesh, impl):
+        seen.append(impl)
+        return real(z, x, alpha, mesh, impl)
+
+    monkeypatch.setattr(sharded_step, "ndiv_share_sharded", spy)
+    cfg = _small_cfg(ndiv_impl=impl)
+    rng = np.random.default_rng(7)
+    z = torch.tensor(rng.normal(size=(4, 8, 2)).astype(np.float32))
+    traj = torch.tensor(rng.normal(size=(4, 8, 16, 2)).astype(np.float32))
+    got = _ndiv(cfg, z, traj, Mesh(1, 1, 0, 0, None, None))
+    assert seen == [want]
+    want_loss = ndiv_loss(z, traj.reshape(4, 8, -1), cfg.ndiv_alpha)
+    torch.testing.assert_close(got, want_loss, **LOSS_TOL)
+
+
+def test_run_ranks_reports_a_failing_rank(tmp_path):
+    """A rank's exception comes back to the caller with its traceback, and
+    no rank is left running."""
+    from tests.torch_dist_workers import failing_worker
+
+    with pytest.raises(RuntimeError, match="fails on purpose"):
+        run_ranks(failing_worker, 2, tmp_path, timeout=60)

@@ -1,76 +1,14 @@
-"""Gloo ranks for the torch port's parallel tests (torch and numpy only).
+"""Workers for the torch port's parallel tests (torch and numpy only).
 
-:func:`run_ranks` spawns one process per rank, each joined to a gloo
-process group through a ``FileStore`` (no TCP port, so parallel test
-workers never collide), runs a worker function of this module and returns
-the ranks' results.  The workers import no JAX: a spawned process imports
-this module, not the test file.
+Each runs in every gloo rank that
+``ndivplanning_tpu_torch.parallel.spawn.run_ranks`` spawns.  The workers
+import no JAX: a spawned process imports this module, not the test file.
 """
 
 from __future__ import annotations
 
-import os
-import queue
-import traceback
-
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
-
-JOIN_TIMEOUT_S = 120
-
-
-def _entry(fn, rank, world, store_path, args, results):
-    torch.set_num_threads(1)
-    try:
-        store = dist.FileStore(store_path, world)
-        dist.init_process_group("gloo", store=store, rank=rank,
-                                world_size=world)
-        try:
-            results.put((rank, True, fn(*args)))
-        finally:
-            dist.destroy_process_group()
-    except BaseException:  # reported to the parent, which raises
-        results.put((rank, False, traceback.format_exc()))
-
-
-def run_ranks(fn, world: int, tmp_path, *args,
-              timeout: float = JOIN_TIMEOUT_S) -> list:
-    """``fn(*args)`` on ``world`` gloo ranks; the results in rank order.
-
-    Fails, killing every rank, if one raises or the ranks do not finish
-    within ``timeout`` seconds."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    store_path = os.path.join(str(tmp_path), f"store_{fn.__name__}")
-    procs = [ctx.Process(target=_entry,
-                         args=(fn, rank, world, store_path, args, results))
-             for rank in range(world)]
-    for p in procs:
-        p.start()
-    out = {}
-    try:
-        for _ in range(world):  # drain the queue before joining
-            rank, ok, value = results.get(timeout=timeout)
-            if not ok:
-                raise RuntimeError(f"rank {rank} failed:\n{value}")
-            out[rank] = value
-        for p in procs:
-            p.join(timeout=timeout)
-            if p.is_alive():
-                raise RuntimeError(f"rank {procs.index(p)} did not exit")
-    except queue.Empty:
-        raise RuntimeError(f"the ranks did not finish in {timeout} s") \
-            from None
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return [out[r] for r in range(world)]
-
-
-# ----------------------------------------------------------------- workers
 
 
 def ndiv_mesh_state_worker(cases, cfg):
@@ -167,3 +105,8 @@ def sharded_step_worker(cfg, meshes, state_dict, inputs, repeats):
         out[(dp, div)] = runs
     return out
 
+
+
+def failing_worker():
+    """Raises in every rank."""
+    raise ValueError(f"rank {dist.get_rank()} fails on purpose")
