@@ -2,7 +2,9 @@
 
 Builds the NDiv CUDA kernels from ``ndivplanning_tpu_torch/csrc``, holds
 every kernel route (fwd, joint and bwd under the block, group and packed
-tilings) against its plain PyTorch version, then drives the port's main
+tilings) against its plain PyTorch version, and the warp kernel (block
+joint calls at k <= 32) bitwise against the tile kernel (the group
+tiling), then drives the port's main
 paths at full width: the goalcond preset trains 20 steps, plans with 1000
 candidates and evaluates NDiv without a gradient; the imagecond preset
 trains 20 steps, takes one step under each other NDiv route from one state,
@@ -36,8 +38,22 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 ALPHA = 0.8
+# The kernels the profiler counts as NDiv's: the tile kernel and its
+# one-block sum of the partials, and the warp kernel (one launch).
+NDIV_KERNELS = ("ndiv_tile_kernel", "sum_partials_kernel",
+                "ndiv_joint_warp_kernel")
+# Kernel launches per train step under the profiler when every joint call
+# ran the tile kernel and its one-block sum (two launches), as this script
+# counted them on an NVIDIA H100 80GB HBM3 at 700.00 W.
+TILE_JOINT_LAUNCHES_PER_STEP = {"goalcond": 263, "imagecond": 529,
+                                "pod_dp": 456.6}
+# The last three are ragged for the warp kernel (block joint, k <= 32):
+# k=2 with a batch that fills no block of four conditions, k=31 with rows
+# of 3 and 7, and k=32 with more conditions than blocks resident at once
+# (132 SMs x 6), so a block walks over a ragged number of them.
 CHECK_SHAPES = [(256, 8, 2, 64), (512, 8, 2, 64), (256, 32, 2, 64),
-                (1024, 32, 2, 64), (3, 5, 3, 7), (1, 256, 4, 8)]
+                (1024, 32, 2, 64), (3, 5, 3, 7), (1, 256, 4, 8),
+                (7, 2, 2, 64), (5, 31, 3, 7), (1001, 32, 2, 64)]
 GOALCOND_SHAPE = (256, 8, 2, 64)  # B=256, k=8, dz=2, dx=H*S=64
 IMAGECOND_SHAPE = (512, 8, 2, 64)
 # Kernel against plain, elementwise: |got - want| <= rtol |want| + atol,
@@ -233,6 +249,7 @@ def check_inputs(torch, ndiv_cuda, z, x, label):
         raise AssertionError(f"{label}: the tilings' grads differ")
     out = {
         "shape": label, "loss": float(got["joint"][0] / m),
+        "joint_kernel": ndiv_cuda.joint_kernel(k, z.shape[2], x.shape[2]),
         "max_abs_err": errs, "err_over_max": rel,
         "max_abs_dz": float(plain_gz.abs().max()),
         "max_abs_dx": float(plain_gx.abs().max()),
@@ -312,15 +329,15 @@ def profile(torch, fn, n):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    ndiv = [e for e in kernels if any(name in e.key for name in NDIV_KERNELS)]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
         "wall_ms_per_call": wall_ms, "kernel_ms_per_call": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "kernel_launches_per_call": sum(e.count for e in kernels) / n,
         "ndiv_kernels_ms_per_call": sum(
-            e.self_device_time_total for e in kernels
-            if "ndiv_tile_kernel" in e.key or "sum_partials" in e.key)
-        / 1e3 / n,
+            e.self_device_time_total for e in ndiv) / 1e3 / n,
+        "ndiv_launches_per_call": sum(e.count for e in ndiv) / n,
         "top_kernels": [{"name": e.key[:60],
                          "ms_per_call": e.self_device_time_total / 1e3 / n,
                          "launches_per_call": e.count / n} for e in top],
@@ -347,6 +364,59 @@ def bound(b, k, dz, dx, kernel):
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def profile_step(torch, fn, preset):
+    """The profile of 5 train steps: one NDiv kernel launch per step (the
+    joint call), and the launches per step beside those of two-launch
+    joint calls."""
+    out = profile(torch, fn, 5)
+    if out["ndiv_launches_per_call"] != 1:
+        raise AssertionError(f"{preset}: {out['ndiv_launches_per_call']} "
+                             f"NDiv kernel launches per step, want 1")
+    return {"phase": f"profile_{preset}_train_step", "preset": preset, **out,
+            "kernel_launches_per_call_tile_joint":
+                TILE_JOINT_LAUNCHES_PER_STEP[preset]}
+
+
+def warp_vs_tile_step(torch, ndiv_cuda, step, state, preset, cfg):
+    """One train step from clones of ``state`` with the block joint route
+    (the warp kernel at k <= 32) and the group one (the tile kernel): the
+    grads are bitwise equal, so are G's and D's params and every metric
+    but the NDiv loss and the total G loss, whose sums may differ in their
+    last bits (held at rtol 1e-6)."""
+    shape = (cfg.k, cfg.latent_dim, cfg.traj_dim)
+    if ndiv_cuda.joint_kernel(*shape) != "warp":
+        raise AssertionError(f"{preset}: the warp kernel does not serve "
+                             f"k, dz, dx = {shape}")
+    out = {}
+    for variant in ("block", "group"):
+        ndiv_cuda.VARIANT = variant
+        try:
+            st, m = step(clone_state(torch, state))
+            torch.cuda.synchronize()
+        finally:
+            ndiv_cuda.VARIANT = "block"
+        out[variant] = st, m
+    (warp, wm), (tile, tm) = out["block"], out["group"]
+    params_equal = all(torch.equal(a, b) for a, b in zip(
+        [*warp.g.parameters(), *warp.d.parameters()],
+        [*tile.g.parameters(), *tile.d.parameters()]))
+    if not params_equal:
+        raise AssertionError(f"{preset}: G or D params after one step differ "
+                             f"between the warp and the tile kernel")
+    loss_rel = {}
+    for key, v in tm.items():
+        if key in ("g_ndiv", "g_total"):
+            loss_rel[key] = float((wm[key] - v).abs().max()
+                                  / v.abs().max().clamp_min(1e-30))
+            if loss_rel[key] > 1e-6:
+                raise AssertionError(f"{preset} {key}: {loss_rel[key]} off")
+        elif not torch.equal(wm[key], v):
+            raise AssertionError(f"{preset} {key}: {wm[key]} vs {v}")
+    return {"phase": "warp_vs_tile_step", "preset": preset,
+            "k_dz_dx": list(shape), "params_bitwise_equal": True,
+            "other_metrics_bitwise_equal": True, "loss_rel_err": loss_rel}
 
 
 def reset(*counted) -> None:
@@ -732,9 +802,13 @@ def main() -> int:
     emit({"phase": "eval_ndiv_no_grad", "g_ndiv": eval_ndiv,
           "launches": path_launches["goalcond_eval"]})
 
+    emit(warp_vs_tile_step(torch, ndiv_cuda,
+                           lambda st: train_step_fused(cfg, st), state,
+                           "goalcond", cfg))
+
     # Where the time goes: device busy time of a few steps and plans.
-    emit({"phase": "profile_train_step", "preset": "goalcond",
-          **profile(torch, lambda: train_step_fused(cfg, state), 5)})
+    emit(profile_step(torch, lambda: train_step_fused(cfg, state),
+                      "goalcond"))
     emit({"phase": "profile_plan", "preset": "goalcond",
           **profile(torch, lambda: plan(cfg, state, scene, condition,
                                         plan_gen), 3)})
@@ -846,8 +920,11 @@ def main() -> int:
                        iresult, iscene, image),
           "plan_ms_median": statistics.median(iplan_ms),
           "plan_ms_first": iplan_ms[0]})
-    emit({"phase": "profile_imagecond_train_step", "preset": "imagecond",
-          **profile(torch, lambda: train_step_fused(icfg, istate), 5)})
+    emit(warp_vs_tile_step(torch, ndiv_cuda,
+                           lambda st: train_step_fused(icfg, st), istate,
+                           "imagecond", icfg))
+    emit(profile_step(torch, lambda: train_step_fused(icfg, istate),
+                      "imagecond"))
     emit({"phase": "profile_imagecond_plan", "preset": "imagecond",
           **profile(torch, lambda: plan(icfg, istate, iscene, image,
                                         iplan_gen), 3)})
@@ -931,8 +1008,8 @@ def main() -> int:
     emit({"phase": "pod_dp_two_ranks", "backend": "gloo",
           "steps": TWO_RANK_STEPS, "seconds": two_rank_s,
           "runs": compared})
-    emit({"phase": "profile_pod_dp_train_step", "preset": "pod_dp",
-          **profile(torch, lambda: pstep(pstate), 5)})
+    emit(warp_vs_tile_step(torch, ndiv_cuda, pstep, pstate, "pod_dp", pcfg))
+    emit(profile_step(torch, lambda: pstep(pstate), "pod_dp"))
 
     # 8d. The sharded call site and ndiv_joint at pod_dp's per-rank shape,
     # on inputs away from the hinge's kinks: the call site (loss and both
@@ -950,6 +1027,28 @@ def main() -> int:
             return (loss, *torch.autograd.grad(loss, (zr, xr)))
         return fn
 
+    # ndiv_joint there (the warp kernel) against the group tiling (the tile
+    # kernel): grads bitwise equal, losses within rtol 1e-6; and against
+    # its plain version.
+    warp = ndiv_cuda.ndiv_joint(zp, xp, ALPHA)
+    tile = ndiv_cuda.ndiv_joint(zp, xp, ALPHA, "group")
+    if not (torch.equal(warp[1], tile[1]) and torch.equal(warp[2], tile[2])):
+        raise AssertionError("pod_dp shape: the warp kernel's grads differ "
+                             "from the tile kernel's")
+    pod_loss_rel = float((warp[0] - tile[0]).abs() / tile[0].abs())
+    if pod_loss_rel > 1e-6:
+        raise AssertionError(f"pod_dp shape: losses {pod_loss_rel} apart")
+    pod_plain = ndiv_cuda.ndiv_joint_plain(zp, xp, ALPHA)
+    for name, g, w, rtol, atol in zip(
+            ("loss", "dz", "dx"), warp, pod_plain,
+            (VAL_RTOL, GRAD_RTOL, GRAD_RTOL),
+            (0.0, GRAD_ATOL_OF_MAX, GRAD_ATOL_OF_MAX)):
+        assert_close(torch, g, w, f"pod_dp shape ndiv_joint {name}", rtol,
+                     atol)
+    pod_joint_err = max(max_err(warp[0] / (b * k * (k - 1)),
+                                pod_plain[0] / (b * k * (k - 1))),
+                        max_err(warp[1], pod_plain[1]),
+                        max_err(warp[2], pod_plain[2]))
     site, site_plain = call_site("pallas"), call_site("jnp")
     got, want = site(), site_plain()
     site_err = 0.0
@@ -958,14 +1057,21 @@ def main() -> int:
             (0.0, GRAD_ATOL_OF_MAX, GRAD_ATOL_OF_MAX)):
         assert_close(torch, g, w, f"sharded call site {name}", rtol, atol)
         site_err = max(site_err, max_err(g, w))
+    # The call site's host work (autograd, the pad, a one-rank all-reduce)
+    # outlasts its device work now: few calls behind a long sleep, so the
+    # queue holds them all and the events see device time.
     pod_times = {
-        "site_ms": device_ms(torch, site, 50, 50_000_000),
+        "site_ms": device_ms(torch, site, 20, 400_000_000),
         "site_plain_ms": device_ms(torch, site_plain, 4, 200_000_000),
         "joint_ms": device_ms(torch, functools.partial(
             ndiv_cuda.ndiv_joint, zp, xp, ALPHA), 100, 50_000_000),
         "joint_plain_ms": device_ms(torch, functools.partial(
             ndiv_cuda.ndiv_joint_plain, zp, xp, ALPHA), 4, 200_000_000)}
     emit({"phase": "kernel_times_pod_dp", "shape": list(POD_DP_SHAPE),
+          "joint_kernel": ndiv_cuda.joint_kernel(k, dz, dx),
+          "joint_grads_bitwise_equal_group": True,
+          "joint_loss_rel_err_group": pod_loss_rel,
+          "joint_max_abs_err": pod_joint_err,
           "site_max_abs_err": site_err, **pod_times, "card": smi})
     dist.destroy_process_group()
     shutil.rmtree(tmpdir)
@@ -991,6 +1097,7 @@ def main() -> int:
         bound_ms, bound_by = bound(*IMAGECOND_SHAPE, kernel)
         kernels.append({
             "name": f"ndiv_{key}", "route": "cuda", "variant": variant,
+            "kernel": "tile",
             "source": "ndivplanning_tpu_torch/csrc/ndiv.cu",
             "replaces": "ndivplanning_tpu/ops/ndiv_pallas.py:"
                         f"{REPLACES[(kernel, variant)]}",
@@ -1003,6 +1110,9 @@ def main() -> int:
             "shape": list(IMAGECOND_SHAPE), "card": smi})
         if key == "joint":
             kernels[-1].update(
+                kernel=ndiv_cuda.joint_kernel(*IMAGECOND_SHAPE[1:]),
+                kernel_pod_dp=ndiv_cuda.joint_kernel(*POD_DP_SHAPE[1:]),
+                max_abs_err_pod_dp=pod_joint_err,
                 ms_pod_dp=pod_times["joint_ms"],
                 plain_ms_pod_dp=pod_times["joint_plain_ms"],
                 bound_ms_pod_dp=bound(*POD_DP_SHAPE, "joint")[0],

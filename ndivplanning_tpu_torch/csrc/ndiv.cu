@@ -1,12 +1,20 @@
 // NDiv hinge loss kernels for Hopper (sm_90a), bound to Python via ctypes.
 //
 // Replaces the Pallas TPU kernels of ndivplanning_tpu/ops/ndiv_pallas.py:
-//   ndiv_joint -> _joint_kernel_block (hinge sum + unit-cotangent grads, one pass)
+//   ndiv_joint -> _joint_kernel_block (:266, pallas_call :505; hinge sum +
+//                 unit-cotangent grads, one pass)
 //   ndiv_fwd   -> _fwd_kernel_block and the packed _fwd_kernel (hinge sum only)
 //   ndiv_bwd   -> _bwd_kernel_block and the packed _bwd_kernel (grads at an
 //                 upstream cotangent g, recomputing the forward)
 // and the three TPU layouts "block", "group" and "packed" as tilings of one
 // kernel (below).
+//
+// Two kernels, chosen by shape: ndiv_joint under the block layout with
+// 2 <= k <= 32 (and rows that fit in shared memory) runs
+// ndiv_joint_warp_kernel; every other call (k > 32, the group and packed
+// tilings, fwd and bwd) runs ndiv_tile_kernel.  Both compute every
+// per-condition value with the same helpers in the same order, so their
+// grads are bitwise equal; a launch that fails raises in the wrapper.
 //
 // Per condition b (k samples, latents z [k, dz], outputs x [k, dx]):
 //   D_ij  = sqrt(max(sq_i + sq_j - 2 <a_i, a_j>, 0)), 0 on the diagonal
@@ -23,36 +31,68 @@
 //
 // Bound on an H100 SXM at its 700 W power limit (NVIDIA's data sheet:
 // 3.35 TB/s; 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores):
-// at the imagecond shape (B=512, k=8, dz=2, dx=64) a grad kernel reads z
-// and x once (512*8*66*4 B = 1.08 MB) and writes the grads (another
-// 1.08 MB): ~2.2 MB, ~0.65 us; its ~11 MFLOP in f64 and ~1 MFLOP in f32
-// take ~0.34 us.  So the bound is bytes, and below the few microseconds a
-// launch costs: the kernels are launch-latency bound on the train step.
+// a grad kernel reads z and x once and writes grads as large, 8 B k (dz + dx)
+// per call: at the imagecond shape (B=512, k=8, dz=2, dx=64) 2.2 MB,
+// 0.65 us, below the few microseconds a launch costs; at pod_dp's per-rank
+// shape (B=8192, k=32) 138 MB, 41 us: the bound is bytes at every shape
+// the main paths run.  The work as done below, in f64 on the CUDA cores
+// (each condition's Gram matrix, k^2 d fmas, and the grad sum, k^2 d
+// subtractions and fmas), is ~2.8 GFLOP at pod_dp's shape, ~80 us at
+// 34 TFLOP/s: twice the bytes bound, and the warp kernel's own floor.
 //
-// Design against that bound: one launch does all the work of a loss (and
-// its grads), plus one tiny fixed-order reduction launch for the loss, and
-// nothing of the k x k intermediates reaches device memory while they fit
-// in shared memory.  f32 arithmetic, no tensor cores, except in two places
-// that would cancel: the generator's samples of one condition can sit ~1e-3
+// Precision.  f32 arithmetic, no tensor cores, except in two places that
+// would cancel: the generator's samples of one condition can sit ~1e-3
 // apart at |x|^2 ~ 16, where the Gram form in f32 keeps almost no digit of
 // D (and rowsum(W) a_i - (W a)_i none of the grad).  So the norms and dot
 // products accumulate in f64 and D is rounded to f32 only at the end, and
-// the grad sums W_ij (a_i - a_j) in f64.
+// the grad sums W_ij (a_i - a_j) in f64.  f64 mma (DMMA) would sum d in
+// hardware-ordered chunks and break the bitwise equality of the two kernels.
 //
-// Tilings.  On the TPU "block" gives each condition its own [kp, kp] Gram
-// (kp = k rounded up to 8), "group" packs 128 // kp conditions into one
-// [128, 128] Gram and "packed" 256 // kp into one [256, 256] Gram, under a
-// block-diagonal mask: the same function on other lane layouts.  Here the
-// tile's row count is the kernel's template parameter kTileRows (0 for
-// block), and a thread block holds conds = max(1, kTileRows / kp)
-// conditions (1, 16 and 32 at k = 8), each on its own slice of the block's
-// 256 threads and its own slice of shared memory.  Every per-condition value
-// is computed by one thread in a fixed sequential order that does not
-// depend on the slice's width, so the grads of the three tilings are
-// bitwise equal; only the loss's summation tree differs (each block sums
-// its conditions' hinge terms).  Determinism: each block writes one partial
-// and a second one-block kernel sums the partials in a fixed order -- no
-// float atomics, so repeated launches are bitwise equal.
+// ndiv_joint_warp_kernel: a team of warps per condition (two at k <= 16,
+// four at 16 < k <= 32, where a single warp waits on its own latencies),
+// two teams or one per block of 128 threads, persistent blocks walking
+// over the conditions.  The
+// team copies its condition's rows into shared memory once, coalesced and
+// in one batch of loads, in f64 and transposed ([d][kp + 1], k padded to
+// kp = 8, 16 or 32 with zero rows), so nothing is converted or re-read
+// from device memory in the f64 loops.  Its threads form a (kT / 8) x 8
+// grid: thread (p, q) owns the entries (p + (kT / 8) u, q + 8 v) of every
+// kp x kp matrix, a register tile of the Gram matrix whose step over t
+// reads 4 and 8 neighbouring doubles a warp.  The k x k matrices have a
+// row stride of kp + 1 floats, so row reads and the transposed read of W
+// are free of bank conflicts.  The hinge phase stores each entry's c_i
+// term, so r_i and c_i are sequential sums of stored values, one thread a
+// row; as the slack is 0 or 1/M, a row's dL/dD takes two values, each
+// computed once by that thread.  W is stored in f64
+// over the dead D and dL/dD of its matrix, and the grad sum runs on the
+// team's grid (x's wide rows) or one output a thread (z's narrow ones).
+// One launch: each block writes its partial, and the last block to take an
+// integer ticket sums all partials in a fixed order and resets the ticket.
+// At pod_dp's shape it takes ~0.34 ms, ~8x its bound (chip_smoke.py's
+// kernels line, NVIDIA H100 80GB HBM3, 700 W), with 5 teams an SM (shared
+// memory and registers both allow 5): x's Gram matrix and grad sum take
+// most of it, with their f64 fmas at their least count but the f64 pipes
+// well short of full; the rest is f64 square roots, exact f32 divisions
+// and index arithmetic.  Not used: f64 mma (it breaks the bitwise
+// equality), cp.async double buffering.
+
+// ndiv_tile_kernel.  On the TPU "block" gives each condition its own
+// [kp, kp] Gram (kp = k rounded up to 8), "group" packs 128 // kp
+// conditions into one [128, 128] Gram and "packed" 256 // kp into one
+// [256, 256] Gram, under a block-diagonal mask: the same function on other
+// lane layouts.  Here the tile's row count is the kernel's template
+// parameter kTileRows (0 for block), and a thread block holds conds =
+// max(1, kTileRows / kp) conditions (1, 16 and 32 at k = 8), each on its
+// own slice of the block's 256 threads and its own slice of shared memory.
+// Every per-condition value is computed by one thread in a fixed
+// sequential order that does not depend on the slice's width, so the grads
+// of the three tilings are bitwise equal; only the loss's summation tree
+// differs (each block sums its conditions' hinge terms).
+//
+// Determinism: no float atomics in either kernel.  The tile kernel's blocks
+// each write one partial and a second one-block kernel sums the partials
+// in a fixed order; the warp kernel does the same sum in its last block.
+// Repeated launches are bitwise equal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +102,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSublane = 8;
 constexpr size_t kSmemLimit = 48 * 1024;
+constexpr size_t kSmemOptin = 232448;  // a block's most, opted in (H100)
 
 enum Mode : int { kFwd = 0, kJoint = 1, kBwd = 2 };
 
@@ -84,6 +125,49 @@ __device__ __forceinline__ double dot_rows(const float* __restrict__ a,
   return acc;
 }
 
+// The per-element formulas, one helper each, shared by both kernels: nvcc
+// contracts a * b + c into an fma by the expression's shape, so each value
+// is written once and rounds the same way in either kernel.
+
+// D_ij from the f64 norms and dot product, rounded to f32 at the end.
+__device__ __forceinline__ float pair_distance(double sq_i, double sq_j,
+                                               double g) {
+  return (float)sqrt(fmax((sq_i + sq_j) - 2.0 * g, 0.0));
+}
+
+// n_ij = D_ij / r_i, 0 where the row sums to 0.
+__device__ __forceinline__ float row_normalized(float d, float r) {
+  return r > 0.f ? d / r : 0.f;
+}
+
+// max(alpha nz - nx, 0); __fmul_rn keeps the product rounded on its own
+// (no fma contraction), as the plain version computes it.
+__device__ __forceinline__ float hinge_term(float alpha, float nz, float nx) {
+  return fmaxf(__fmul_rn(alpha, nz) - nx, 0.f);
+}
+
+// One term g_n n of c_i = sum_j g_n_ij n_ij.
+__device__ __forceinline__ float c_term(float g_n, float n) {
+  return __fmul_rn(g_n, n);
+}
+
+// dL/dD_ij = (g_n - c_i) / r_i off the diagonal, 0 where r_i == 0.
+__device__ __forceinline__ float dist_grad(bool valid, float g_n, float c,
+                                           float r) {
+  return (valid && r > 0.f) ? (g_n - c) / r : 0.f;
+}
+
+// W_ij = (dL/dD_ij + dL/dD_ji) / D_ij, 0 where D_ij == 0.
+__device__ __forceinline__ float pair_weight(float g_ij, float g_ji, float d) {
+  return d > 0.f ? (g_ij + g_ji) / d : 0.f;
+}
+
+// One step of the f64 chain sum_j W_ij (a_i - a_j).
+__device__ __forceinline__ double grad_step(double w, double a_i, double a_j,
+                                            double acc) {
+  return fma(w, a_i - a_j, acc);
+}
+
 // sum_j W_ij (a_i - a_j)[c] in f64, for row i of W and column c of a [k, d].
 __device__ __forceinline__ float weighted_diff(const float* __restrict__ w,
                                                const float* __restrict__ a,
@@ -91,7 +175,7 @@ __device__ __forceinline__ float weighted_diff(const float* __restrict__ w,
   const double ai = a[(size_t)i * d + c];
   double acc = 0.0;
   for (int j = 0; j < k; ++j)
-    acc = fma((double)w[j], ai - (double)a[(size_t)j * d + c], acc);
+    acc = grad_step((double)w[j], ai, (double)a[(size_t)j * d + c], acc);
   return (float)acc;
 }
 
@@ -167,8 +251,8 @@ ndiv_tile_kernel(const float* __restrict__ z, const float* __restrict__ x,
             dot_rows(zb + (size_t)i * dz, zb + (size_t)j * dz, dz);
         const double gxij =
             dot_rows(xb + (size_t)i * dx, xb + (size_t)j * dx, dx);
-        vz = (float)sqrt(fmax((sqz[i] + sqz[j]) - 2.0 * gzij, 0.0));
-        vx = (float)sqrt(fmax((sqx[i] + sqx[j]) - 2.0 * gxij, 0.0));
+        vz = pair_distance(sqz[i], sqz[j], gzij);
+        vx = pair_distance(sqx[i], sqx[j], gxij);
       }
       Dz[e] = vz;
       Dx[e] = vx;
@@ -197,11 +281,9 @@ ndiv_tile_kernel(const float* __restrict__ z, const float* __restrict__ x,
   if (active) {
     for (int e = t; e < kk; e += per) {
       const int i = e / k, j = e - (e / k) * k;
-      const float nz = rz[i] > 0.f ? Dz[e] / rz[i] : 0.f;
-      const float nx = rx[i] > 0.f ? Dx[e] / rx[i] : 0.f;
-      // __fmul_rn keeps the product rounded on its own (no FMA
-      // contraction), as the plain version computes it.
-      const float h = fmaxf(__fmul_rn(alpha, nz) - nx, 0.f);
+      const float nz = row_normalized(Dz[e], rz[i]);
+      const float nx = row_normalized(Dx[e], rx[i]);
+      const float h = hinge_term(alpha, nz, nx);
       hsum += h;  // the diagonal has D = 0, so h = 0 there
       if constexpr (kGrads) Gz[e] = (h > 0.f && i != j) ? s_on : 0.f;
     }
@@ -219,10 +301,8 @@ ndiv_tile_kernel(const float* __restrict__ z, const float* __restrict__ x,
       for (int j = 0; j < k; ++j) {
         const int e = i * k + j;
         const float s = Gz[e];
-        const float nz = rz[i] > 0.f ? Dz[e] / rz[i] : 0.f;
-        const float nx = rx[i] > 0.f ? Dx[e] / rx[i] : 0.f;
-        accz += __fmul_rn(__fmul_rn(alpha, s), nz);
-        accx += __fmul_rn(-s, nx);
+        accz += c_term(__fmul_rn(alpha, s), row_normalized(Dz[e], rz[i]));
+        accx += c_term(-s, row_normalized(Dx[e], rx[i]));
       }
       cz[i] = accz;
       cx[i] = accx;
@@ -235,9 +315,8 @@ ndiv_tile_kernel(const float* __restrict__ z, const float* __restrict__ x,
       const int i = e / k, j = e - (e / k) * k;
       const float s = Gz[e];
       const bool valid = i != j;
-      Gz[e] = (valid && rz[i] > 0.f) ? (__fmul_rn(alpha, s) - cz[i]) / rz[i]
-                                     : 0.f;
-      Gx[e] = (valid && rx[i] > 0.f) ? (-s - cx[i]) / rx[i] : 0.f;
+      Gz[e] = dist_grad(valid, __fmul_rn(alpha, s), cz[i], rz[i]);
+      Gx[e] = dist_grad(valid, -s, cx[i], rx[i]);
     }
   }
   __syncthreads();
@@ -248,8 +327,8 @@ ndiv_tile_kernel(const float* __restrict__ z, const float* __restrict__ x,
       const int i = e / k, j = e - (e / k) * k;
       const int tr = j * k + i;
       const float dzv = Dz[e], dxv = Dx[e];
-      Dz[e] = dzv > 0.f ? (Gz[e] + Gz[tr]) / dzv : 0.f;
-      Dx[e] = dxv > 0.f ? (Gx[e] + Gx[tr]) / dxv : 0.f;
+      Dz[e] = pair_weight(Gz[e], Gz[tr], dzv);
+      Dx[e] = pair_weight(Gx[e], Gx[tr], dxv);
     }
   }
   __syncthreads();
@@ -279,6 +358,451 @@ sum_partials_kernel(const float* __restrict__ partial, int n,
   if (threadIdx.x == 0) total[0] = s;
 }
 
+// ---------------------------------------------------- the warp kernel
+
+// The warp kernel's team for one condition: k padded to kp = 8, 16 or 32,
+// team_warps(kp) warps on it, team_conds(kp) teams per block of 128
+// threads, and the blocks per SM its registers are sized for.
+__host__ __device__ constexpr int warp_kp(int k) {
+  return k <= 8 ? 8 : (k <= 16 ? 16 : 32);
+}
+__host__ __device__ constexpr int team_warps(int kp) {
+  return kp == 32 ? 4 : 2;
+}
+__host__ __device__ constexpr int team_conds(int kp) {
+  return kp == 32 ? 1 : 2;
+}
+__host__ __device__ constexpr int warp_min_blocks(int kp) {
+  return kp == 32 ? 5 : 2;  // 5: as many as kp = 32's shared memory allows
+}
+constexpr int kWarpBlockThreads = 128;  // team_warps * team_conds * 32
+
+// Bytes of one condition's slice of shared memory: the rows, transposed
+// in f64 [d][kp + 1]; Dz, Gz, Dx, Gx, Tz [kp][kp + 1] in f32 (kp (kp + 1)
+// is even, so the doubles after them stay aligned); sq_z and sq_x in f64;
+// r_z, r_x and each row's two dL/dD values for z and for x in f32.
+__host__ __device__ inline size_t warp_cond_bytes(int kp, int dz, int dx) {
+  const size_t s = kp + 1;
+  return 8 * s * (dz + dx) + 20 * (size_t)kp * s + 16 * (size_t)kp +
+         24 * (size_t)kp;
+}
+
+size_t warp_smem_bytes(int k, int dz, int dx) {
+  const int kp = warp_kp(k);
+  return team_conds(kp) * warp_cond_bytes(kp, dz, dx) +
+         kWarpBlockThreads * sizeof(float);
+}
+
+bool warp_serves(int k, int dz, int dx, int tile_rows) {
+  return tile_rows == 0 && k >= 2 && k <= 32 &&
+         warp_smem_bytes(k, dz, dx) <= kSmemOptin;
+}
+
+// a [k, d] (row-major, device memory) -> at [d][kp + 1] in f64, rows
+// k..kp-1 zero.  Consecutive threads read consecutive floats (and write
+// rows t kp + 1 doubles apart, free of bank conflicts); each thread issues
+// kBatch loads before it stores any, and steps its element's (row,
+// column) without dividing.
+template <int kT>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ a,
+                                           double* __restrict__ at, int k,
+                                           int kp, int d, int tt) {
+  constexpr int kBatch = 8;
+  const int s = kp + 1, n = k * d;
+  const int di = kT / d, dt = kT - di * d;
+  int i = tt / d, t = tt - i * d;
+  for (int base = tt; base < n; base += kT * kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r)
+      if (base + kT * r < n) v[r] = a[base + kT * r];
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r)
+      if (base + kT * r < n) {
+        at[t * s + i] = (double)v[r];
+        t += dt;
+        const bool wrap = t >= d;
+        t -= wrap ? d : 0;
+        i += di + (wrap ? 1 : 0);
+      }
+  }
+  for (int e = n + tt; e < kp * d; e += kT) {
+    const int row = e / d;
+    at[(e - row * d) * s + row] = 0.0;
+  }
+}
+
+// Barrier of one condition's team of kNW warps: named barrier 1 + team
+// (0 is __syncthreads').
+template <int kNW>
+__device__ __forceinline__ void team_sync(int team) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(32 * kNW) : "memory");
+}
+
+// The team's threads form a kR x 8 grid; thread (p, q) owns the entries
+// (p + kR u, q + 8 v) of every kp x kp matrix, u < kp / kR, v < kp / 8.
+template <int kp>
+struct Grid {
+  static constexpr int kNW = team_warps(kp);
+  static constexpr int kT = 32 * kNW;
+  static constexpr int kR = kT / 8;
+  static constexpr int kU = kp / kR;
+  static constexpr int kV = kp / 8;
+  static constexpr int s = kp + 1;  // row stride of the rows and matrices
+};
+
+// The thread's tile of the Gram matrix of at, each entry one sequential
+// f64 fma chain over t (dot_rows' order): the diagonal is sq bitwise, then
+// D off the diagonal.  A warp's loads of a step read 4 and 8 neighbouring
+// doubles.
+template <int kp>
+__device__ __forceinline__ void warp_distances(const double* __restrict__ at,
+                                               int d, int k, int p, int q,
+                                               int team,
+                                               double* __restrict__ sq,
+                                               float* __restrict__ D) {
+  using G = Grid<kp>;
+  double acc[G::kU][G::kV];
+#pragma unroll
+  for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+    for (int v = 0; v < G::kV; ++v) acc[u][v] = 0.0;
+  for (int t = 0; t < d; ++t) {
+    const double* row = at + t * G::s;
+    double ai[G::kU], aj[G::kV];
+#pragma unroll
+    for (int u = 0; u < G::kU; ++u) ai[u] = row[p + G::kR * u];
+#pragma unroll
+    for (int v = 0; v < G::kV; ++v) aj[v] = row[q + 8 * v];
+#pragma unroll
+    for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+      for (int v = 0; v < G::kV; ++v) acc[u][v] = fma(ai[u], aj[v], acc[u][v]);
+  }
+#pragma unroll
+  for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+    for (int v = 0; v < G::kV; ++v)
+      if (p + G::kR * u == q + 8 * v) sq[p + G::kR * u] = acc[u][v];
+  team_sync<G::kNW>(team);
+#pragma unroll
+  for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+    for (int v = 0; v < G::kV; ++v) {
+      const int i = p + G::kR * u, j = q + 8 * v;
+      if (i < k && j < k)
+        D[i * G::s + j] =
+            i != j ? pair_distance(sq[i], sq[j], acc[u][v]) : 0.f;
+    }
+}
+
+// W [k][kp + 1] in f32 -> f64 in place of the matrix's D and dL/dD
+// (W64 aliases them), each thread its own entries.
+template <int kp>
+__device__ __forceinline__ void warp_weights(float* __restrict__ D,
+                                             const float* __restrict__ Gm,
+                                             int k, int p, int q, int team) {
+  using G = Grid<kp>;
+  float w[G::kU][G::kV];
+#pragma unroll
+  for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+    for (int v = 0; v < G::kV; ++v) {
+      const int i = p + G::kR * u, j = q + 8 * v;
+      w[u][v] = (i < k && j < k) ? pair_weight(Gm[i * G::s + j],
+                                               Gm[j * G::s + i],
+                                               D[i * G::s + j])
+                                 : 0.f;
+    }
+  team_sync<G::kNW>(team);
+  double* W64 = reinterpret_cast<double*>(D);
+#pragma unroll
+  for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+    for (int v = 0; v < G::kV; ++v) {
+      const int i = p + G::kR * u, j = q + 8 * v;
+      if (i < k && j < k) W64[i * G::s + j] = (double)w[u][v];
+    }
+}
+
+// out [k, d] = sum_j W_ij (a_i - a_j) in f64 (weighted_diff's order):
+// thread (p, q) of the team's grid owns rows p + kR u and columns
+// c0 + q + 8 w of each pass, holding its a_i in registers; each step over
+// j loads kU values of W and kC of a_j for 2 kU kC f64 operations.
+template <int kp, int kC, bool kWhole>
+__device__ __forceinline__ void warp_grads(const double* __restrict__ at,
+                                           const double* __restrict__ W64,
+                                           int k, int d, int p, int q,
+                                           float* __restrict__ out) {
+  // kWhole: 8 kC divides d, so no column needs a guard.
+  using G = Grid<kp>;
+  for (int c0 = 0; c0 < d; c0 += 8 * kC) {
+    double acc[G::kU][kC], ai[G::kU][kC];
+#pragma unroll
+    for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+      for (int w = 0; w < kC; ++w) {
+        const int c = c0 + q + 8 * w;
+        ai[u][w] = kWhole || c < d ? at[c * G::s + p + G::kR * u] : 0.0;
+        acc[u][w] = 0.0;
+      }
+    for (int j = 0; j < k; ++j) {
+      double wv[G::kU], aj[kC];
+#pragma unroll
+      for (int u = 0; u < G::kU; ++u) wv[u] = W64[(p + G::kR * u) * G::s + j];
+#pragma unroll
+      for (int w = 0; w < kC; ++w) {
+        const int c = c0 + q + 8 * w;
+        aj[w] = kWhole || c < d ? at[c * G::s + j] : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+        for (int w = 0; w < kC; ++w)
+          acc[u][w] = grad_step(wv[u], ai[u][w], aj[w], acc[u][w]);
+    }
+#pragma unroll
+    for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+      for (int w = 0; w < kC; ++w) {
+        const int i = p + G::kR * u, c = c0 + q + 8 * w;
+        if (i < k && (kWhole || c < d))
+          out[(size_t)i * d + c] = (float)acc[u][w];
+      }
+  }
+}
+
+// The same for narrow rows (z's dz = 2): one output a thread, on the
+// first k d threads, so the others start on x's grads at once.
+template <int kp>
+__device__ __forceinline__ void warp_grads_narrow(
+    const double* __restrict__ at, const double* __restrict__ W64, int k,
+    int d, int tt, float* __restrict__ out) {
+  constexpr int s = kp + 1;
+  for (int o = tt; o < k * d; o += Grid<kp>::kT) {
+    const int i = o / d, c = o - (o / d) * d;
+    const double ai = at[c * s + i];
+    double acc = 0.0;
+    for (int j = 0; j < k; ++j)
+      acc = grad_step(W64[i * s + j], ai, at[c * s + j], acc);
+    out[o] = (float)acc;
+  }
+}
+
+// A thread's share of one matrix's grads: narrow rows one output a thread,
+// wide ones four columns a pass.  No barrier between z's and x's: they
+// read only W and the rows.
+template <int kp>
+__device__ __forceinline__ void warp_grads_of(const double* at,
+                                              const double* W64, int k, int d,
+                                              int p, int q, int tt,
+                                              float* out) {
+  if (d <= 8)
+    warp_grads_narrow<kp>(at, W64, k, d, tt, out);
+  else if (d % 32 == 0)
+    warp_grads<kp, 4, true>(at, W64, k, d, p, q, out);
+  else
+    warp_grads<kp, 4, false>(at, W64, k, d, p, q, out);
+}
+
+// ndiv_joint for 2 <= k <= kp: a team of warps per condition, each phase on
+// the team's thread grid or one row per thread, separated by team_sync.
+// Persistent: the grid holds as many blocks as are resident at once, each
+// walking over conditions, so the loss tail runs once per block.
+template <int kp>
+__global__ void __launch_bounds__(kWarpBlockThreads, warp_min_blocks(kp))
+ndiv_joint_warp_kernel(const float* __restrict__ z,
+                       const float* __restrict__ x, int batch, int k, int dz,
+                       int dx, float alpha, float inv_m,
+                       float* __restrict__ partial, float* __restrict__ total,
+                       unsigned int* __restrict__ ticket,
+                       float* __restrict__ gz, float* __restrict__ gx) {
+  using G = Grid<kp>;
+  constexpr int conds = team_conds(kp);
+  constexpr int s = G::s;
+  static_assert(G::kT * conds == kWarpBlockThreads, "block size");
+  extern __shared__ double warp_smem[];
+  __shared__ bool last_block;
+  const int team = threadIdx.x / G::kT, tt = threadIdx.x % G::kT;
+  const int p = tt >> 3, q = tt & 7;
+  const size_t cond_bytes = warp_cond_bytes(kp, dz, dx);
+  unsigned char* base =
+      reinterpret_cast<unsigned char*>(warp_smem) + team * cond_bytes;
+  double* zt = reinterpret_cast<double*>(base);
+  double* xt = zt + dz * s;
+  float* Dz = reinterpret_cast<float*>(xt + dx * s);  // later W_z in f64
+  float* Gz = Dz + kp * s;  // hinge slack s, later dL/dD for z
+  float* Dx = Gz + kp * s;  // later W_x in f64
+  float* Gx = Dx + kp * s;  // x's c terms, later dL/dD for x
+  float* Tz = Gx + kp * s;  // z's c terms
+  double* sqz = reinterpret_cast<double*>(Tz + kp * s);
+  double* sqx = sqz + kp;
+  float* rz = reinterpret_cast<float*>(sqx + kp);
+  float* rx = rz + kp;
+  float* gdz = rx + kp;       // [2][kp]: a row's dL/dD where its slack is
+  float* gdx = gdz + 2 * kp;  // inv_m, and where it is 0
+  float* red = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(warp_smem) + conds * cond_bytes);
+
+  float hsum = 0.f;
+  for (int b = blockIdx.x * conds + team; b - team < batch;
+       b += gridDim.x * conds) {
+    if (b >= batch) continue;  // team-uniform: its barriers stay matched
+    stage_rows<G::kT>(z + (size_t)b * k * dz, zt, k, kp, dz, tt);
+    stage_rows<G::kT>(x + (size_t)b * k * dx, xt, k, kp, dx, tt);
+    team_sync<G::kNW>(team);
+    warp_distances<kp>(zt, dz, k, p, q, team, sqz, Dz);
+    warp_distances<kp>(xt, dx, k, p, q, team, sqx, Dx);
+    team_sync<G::kNW>(team);
+
+    // Row sums and c_i: thread i < kp takes row i of z's matrices,
+    // thread kp + i row i of x's.
+    static_assert(G::kT >= 2 * kp, "a thread per row of both matrices");
+    const int row = tt % kp;
+    const bool on_x = tt >= kp;
+    if (tt < 2 * kp && row < k) {
+      const float* Drow = (on_x ? Dx : Dz) + row * s;
+      float sum = 0.f;
+      for (int j = 0; j < k; ++j) sum += Drow[j];
+      (on_x ? rx : rz)[row] = sum;
+    }
+    team_sync<G::kNW>(team);
+
+#pragma unroll
+    for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+      for (int v = 0; v < G::kV; ++v) {
+        const int i = p + G::kR * u, j = q + 8 * v;
+        if (i < k && j < k) {
+          const int e = i * s + j;
+          const float nz = row_normalized(Dz[e], rz[i]);
+          const float nx = row_normalized(Dx[e], rx[i]);
+          const float h = hinge_term(alpha, nz, nx);
+          hsum += h;  // the diagonal has D = 0, so h = 0 there
+          const float sl = (h > 0.f && i != j) ? inv_m : 0.f;
+          Gz[e] = sl;
+          Tz[e] = c_term(__fmul_rn(alpha, sl), nz);
+          Gx[e] = c_term(-sl, nx);
+        }
+      }
+    team_sync<G::kNW>(team);
+
+    // c_i, then dL/dD of the row's off-diagonal entries: the slack takes
+    // only the values inv_m and 0, so a row has two, each computed as the
+    // tile kernel computes every entry.
+    if (tt < 2 * kp && row < k) {
+      const float* Trow = (on_x ? Gx : Tz) + row * s;
+      float c = 0.f;
+      for (int j = 0; j < k; ++j) c += Trow[j];
+      const float r = (on_x ? rx : rz)[row];
+      float* gd = on_x ? gdx : gdz;
+      const float g_on = on_x ? -inv_m : __fmul_rn(alpha, inv_m);
+      const float g_off = on_x ? -0.f : __fmul_rn(alpha, 0.f);
+      gd[row] = dist_grad(true, g_on, c, r);
+      gd[kp + row] = dist_grad(true, g_off, c, r);
+    }
+    team_sync<G::kNW>(team);
+
+#pragma unroll
+    for (int u = 0; u < G::kU; ++u)
+#pragma unroll
+      for (int v = 0; v < G::kV; ++v) {
+        const int i = p + G::kR * u, j = q + 8 * v;
+        if (i < k && j < k) {
+          const int e = i * s + j;
+          const int slot = (Gz[e] != 0.f ? 0 : kp) + i;
+          Gz[e] = i != j ? gdz[slot] : 0.f;
+          Gx[e] = i != j ? gdx[slot] : 0.f;
+        }
+      }
+    team_sync<G::kNW>(team);
+
+    warp_weights<kp>(Dz, Gz, k, p, q, team);
+    warp_weights<kp>(Dx, Gx, k, p, q, team);
+    team_sync<G::kNW>(team);
+    warp_grads_of<kp>(zt, reinterpret_cast<const double*>(Dz), k, dz, p, q,
+                      tt, gz + (size_t)b * k * dz);
+    warp_grads_of<kp>(xt, reinterpret_cast<const double*>(Dx), k, dx, p, q,
+                      tt, gx + (size_t)b * k * dx);
+    team_sync<G::kNW>(team);  // the next condition's rows overwrite these
+  }
+
+  // The loss: each warp's lanes in a fixed tree, the block's warps in
+  // order, then the last block to take a ticket sums every block's partial
+  // in a fixed order (the blocks finish in any order; the sum does not
+  // depend on it).
+  const int warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1)
+    hsum += __shfl_down_sync(0xffffffffu, hsum, off);
+  if ((threadIdx.x & 31) == 0) red[warp] = hsum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int w = 0; w < kWarpBlockThreads / 32; ++w) sum += red[w];
+    partial[blockIdx.x] = sum;
+    __threadfence();
+    last_block = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
+    acc += __ldcg(partial + i);
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    total[0] = red[0];
+    *ticket = 0u;  // ready for the next launch
+  }
+}
+
+// The kernel instance for k, with its shared memory raised past 48 KB
+// where it needs more.
+template <int kp>
+cudaError_t warp_kernel_ready(size_t smem) {
+  if (smem <= kSmemLimit) return cudaSuccess;
+  return cudaFuncSetAttribute(ndiv_joint_warp_kernel<kp>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// Blocks of one warp-kernel launch on the current device: the conditions'
+// blocks, at most as many as are resident at once.  0 on an error.
+template <int kp>
+int warp_blocks_kp(int batch, int k, int dz, int dx) {
+  const size_t smem = warp_smem_bytes(k, dz, dx);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (warp_kernel_ready<kp>(smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, ndiv_joint_warp_kernel<kp>, kWarpBlockThreads, smem) !=
+          cudaSuccess)
+    return 0;
+  const int needed = (batch + team_conds(kp) - 1) / team_conds(kp);
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  return needed < resident ? needed : resident;
+}
+
+int warp_blocks(int batch, int k, int dz, int dx) {
+  switch (warp_kp(k)) {
+    case 8:
+      return warp_blocks_kp<8>(batch, k, dz, dx);
+    case 16:
+      return warp_blocks_kp<16>(batch, k, dz, dx);
+    default:
+      return warp_blocks_kp<32>(batch, k, dz, dx);
+  }
+}
+
+// ------------------------------------------------------------- launches
+
 size_t mats_floats(int k, int mode) {
   return (size_t)mats_per_cond(mode) * k * k;
 }
@@ -304,7 +828,9 @@ struct Args {
   int batch, k, dz, dx;
   float alpha, inv_m;
   float* partial;
+  int blocks;  // the warp kernel's grid: partial's length
   float* total;
+  unsigned int* ticket;
   float* gz;
   float* gx;
   float* scratch;
@@ -330,10 +856,35 @@ int launch_tiled(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <int kp>
+int launch_warp(const Args& a, int blocks) {
+  if (a.ticket == nullptr || blocks < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = warp_smem_bytes(a.k, a.dz, a.dx);
+  const cudaError_t err = warp_kernel_ready<kp>(smem);
+  if (err != cudaSuccess) return (int)err;
+  ndiv_joint_warp_kernel<kp><<<blocks, kWarpBlockThreads, smem, a.stream>>>(
+      a.z, a.x, a.batch, a.k, a.dz, a.dx, a.alpha, a.inv_m, a.partial,
+      a.total, a.ticket, a.gz, a.gx);
+  return (int)cudaGetLastError();
+}
+
+// The dispatch by shape: block-layout joint calls with 2 <= k <= 32 whose
+// rows fit in shared memory go to the warp kernel, everything else to the
+// tile kernel.
 template <int kMode>
 int launch(int tile_rows, const Args& a) {
   if (a.batch < 1 || a.k < 2 || a.dz < 1 || a.dx < 1)
     return (int)cudaErrorInvalidValue;
+  if (kMode == kJoint && warp_serves(a.k, a.dz, a.dx, tile_rows)) {
+    switch (warp_kp(a.k)) {
+      case 8:
+        return launch_warp<8>(a, a.blocks);
+      case 16:
+        return launch_warp<16>(a, a.blocks);
+      default:
+        return launch_warp<32>(a, a.blocks);
+    }
+  }
   switch (tile_rows) {
     case 0:
       return launch_tiled<kMode, 0>(a);
@@ -350,9 +901,22 @@ int launch(int tile_rows, const Args& a) {
 
 extern "C" {
 
-// Blocks of one launch, hence the length of the partials buffer.
+// Blocks of one fwd launch, hence the length of its partials buffer.
 int ndiv_grid_blocks(int batch, int k, int tile_rows) {
   return grid_blocks(batch, k, tile_rows);
+}
+
+// 1 when ndiv_joint runs the warp kernel at this shape, 0 for the tile
+// kernel.
+int ndiv_joint_warp(int k, int dz, int dx, int tile_rows) {
+  return warp_serves(k, dz, dx, tile_rows) ? 1 : 0;
+}
+
+// Blocks of one ndiv_joint launch (either kernel) on the current device:
+// the partials' length.  0 on an error.
+int ndiv_joint_blocks(int batch, int k, int dz, int dx, int tile_rows) {
+  return warp_serves(k, dz, dx, tile_rows) ? warp_blocks(batch, k, dz, dx)
+                                           : grid_blocks(batch, k, tile_rows);
 }
 
 // Floats of global scratch each condition needs (0 when shared memory
@@ -362,14 +926,17 @@ long long ndiv_scratch_floats(int k, int mode, int tile_rows) {
                                            : (long long)mats_floats(k, mode);
 }
 
-// Hinge sum (total [1], partial [blocks]) and unit-cotangent grads gz, gx.
+// Hinge sum (total [1], partial [blocks] with blocks from
+// ndiv_joint_blocks) and unit-cotangent grads gz, gx.  ticket: one zeroed
+// unsigned int in device memory, owned by the stream (the warp kernel
+// leaves it zero again).
 int ndiv_joint(const float* z, const float* x, int batch, int k, int dz,
                int dx, float alpha, float inv_m, int tile_rows,
-               float* partial, float* total, float* gz, float* gx,
-               float* scratch, void* stream) {
+               float* partial, int blocks, float* total, unsigned int* ticket,
+               float* gz, float* gx, float* scratch, void* stream) {
   return launch<kJoint>(tile_rows, Args{z, x, nullptr, batch, k, dz, dx,
-                                        alpha, inv_m, partial, total, gz, gx,
-                                        scratch,
+                                        alpha, inv_m, partial, blocks, total,
+                                        ticket, gz, gx, scratch,
                                         static_cast<cudaStream_t>(stream)});
 }
 
@@ -378,8 +945,8 @@ int ndiv_fwd(const float* z, const float* x, int batch, int k, int dz, int dx,
              float alpha, int tile_rows, float* partial, float* total,
              float* scratch, void* stream) {
   return launch<kFwd>(tile_rows, Args{z, x, nullptr, batch, k, dz, dx, alpha,
-                                      0.f, partial, total, nullptr, nullptr,
-                                      scratch,
+                                      0.f, partial, 0, total, nullptr,
+                                      nullptr, nullptr, scratch,
                                       static_cast<cudaStream_t>(stream)});
 }
 
@@ -388,7 +955,8 @@ int ndiv_bwd(const float* z, const float* x, const float* g, int batch, int k,
              int dz, int dx, float alpha, float inv_m, int tile_rows,
              float* gz, float* gx, float* scratch, void* stream) {
   return launch<kBwd>(tile_rows, Args{z, x, g, batch, k, dz, dx, alpha, inv_m,
-                                      nullptr, nullptr, gz, gx, scratch,
+                                      nullptr, 0, nullptr, nullptr, gz, gx,
+                                      scratch,
                                       static_cast<cudaStream_t>(stream)});
 }
 

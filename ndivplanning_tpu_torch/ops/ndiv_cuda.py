@@ -5,7 +5,10 @@ first use and bound through ``ctypes``:
 
 - ``ndiv_joint``: the hinge sum plus dL/dz and dL/dx at unit cotangent, in
   one pass (replaces ``_joint_kernel_block``).  Under differentiation the
-  backward is then a scalar multiply.
+  backward is then a scalar multiply.  Under "block" with 2 <= k <= 32 it
+  runs the warp kernel (a team of warps per condition, one launch;
+  :func:`joint_kernel` says which kernel serves a shape), else the tile
+  kernel; their grads are bitwise equal.
 - ``ndiv_fwd``: the hinge sum alone (replaces ``_fwd_kernel_block`` and the
   packed ``_fwd_kernel``).
 - ``ndiv_bwd``: dL/dz and dL/dx at an upstream cotangent ``g``, recomputing
@@ -80,6 +83,12 @@ LAUNCHES = {launch_key(kern, v): 0 for v in _TILE_ROWS
             if (kern, v) != ("joint", "packed")}
 
 _lib = None
+# One zeroed ticket (an int32 the warp kernel counts its finished blocks
+# in, and leaves at 0) per (device, stream): launches on one stream run in
+# order, so they never share it at once.
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+# ndiv_joint's grid (hence its partials' length) by device and shape.
+_JOINT_BLOCKS: dict[tuple[int, ...], int] = {}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -207,14 +216,18 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(build()[0])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ndiv_joint.argtypes = [p, p, i, i, i, i, f, f, i, p, p, p, p, p,
-                                   p]
+        lib.ndiv_joint.argtypes = [p, p, i, i, i, i, f, f, i, p, i, p, p, p,
+                                   p, p, p]
         lib.ndiv_fwd.argtypes = [p, p, i, i, i, i, f, i, p, p, p, p]
         lib.ndiv_bwd.argtypes = [p, p, p, i, i, i, i, f, f, i, p, p, p, p]
         for fn in (lib.ndiv_joint, lib.ndiv_fwd, lib.ndiv_bwd):
             fn.restype = i
         lib.ndiv_grid_blocks.argtypes = [i, i, i]
         lib.ndiv_grid_blocks.restype = i
+        lib.ndiv_joint_blocks.argtypes = [i, i, i, i, i]
+        lib.ndiv_joint_blocks.restype = i
+        lib.ndiv_joint_warp.argtypes = [i, i, i, i]
+        lib.ndiv_joint_warp.restype = i
         lib.ndiv_scratch_floats.argtypes = [i, i, i]
         lib.ndiv_scratch_floats.restype = ctypes.c_longlong
         lib.ndiv_error_string.argtypes = [i]
@@ -224,6 +237,21 @@ def load():
 
 
 # ---------------------------------------------------------------- wrappers
+
+
+def joint_kernel(k: int, dz: int, dx: int, variant: str = "block") -> str:
+    """The kernel ``ndiv_joint`` launches at this shape: "warp" (block
+    layout, 2 <= k <= 32, rows that fit in shared memory) or "tile"."""
+    check_variant(variant, "joint")
+    warp = load().ndiv_joint_warp(k, dz, dx, _TILE_ROWS[variant])
+    return "warp" if warp else "tile"
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
 
 
 def _upcast(a: torch.Tensor) -> torch.Tensor:
@@ -268,7 +296,6 @@ def _launch(kernel: str, variant: str, z: torch.Tensor, x: torch.Tensor,
     scratch = torch.empty(b * n_scratch, **f32) if n_scratch else None
     scratch_ptr = scratch.data_ptr() if scratch is not None else None
     if kernel != "bwd":
-        partial = torch.empty(lib.ndiv_grid_blocks(b, k, rows), **f32)
         total = torch.empty((), **f32)
     if kernel != "fwd":
         gz = torch.empty_like(z)
@@ -276,12 +303,23 @@ def _launch(kernel: str, variant: str, z: torch.Tensor, x: torch.Tensor,
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
         if kernel == "joint":
+            # The warp kernel's grid depends on the device's SMs.
+            key = (z.device.index, b, k, dz, dx, rows)
+            if key not in _JOINT_BLOCKS:
+                _JOINT_BLOCKS[key] = lib.ndiv_joint_blocks(b, k, dz, dx, rows)
+            blocks = _JOINT_BLOCKS[key]
+            if blocks < 1:
+                raise RuntimeError(f"ndiv_joint ({variant}): no grid for "
+                                   f"{tuple(z.shape)}, {tuple(x.shape)}")
+            partial = torch.empty(blocks, **f32)
             err = lib.ndiv_joint(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
                                  float(alpha), _inv_m(z), rows,
-                                 partial.data_ptr(), total.data_ptr(),
+                                 partial.data_ptr(), blocks, total.data_ptr(),
+                                 _ticket(z.device, stream).data_ptr(),
                                  gz.data_ptr(), gx.data_ptr(), scratch_ptr,
                                  stream)
         elif kernel == "fwd":
+            partial = torch.empty(lib.ndiv_grid_blocks(b, k, rows), **f32)
             err = lib.ndiv_fwd(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
                                float(alpha), rows, partial.data_ptr(),
                                total.data_ptr(), scratch_ptr, stream)

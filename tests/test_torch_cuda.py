@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from ndivplanning_tpu_torch.ops import ndiv_cuda
-from ndivplanning_tpu_torch.ops.ndiv import ndiv_loss_reference
+from ndivplanning_tpu_torch.ops.ndiv import (
+    ndiv_loss_reference,
+    normalized_pairwise_l2,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -22,9 +25,14 @@ VARIANTS = ("block", "group", "packed")
 # Shapes: the goalcond and imagecond main paths; k padding (k=5) with a
 # batch that fills no whole group or packed tile; conditions whose k x k
 # matrices spill to global scratch under group and packed (k=32: 4 and 8
-# conditions per block); one condition per block at every tiling (k=256).
+# conditions per block); one condition per block at every tiling (k=256);
+# k=32 at pod_dp's widths (its per-rank batch 8192, and 1024); ragged k
+# for the warp kernel (k=2 and 31, batches that fill no whole block of 4
+# or 2 conditions) and the first k past it (33, the tile kernel).
 SHAPES = [(256, 8, 2, 64), (512, 8, 2, 64), (3, 5, 3, 7), (9, 5, 3, 7),
-          (40, 32, 2, 16), (2, 64, 2, 16), (1, 256, 4, 8)]
+          (40, 32, 2, 16), (2, 64, 2, 16), (1, 256, 4, 8),
+          (1024, 32, 2, 64), (8192, 32, 2, 64), (7, 2, 3, 7),
+          (5, 31, 2, 16), (6, 33, 2, 16)]
 
 
 @pytest.fixture
@@ -49,9 +57,29 @@ def _spread_latents(gen, b, k, d):
     return (grid[pick] + jitter - 0.5 * (side - 1)).contiguous()
 
 
-def _inputs(gen, b, k, dz, dx):
+def _draw(gen, b, k, dz, dx):
     return (_spread_latents(gen, b, k, dz),
             torch.randn((b, k, dx), generator=gen, device="cuda"))
+
+
+def _inputs(gen, b, k, dz, dx):
+    """Spread latents and Gaussian outputs, with every condition redrawn
+    that holds a pair whose hinge slack alpha nz - nx lies within 2^-16 of
+    its own size from 0 (in float64): at such a kink the subgradient takes
+    either side under float32 rounding, and one flipped pair moves its
+    condition's grads by ~1/k of the largest.  At 1024 conditions of k=32
+    a few such pairs occur in most draws."""
+    z, x = _draw(gen, b, k, dz, dx)
+    off = ~torch.eye(k, dtype=torch.bool, device="cuda")
+    for _ in range(100):
+        nz = 0.8 * normalized_pairwise_l2(z.double())
+        nx = normalized_pairwise_l2(x.double())
+        kink = ((nz - nx).abs() < 2.0 ** -16 * torch.maximum(nz, nx)) & off
+        bad = kink.flatten(1).any(dim=1)
+        if not bool(bad.any()):
+            return z, x
+        z[bad], x[bad] = _draw(gen, int(bad.sum()), k, dz, dx)
+    raise AssertionError("no inputs away from the hinge's kinks in 100 draws")
 
 
 def _assert_grads_close(got, want):
@@ -99,12 +127,18 @@ def test_bwd_matches_plain_version_at_a_cotangent(cuda, b, k, dz, dx,
 def test_tilings_give_bitwise_equal_grads(cuda, b, k, dz, dx):
     """Every per-condition value is computed in one fixed order whatever
     the tiling, so the grads agree bitwise; the loss's summation tree
-    differs, so the losses agree to rounding (rtol 1e-6)."""
+    differs, so the losses agree to rounding (rtol 1e-6).  At k <= 32 the
+    block joint call runs the warp kernel and the group one the tile
+    kernel: the two kernels agree bitwise."""
     z, x = _inputs(cuda, b, k, dz, dx)
     g = torch.tensor(0.75, device="cuda")
+    assert ndiv_cuda.joint_kernel(k, dz, dx) == ("warp" if k <= 32
+                                                  else "tile")
+    assert ndiv_cuda.joint_kernel(k, dz, dx, "group") == "tile"
     block = ndiv_cuda.ndiv_joint(z, x, 0.8, "block")
     group = ndiv_cuda.ndiv_joint(z, x, 0.8, "group")
     assert torch.equal(block[1], group[1]) and torch.equal(block[2], group[2])
+    torch.testing.assert_close(block[0], group[0], rtol=1e-6, atol=0.0)
     bwd = [ndiv_cuda.ndiv_bwd(z, x, 0.8, g, v) for v in VARIANTS]
     for other in bwd[1:]:
         assert torch.equal(bwd[0][0], other[0])
@@ -112,6 +146,50 @@ def test_tilings_give_bitwise_equal_grads(cuda, b, k, dz, dx):
     for v in VARIANTS:
         torch.testing.assert_close(ndiv_cuda.ndiv_fwd(z, x, 0.8, v), block[0],
                                    rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("k,want", [(8, 1), (32, 1), (33, 2)])
+def test_block_joint_call_is_one_kernel_launch_up_to_k_32(cuda, k, want):
+    """The warp kernel sums the loss in its last block: one launch per
+    call; the tile kernel adds its one-block sum of the partials."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    z, x = _inputs(cuda, 64, k, 2, 16)
+    ndiv_cuda.ndiv_joint(z, x, 0.8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ndiv_cuda.ndiv_joint(z, x, 0.8)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and ("ndiv" in e.key or "sum_partials" in e.key)]
+    assert sum(e.count for e in kernels) == want
+
+
+def test_padded_conditions_get_zero_hinge_and_grads(cuda):
+    """The sharded call site pads the batch with all-zero conditions: the
+    warp kernel gives them a zero hinge and zero grads, beside real ones."""
+    from ndivplanning_tpu_torch.parallel import sharded_step
+
+    assert ndiv_cuda.joint_kernel(32, 2, 16) == "warp"
+    zeros_z = torch.zeros((4, 32, 2), device="cuda")
+    zeros_x = torch.zeros((4, 32, 16), device="cuda")
+    total, gz, gx = ndiv_cuda.ndiv_joint(zeros_z, zeros_x, 0.8)
+    assert float(total) == 0.0 and not gz.any() and not gx.any()
+    # b=5 over div=4: chunks of 2, rows 5..7 padding; chunk 3 is all padding,
+    # chunk 2 holds row 4 and one padded row.
+    z, x = _inputs(cuda, 5, 32, 2, 16)
+    zf, xf = z.clone().requires_grad_(), x.clone().requires_grad_()
+    empty = sharded_step.ndiv_rank_partial(zf, xf, 0.8, 3, 4)
+    g_z, g_x = torch.autograd.grad(empty, (zf, xf))
+    assert float(empty) == 0.0 and not g_z.any() and not g_x.any()
+    half = sharded_step.ndiv_rank_partial(zf, xf, 0.8, 2, 4)
+    g_z, g_x = torch.autograd.grad(half, (zf, xf))
+    want = ndiv_cuda.ndiv_joint(z[4:5], x[4:5], 0.8)[0]
+    torch.testing.assert_close(half.detach(), want, rtol=1e-6, atol=0.0)
+    assert not g_z[:4].any() and not g_x[:4].any()
+    assert g_z[4].any() and g_x[4].any()
 
 
 # (variant, JOINT) -> the launches one differentiated loss makes, as

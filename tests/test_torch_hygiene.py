@@ -2,6 +2,7 @@
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -100,3 +101,34 @@ def test_the_card_runs_in_full_float32_and_deterministically(monkeypatch):
     assert not torch.backends.cudnn.allow_tf32
     assert torch.backends.cudnn.deterministic
     assert not torch.backends.cudnn.benchmark
+
+
+_ATOMIC = re.compile(r"\batomicAdd(?:_block|_system)?\s*\(([^,]+),([^;]+)\)")
+_FLOAT_TYPES = re.compile(r"\b(float|double|half|__half|__nv_bfloat16|"
+                          r"__half2|float2|float4|double2)\b")
+
+
+def _declared_types(src, name):
+    """The pointee types ``name`` is declared with in ``src``."""
+    decl = re.compile(r"([A-Za-z_][\w ]*?)\s*\*\s*(?:__restrict__\s+)?"
+                      + re.escape(name) + r"\b")
+    return [m.group(1).strip() for m in decl.finditer(src)]
+
+
+def test_ndiv_kernels_use_no_float_atomics():
+    """Bitwise-repeatable losses: no atomic add takes a float or double
+    operand in csrc/ndiv.cu; the warp kernel's integer ticket is the only
+    atomic."""
+    with open(os.path.join(PKG, "csrc", "ndiv.cu"), encoding="utf-8") as f:
+        src = re.sub(r"//[^\n]*", "", f.read())
+    calls = _ATOMIC.findall(src)
+    assert calls, "expected the integer ticket's atomicAdd"
+    for target, value in calls:
+        assert not _FLOAT_TYPES.search(target + value), (target, value)
+        float_literal = r"\d\.\d*|\d[eE][-+]?\d|\d+\.?f\b"
+        assert not re.search(float_literal, value), value
+        name = re.findall(r"[A-Za-z_]\w*", target)[-1]
+        types = _declared_types(src, name)
+        assert types, f"no declaration of {name}"
+        for t in types:
+            assert not _FLOAT_TYPES.search(t), f"{name} is declared {t}*"
