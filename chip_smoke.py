@@ -3,7 +3,7 @@
 Builds the NDiv CUDA kernels from ``ndivplanning_tpu_torch/csrc``, holds
 every kernel route (fwd, joint and bwd under the block, group and packed
 tilings) against its plain PyTorch version, and the warp kernel (block
-joint calls at k <= 32) bitwise against the tile kernel (the group
+calls at k <= 32, every mode) bitwise against the tile kernel (the group
 tiling), then drives the port's main
 paths at full width: the goalcond preset trains 20 steps, plans with 1000
 candidates and evaluates NDiv without a gradient; the imagecond preset
@@ -11,7 +11,9 @@ trains 20 steps, takes one step under each other NDiv route from one state,
 and plans with 1000 candidates on a rasterised scene; the pod_dp preset
 (B=8192, k=32, bf16) checks the sharded NDiv call site's per-rank function
 for virtual ranks, trains 10 steps through the data-parallel step on a 1x1
-mesh of one NCCL rank, and runs two gloo ranks on the card against one.
+mesh of one NCCL rank, takes one float32 step under the NDIV_JOINT=0 route
+(ndiv_fwd + ndiv_bwd) against the default one, and runs two gloo ranks on
+the card against one.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is the device summary.
 
@@ -39,9 +41,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 ALPHA = 0.8
 # The kernels the profiler counts as NDiv's: the tile kernel and its
-# one-block sum of the partials, and the warp kernel (one launch).
+# one-block sum of the partials, and the warp kernel (one launch, any
+# mode).
 NDIV_KERNELS = ("ndiv_tile_kernel", "sum_partials_kernel",
-                "ndiv_joint_warp_kernel")
+                "ndiv_warp_kernel")
 # Kernel launches per train step under the profiler when every joint call
 # ran the tile kernel and its one-block sum (two launches), as this script
 # counted them on an NVIDIA H100 80GB HBM3 at 700.00 W.
@@ -249,7 +252,10 @@ def check_inputs(torch, ndiv_cuda, z, x, label):
         raise AssertionError(f"{label}: the tilings' grads differ")
     out = {
         "shape": label, "loss": float(got["joint"][0] / m),
-        "joint_kernel": ndiv_cuda.joint_kernel(k, z.shape[2], x.shape[2]),
+        "kernels": {ndiv_cuda.launch_key(kernel, variant):
+                    ndiv_cuda.serving_kernel(kernel, k, z.shape[2],
+                                             x.shape[2], variant)
+                    for kernel, variant in ROUTES},
         "max_abs_err": errs, "err_over_max": rel,
         "max_abs_dz": float(plain_gz.abs().max()),
         "max_abs_dx": float(plain_gx.abs().max()),
@@ -386,7 +392,7 @@ def warp_vs_tile_step(torch, ndiv_cuda, step, state, preset, cfg):
     but the NDiv loss and the total G loss, whose sums may differ in their
     last bits (held at rtol 1e-6)."""
     shape = (cfg.k, cfg.latent_dim, cfg.traj_dim)
-    if ndiv_cuda.joint_kernel(*shape) != "warp":
+    if ndiv_cuda.serving_kernel("joint", *shape) != "warp":
         raise AssertionError(f"{preset}: the warp kernel does not serve "
                              f"k, dz, dx = {shape}")
     out = {}
@@ -417,6 +423,70 @@ def warp_vs_tile_step(torch, ndiv_cuda, step, state, preset, cfg):
     return {"phase": "warp_vs_tile_step", "preset": preset,
             "k_dz_dx": list(shape), "params_bitwise_equal": True,
             "other_metrics_bitwise_equal": True, "loss_rel_err": loss_rel}
+
+
+def pod_dp_routes(torch, ndiv_cuda, mesh):
+    """One pod_dp step at full width from one state through
+    ``make_sharded_train_step`` on ``mesh``, under the default route
+    (``ndiv_joint``) and the NDIV_JOINT=0 one (``ndiv_fwd`` + ``ndiv_bwd``,
+    block): the launches of the second, and its g_ndiv and G's Adam first
+    moments against the first at the imagecond routes' tolerances.
+
+    In float32 compute: in bf16 each weight gradient rounds to 8 bits, so
+    two routes whose NDiv grads differ in their last float32 bits land a
+    bf16 ulp (2^-8) apart in ~1% of G's elements, and those tolerances
+    would hold nothing."""
+    from ndivplanning_tpu_torch.parallel import (
+        make_sharded_train_step,
+        shard_state,
+    )
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    cfg = get_config("pod_dp", dp_shards=1, div_shards=1,
+                     compute_dtype="f32")
+    step, _ = make_sharded_train_step(cfg, mesh)
+    start = shard_state(create_train_state(cfg, seed=0), mesh)
+    ref_state, ref = step(clone_state(torch, start))
+    want = {"fwd": 1, "bwd": 1}
+    ndiv_cuda.VARIANT, ndiv_cuda.JOINT = "block", False
+    reset(ndiv_cuda)
+    try:
+        st, m = step(clone_state(torch, start))
+        torch.cuda.synchronize()
+        got = launched(ndiv_cuda)
+        # The profiler's NDiv kernels per step: the forward and the
+        # backward, one launch each (the warp kernel sums the loss itself).
+        prof = profile(torch, lambda: step(clone_state(torch, start)), 3)
+    finally:
+        ndiv_cuda.JOINT = True
+    if got != want:
+        raise AssertionError(f"pod_dp NDIV_JOINT=0 route: launches {got}, "
+                             f"want {want}")
+    if prof["ndiv_launches_per_call"] != 2:
+        raise AssertionError(f"pod_dp NDIV_JOINT=0 route: "
+                             f"{prof['ndiv_launches_per_call']} NDiv kernel "
+                             f"launches per step, want 2")
+    ndiv_rel = assert_close(torch, m["g_ndiv"], ref["g_ndiv"],
+                            "pod_dp route g_ndiv", VAL_RTOL)
+    grad_rel = max(
+        assert_close(torch, st.g_opt.mu[name], mu,
+                     f"pod_dp route G grad {name}", GRAD_RTOL,
+                     GRAD_ATOL_OF_MAX)
+        for name, mu in ref_state.g_opt.mu.items())
+    return got, {
+        "phase": "pod_dp_routes", "preset": "pod_dp", "mesh": mesh.shape,
+        "compute_dtype": cfg.compute_dtype, "batch_size": cfg.batch_size,
+        "k": cfg.k, "variant": "block", "joint": False, "launches": got,
+        "kernels": {key: ndiv_cuda.serving_kernel(
+            key, cfg.k, cfg.latent_dim, cfg.traj_dim) for key in want},
+        "g_ndiv": float(m["g_ndiv"][0]), "ref_g_ndiv": float(ref["g_ndiv"][0]),
+        "profiler_ndiv_launches_per_step": prof["ndiv_launches_per_call"],
+        "profiler_ndiv_kernels_ms_per_step": prof["ndiv_kernels_ms_per_call"],
+        "g_ndiv_err_over_ref": ndiv_rel, "g_grads_err_over_max": grad_rel,
+        "g_grads_bitwise_equal": all(
+            torch.equal(st.g_opt.mu[name], mu)
+            for name, mu in ref_state.g_opt.mu.items())}
 
 
 def reset(*counted) -> None:
@@ -987,6 +1057,9 @@ def main() -> int:
           "step_ms_first": pstep_ms[0],
           "repeat_bitwise": repeat_bitwise,
           "unsharded_step_rel_err": unsharded_rel})
+    path_launches["pod_dp_routes"], routes_phase = pod_dp_routes(
+        torch, ndiv_cuda, mesh)
+    emit(routes_phase)
 
     # 8c. Two ranks on the card (gloo) against the 1x1 run, f32 and bf16.
     runs = [(dtype, dp, div) for dtype in ("f32", "bf16")
@@ -1049,6 +1122,42 @@ def main() -> int:
                                 pod_plain[0] / (b * k * (k - 1))),
                         max_err(warp[1], pod_plain[1]),
                         max_err(warp[2], pod_plain[2]))
+    # ndiv_fwd and ndiv_bwd (block) there: against the group tiling (the
+    # tile kernel: totals within rtol 1e-6, bwd grads bitwise equal at
+    # g = 1 and G_CHECK) and against their plain versions.
+    m_pod = b * k * (k - 1)
+    fwd_block = ndiv_cuda.ndiv_fwd(zp, xp, ALPHA)
+    fwd_group = ndiv_cuda.ndiv_fwd(zp, xp, ALPHA, "group")
+    fwd_plain = ndiv_cuda.ndiv_fwd_plain(zp, xp, ALPHA)
+    pod_fwd_rel = float((fwd_block - fwd_group).abs() / fwd_group.abs())
+    if pod_fwd_rel > 1e-6:
+        raise AssertionError(f"pod_dp shape: fwd totals {pod_fwd_rel} apart")
+    # The warp kernel's totals do not depend on its grid: 7 blocks walking
+    # the conditions give the resident grid's bits.
+    for kernel, want_total in (("fwd", fwd_block), ("joint", warp[0])):
+        out = ndiv_cuda._launch(kernel, "block", zp, xp, ALPHA, blocks=7)
+        if not torch.equal(out[0] if kernel == "joint" else out, want_total):
+            raise AssertionError(f"pod_dp shape: the {kernel} total on 7 "
+                                 f"blocks differs from the resident grid's")
+    assert_close(torch, fwd_block, fwd_plain, "pod_dp shape ndiv_fwd",
+                 VAL_RTOL)
+    pod_err = {"fwd": max_err(fwd_block / m_pod, fwd_plain / m_pod),
+               "bwd": 0.0}
+    for g_val in (1.0, G_CHECK):
+        g_pod = torch.tensor(g_val, device="cuda")
+        bwd_block = ndiv_cuda.ndiv_bwd(zp, xp, ALPHA, g_pod)
+        bwd_group = ndiv_cuda.ndiv_bwd(zp, xp, ALPHA, g_pod, "group")
+        if not all(torch.equal(a, c) for a, c in zip(bwd_block, bwd_group)):
+            raise AssertionError(f"pod_dp shape: ndiv_bwd's block grads "
+                                 f"differ from the group tiling's at "
+                                 f"g={g_val}")
+        for name, got_g, want_g in zip(
+                ("dz", "dx"), bwd_block,
+                ndiv_cuda.ndiv_bwd_plain(zp, xp, ALPHA, g_pod)):
+            assert_close(torch, got_g, want_g,
+                         f"pod_dp shape ndiv_bwd {name} at g={g_val}",
+                         GRAD_RTOL, GRAD_ATOL_OF_MAX)
+            pod_err["bwd"] = max(pod_err["bwd"], max_err(got_g, want_g))
     site, site_plain = call_site("pallas"), call_site("jnp")
     got, want = site(), site_plain()
     site_err = 0.0
@@ -1067,11 +1176,24 @@ def main() -> int:
             ndiv_cuda.ndiv_joint, zp, xp, ALPHA), 100, 50_000_000),
         "joint_plain_ms": device_ms(torch, functools.partial(
             ndiv_cuda.ndiv_joint_plain, zp, xp, ALPHA), 4, 200_000_000)}
+    g_one = torch.ones((), device="cuda")
+    for kernel in ("fwd", "bwd"):
+        args = (zp, xp, ALPHA) + ((g_one,) if kernel == "bwd" else ())
+        pod_times[f"{kernel}_ms"] = device_ms(torch, functools.partial(
+            getattr(ndiv_cuda, f"ndiv_{kernel}"), *args), 100, 50_000_000)
+        pod_times[f"{kernel}_plain_ms"] = device_ms(
+            torch, functools.partial(
+                getattr(ndiv_cuda, f"ndiv_{kernel}_plain"), *args), 4,
+            200_000_000)
     emit({"phase": "kernel_times_pod_dp", "shape": list(POD_DP_SHAPE),
-          "joint_kernel": ndiv_cuda.joint_kernel(k, dz, dx),
+          "kernels": {kern: ndiv_cuda.serving_kernel(kern, k, dz, dx)
+                      for kern in ("joint", "fwd", "bwd")},
           "joint_grads_bitwise_equal_group": True,
           "joint_loss_rel_err_group": pod_loss_rel,
           "joint_max_abs_err": pod_joint_err,
+          "fwd_total_rel_err_group": pod_fwd_rel,
+          "bwd_grads_bitwise_equal_group": True,
+          "fwd_max_abs_err": pod_err["fwd"], "bwd_max_abs_err": pod_err["bwd"],
           "site_max_abs_err": site_err, **pod_times, "card": smi})
     dist.destroy_process_group()
     shutil.rmtree(tmpdir)
@@ -1097,7 +1219,8 @@ def main() -> int:
         bound_ms, bound_by = bound(*IMAGECOND_SHAPE, kernel)
         kernels.append({
             "name": f"ndiv_{key}", "route": "cuda", "variant": variant,
-            "kernel": "tile",
+            "kernel": ndiv_cuda.serving_kernel(kernel, *IMAGECOND_SHAPE[1:],
+                                               variant),
             "source": "ndivplanning_tpu_torch/csrc/ndiv.cu",
             "replaces": "ndivplanning_tpu/ops/ndiv_pallas.py:"
                         f"{REPLACES[(kernel, variant)]}",
@@ -1108,14 +1231,16 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "shape": list(IMAGECOND_SHAPE), "card": smi})
-        if key == "joint":
+        if variant == "block":
+            # The block rows at pod_dp's per-rank shape too.
             kernels[-1].update(
-                kernel=ndiv_cuda.joint_kernel(*IMAGECOND_SHAPE[1:]),
-                kernel_pod_dp=ndiv_cuda.joint_kernel(*POD_DP_SHAPE[1:]),
-                max_abs_err_pod_dp=pod_joint_err,
-                ms_pod_dp=pod_times["joint_ms"],
-                plain_ms_pod_dp=pod_times["joint_plain_ms"],
-                bound_ms_pod_dp=bound(*POD_DP_SHAPE, "joint")[0],
+                kernel_pod_dp=ndiv_cuda.serving_kernel(kernel,
+                                                       *POD_DP_SHAPE[1:]),
+                max_abs_err_pod_dp=(pod_joint_err if kernel == "joint"
+                                    else pod_err[kernel]),
+                ms_pod_dp=pod_times[f"{kernel}_ms"],
+                plain_ms_pod_dp=pod_times[f"{kernel}_plain_ms"],
+                bound_ms_pod_dp=bound(*POD_DP_SHAPE, kernel)[0],
                 shape_pod_dp=list(POD_DP_SHAPE))
     # The sharded call site on the 1x1 mesh: a call site over ndiv_joint,
     # with no kernel of its own: the joint kernel, a sum over the world and

@@ -9,12 +9,13 @@
 // and the three TPU layouts "block", "group" and "packed" as tilings of one
 // kernel (below).
 //
-// Two kernels, chosen by shape: ndiv_joint under the block layout with
+// Two kernels, chosen by shape: every call under the block layout with
 // 2 <= k <= 32 (and rows that fit in shared memory) runs
-// ndiv_joint_warp_kernel; every other call (k > 32, the group and packed
-// tilings, fwd and bwd) runs ndiv_tile_kernel.  Both compute every
-// per-condition value with the same helpers in the same order, so their
-// grads are bitwise equal; a launch that fails raises in the wrapper.
+// ndiv_warp_kernel<mode, kp>, whatever its mode (fwd, joint or bwd); every
+// other call (k > 32, the group and packed tilings) runs ndiv_tile_kernel.
+// Both compute every per-condition value with the same helpers in the same
+// order, so their grads are bitwise equal; a launch that fails raises in
+// the wrapper.
 //
 // Per condition b (k samples, latents z [k, dz], outputs x [k, dx]):
 //   D_ij  = sqrt(max(sq_i + sq_j - 2 <a_i, a_j>, 0)), 0 on the diagonal
@@ -48,10 +49,10 @@
 // the grad sums W_ij (a_i - a_j) in f64.  f64 mma (DMMA) would sum d in
 // hardware-ordered chunks and break the bitwise equality of the two kernels.
 //
-// ndiv_joint_warp_kernel: a team of warps per condition (two at k <= 16,
-// four at 16 < k <= 32, where a single warp waits on its own latencies),
-// two teams or one per block of 128 threads, persistent blocks walking
-// over the conditions.  The
+// ndiv_warp_kernel: a team of warps per condition (two at k <= 16,
+// four at 16 < k <= 32 with grads, where a single warp waits on its own
+// latencies; two for fwd), two teams or one per block of 128 threads,
+// persistent blocks walking over the conditions.  The
 // team copies its condition's rows into shared memory once, coalesced and
 // in one batch of loads, in f64 and transposed ([d][kp + 1], k padded to
 // kp = 8, 16 or 32 with zero rows), so nothing is converted or re-read
@@ -66,15 +67,24 @@
 // computed once by that thread.  W is stored in f64
 // over the dead D and dL/dD of its matrix, and the grad sum runs on the
 // team's grid (x's wide rows) or one output a thread (z's narrow ones).
-// One launch: each block writes its partial, and the last block to take an
-// integer ticket sums all partials in a fixed order and resets the ticket.
-// At pod_dp's shape it takes ~0.34 ms, ~8x its bound (chip_smoke.py's
-// kernels line, NVIDIA H100 80GB HBM3, 700 W), with 5 teams an SM (shared
-// memory and registers both allow 5): x's Gram matrix and grad sum take
-// most of it, with their f64 fmas at their least count but the f64 pipes
-// well short of full; the rest is f64 square roots, exact f32 divisions
-// and index arithmetic.  Not used: f64 mma (it breaks the bitwise
-// equality), cp.async double buffering.
+// The forward mode stops after the hinge and keeps only the rows and the
+// two distance matrices in shared memory (~26 KB a condition at pod_dp's
+// widths against the grad modes' ~38 KB), so 8 conditions reside on an SM
+// instead of 5, on teams of two warps.  The backward mode is the joint
+// one with the slack g / M on an active pair, rounded as the tile kernel
+// rounds it, and no loss.
+// One launch: each condition gets one loss partial, summed by the team
+// that takes it in a fixed order, and the last block to take an
+// integer ticket sums all partials in an order set by their count and
+// resets the ticket: the total's bits depend on the shape alone, not on
+// the grid (hence not on the card's SM count).  Joint at pod_dp's shape
+// took ~0.34 ms, ~8x its bound (chip_smoke.py's kernels line, NVIDIA H100
+// 80GB HBM3, 700 W), with 5 teams an SM (shared memory and registers both
+// allow 5): x's Gram matrix and grad sum take most of it, with their f64
+// fmas at their least count but the f64 pipes well short of full; the
+// rest is f64 square roots, exact f32 divisions and index arithmetic.  Not
+// used: f64 mma (it breaks the bitwise equality), cp.async double
+// buffering.
 
 // ndiv_tile_kernel.  On the TPU "block" gives each condition its own
 // [kp, kp] Gram (kp = k rounded up to 8), "group" packs 128 // kp
@@ -91,8 +101,8 @@
 //
 // Determinism: no float atomics in either kernel.  The tile kernel's blocks
 // each write one partial and a second one-block kernel sums the partials
-// in a fixed order; the warp kernel does the same sum in its last block.
-// Repeated launches are bitwise equal.
+// in a fixed order; the warp kernel sums its per-condition partials in
+// its last block.  Repeated launches are bitwise equal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -361,41 +371,51 @@ sum_partials_kernel(const float* __restrict__ partial, int n,
 // ---------------------------------------------------- the warp kernel
 
 // The warp kernel's team for one condition: k padded to kp = 8, 16 or 32,
-// team_warps(kp) warps on it, team_conds(kp) teams per block of 128
-// threads, and the blocks per SM its registers are sized for.
+// team_warps warps on it, team_conds teams per block of 128 threads, and
+// the blocks per SM its registers are sized for.  At kp = 32 the grad
+// modes take four warps a condition (one thread a 2 x 4 tile of each
+// matrix) and 5 blocks an SM, as many as their shared memory allows at
+// pod_dp's widths; fwd takes two (a 4 x 4 tile: 8 loads for 16 fmas in
+// the Gram loop instead of 6 for 8) and 4 blocks, 8 conditions an SM.
+// Measured at pod_dp's shape (ndiv_kernel_ab.py, NVIDIA H100 80GB HBM3,
+// 700 W): fwd on teams of four took 0.180-0.194 ms at 5-8 blocks an SM,
+// on teams of two 0.161.
 __host__ __device__ constexpr int warp_kp(int k) {
   return k <= 8 ? 8 : (k <= 16 ? 16 : 32);
 }
-__host__ __device__ constexpr int team_warps(int kp) {
-  return kp == 32 ? 4 : 2;
+__host__ __device__ constexpr int team_warps(int kp, int mode = kJoint) {
+  return kp == 32 && mode != kFwd ? 4 : 2;
 }
-__host__ __device__ constexpr int team_conds(int kp) {
-  return kp == 32 ? 1 : 2;
+__host__ __device__ constexpr int team_conds(int kp, int mode = kJoint) {
+  return 4 / team_warps(kp, mode);
 }
-__host__ __device__ constexpr int warp_min_blocks(int kp) {
-  return kp == 32 ? 5 : 2;  // 5: as many as kp = 32's shared memory allows
+__host__ __device__ constexpr int warp_min_blocks(int mode, int kp) {
+  return kp == 32 ? (mode == kFwd ? 4 : 5) : 2;
 }
 constexpr int kWarpBlockThreads = 128;  // team_warps * team_conds * 32
 
 // Bytes of one condition's slice of shared memory: the rows, transposed
-// in f64 [d][kp + 1]; Dz, Gz, Dx, Gx, Tz [kp][kp + 1] in f32 (kp (kp + 1)
-// is even, so the doubles after them stay aligned); sq_z and sq_x in f64;
-// r_z, r_x and each row's two dL/dD values for z and for x in f32.
-__host__ __device__ inline size_t warp_cond_bytes(int kp, int dz, int dx) {
+// in f64 [d][kp + 1]; the f32 matrices [kp][kp + 1] (kp (kp + 1) is even,
+// so the doubles after them stay aligned): Dz and Dx, and with grads Gz,
+// Gx and Tz too; sq_z and sq_x in f64; r_z and r_x in f32, and with grads
+// each row's two dL/dD values for z and for x.
+__host__ __device__ inline size_t warp_cond_bytes(int mode, int kp, int dz,
+                                                  int dx) {
   const size_t s = kp + 1;
-  return 8 * s * (dz + dx) + 20 * (size_t)kp * s + 16 * (size_t)kp +
-         24 * (size_t)kp;
+  const bool grads = mode != kFwd;
+  return 8 * s * (dz + dx) + (grads ? 20 : 8) * (size_t)kp * s +
+         16 * (size_t)kp + (grads ? 24 : 8) * (size_t)kp;
 }
 
-size_t warp_smem_bytes(int k, int dz, int dx) {
+size_t warp_smem_bytes(int mode, int k, int dz, int dx) {
   const int kp = warp_kp(k);
-  return team_conds(kp) * warp_cond_bytes(kp, dz, dx) +
+  return team_conds(kp, mode) * warp_cond_bytes(mode, kp, dz, dx) +
          kWarpBlockThreads * sizeof(float);
 }
 
-bool warp_serves(int k, int dz, int dx, int tile_rows) {
+bool warp_serves(int mode, int k, int dz, int dx, int tile_rows) {
   return tile_rows == 0 && k >= 2 && k <= 32 &&
-         warp_smem_bytes(k, dz, dx) <= kSmemOptin;
+         warp_smem_bytes(mode, k, dz, dx) <= kSmemOptin;
 }
 
 // a [k, d] (row-major, device memory) -> at [d][kp + 1] in f64, rows
@@ -441,9 +461,9 @@ __device__ __forceinline__ void team_sync(int team) {
 
 // The team's threads form a kR x 8 grid; thread (p, q) owns the entries
 // (p + kR u, q + 8 v) of every kp x kp matrix, u < kp / kR, v < kp / 8.
-template <int kp>
+template <int kp, int kNWp = team_warps(kp)>
 struct Grid {
-  static constexpr int kNW = team_warps(kp);
+  static constexpr int kNW = kNWp;
   static constexpr int kT = 32 * kNW;
   static constexpr int kR = kT / 8;
   static constexpr int kU = kp / kR;
@@ -455,13 +475,13 @@ struct Grid {
 // f64 fma chain over t (dot_rows' order): the diagonal is sq bitwise, then
 // D off the diagonal.  A warp's loads of a step read 4 and 8 neighbouring
 // doubles.
-template <int kp>
+template <int kp, int kNW>
 __device__ __forceinline__ void warp_distances(const double* __restrict__ at,
                                                int d, int k, int p, int q,
                                                int team,
                                                double* __restrict__ sq,
                                                float* __restrict__ D) {
-  using G = Grid<kp>;
+  using G = Grid<kp, kNW>;
   double acc[G::kU][G::kV];
 #pragma unroll
   for (int u = 0; u < G::kU; ++u)
@@ -605,59 +625,79 @@ __device__ __forceinline__ void warp_grads_of(const double* at,
     warp_grads<kp, 4, false>(at, W64, k, d, p, q, out);
 }
 
-// ndiv_joint for 2 <= k <= kp: a team of warps per condition, each phase on
-// the team's thread grid or one row per thread, separated by team_sync.
-// Persistent: the grid holds as many blocks as are resident at once, each
-// walking over conditions, so the loss tail runs once per block.
-template <int kp>
-__global__ void __launch_bounds__(kWarpBlockThreads, warp_min_blocks(kp))
-ndiv_joint_warp_kernel(const float* __restrict__ z,
-                       const float* __restrict__ x, int batch, int k, int dz,
-                       int dx, float alpha, float inv_m,
-                       float* __restrict__ partial, float* __restrict__ total,
-                       unsigned int* __restrict__ ticket,
-                       float* __restrict__ gz, float* __restrict__ gx) {
-  using G = Grid<kp>;
-  constexpr int conds = team_conds(kp);
+// ndiv_fwd, ndiv_joint and ndiv_bwd for 2 <= k <= kp: a team of warps per
+// condition, each phase on the team's thread grid or one row per thread,
+// separated by team_sync.  fwd stops after the hinge; bwd takes the slack
+// g / M (rounded as the tile kernel rounds it) where joint takes 1 / M, and
+// sums no loss.  Persistent: the grid holds at most as many blocks as are
+// resident at once, each walking over conditions; the grid sets no bit of
+// the results.
+//
+// The loss partials: one per condition, so the total's summation tree
+// depends only on the shape.  The team that takes a condition sums its
+// hinge terms (each thread's entries in order, a fixed lane tree, then the
+// team's warps in order) into partial[b], and the last block sums the
+// partials in an order set by their count.  Chunks of one condition keep
+// the walk's finest grain (at pod_dp's 8192 conditions over 660 resident
+// teams, chunks of 2 would take 14 rounds instead of 13, chunks of 4 16)
+// and keep no sum live across the grad phases.
+template <int kMode, int kp>
+__global__ void __launch_bounds__(kWarpBlockThreads,
+                                  warp_min_blocks(kMode, kp))
+ndiv_warp_kernel(const float* __restrict__ z, const float* __restrict__ x,
+                 const float* __restrict__ g, int batch, int k, int dz,
+                 int dx, float alpha, float inv_m,
+                 float* __restrict__ partial, float* __restrict__ total,
+                 unsigned int* __restrict__ ticket, float* __restrict__ gz,
+                 float* __restrict__ gx) {
+  using G = Grid<kp, team_warps(kp, kMode)>;
+  constexpr bool kGrads = kMode != kFwd;
+  constexpr bool kLoss = kMode != kBwd;
+  constexpr int conds = team_conds(kp, kMode);
   constexpr int s = G::s;
   static_assert(G::kT * conds == kWarpBlockThreads, "block size");
+  static_assert(G::kT >= 2 * kp, "a thread per row of both matrices");
   extern __shared__ double warp_smem[];
   __shared__ bool last_block;
   const int team = threadIdx.x / G::kT, tt = threadIdx.x % G::kT;
   const int p = tt >> 3, q = tt & 7;
-  const size_t cond_bytes = warp_cond_bytes(kp, dz, dx);
+  const size_t cond_bytes = warp_cond_bytes(kMode, kp, dz, dx);
   unsigned char* base =
       reinterpret_cast<unsigned char*>(warp_smem) + team * cond_bytes;
   double* zt = reinterpret_cast<double*>(base);
   double* xt = zt + dz * s;
-  float* Dz = reinterpret_cast<float*>(xt + dx * s);  // later W_z in f64
+  // W_z (f64) later lies over Dz and Gz, W_x over Dx and Gx; without
+  // grads there are only Dz and Dx.
+  float* Dz = reinterpret_cast<float*>(xt + dx * s);
   float* Gz = Dz + kp * s;  // hinge slack s, later dL/dD for z
-  float* Dx = Gz + kp * s;  // later W_x in f64
+  float* Dx = kGrads ? Gz + kp * s : Gz;
   float* Gx = Dx + kp * s;  // x's c terms, later dL/dD for x
   float* Tz = Gx + kp * s;  // z's c terms
-  double* sqz = reinterpret_cast<double*>(Tz + kp * s);
+  double* sqz = reinterpret_cast<double*>(kGrads ? Tz + kp * s : Gx);
   double* sqx = sqz + kp;
   float* rz = reinterpret_cast<float*>(sqx + kp);
   float* rx = rz + kp;
   float* gdz = rx + kp;       // [2][kp]: a row's dL/dD where its slack is
-  float* gdx = gdz + 2 * kp;  // inv_m, and where it is 0
+  float* gdx = gdz + 2 * kp;  // s_on, and where it is 0
   float* red = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(warp_smem) + conds * cond_bytes);
+  float* team_red = red + team * G::kNW;  // the condition's warp sums
 
-  float hsum = 0.f;
-  for (int b = blockIdx.x * conds + team; b - team < batch;
-       b += gridDim.x * conds) {
-    if (b >= batch) continue;  // team-uniform: its barriers stay matched
+  // The slack on an active pair, as the tile kernel computes it.
+  float s_on = inv_m;
+  if constexpr (kMode == kBwd) s_on = __fmul_rn(g[0], inv_m);
+
+  for (int b = blockIdx.x * conds + team; b < batch;
+       b += gridDim.x * conds) {  // team-uniform: its barriers stay matched
     stage_rows<G::kT>(z + (size_t)b * k * dz, zt, k, kp, dz, tt);
     stage_rows<G::kT>(x + (size_t)b * k * dx, xt, k, kp, dx, tt);
     team_sync<G::kNW>(team);
-    warp_distances<kp>(zt, dz, k, p, q, team, sqz, Dz);
-    warp_distances<kp>(xt, dx, k, p, q, team, sqx, Dx);
+    warp_distances<kp, G::kNW>(zt, dz, k, p, q, team, sqz, Dz);
+    warp_distances<kp, G::kNW>(xt, dx, k, p, q, team, sqx, Dx);
     team_sync<G::kNW>(team);
 
     // Row sums and c_i: thread i < kp takes row i of z's matrices,
     // thread kp + i row i of x's.
-    static_assert(G::kT >= 2 * kp, "a thread per row of both matrices");
     const int row = tt % kp;
     const bool on_x = tt >= kp;
     if (tt < 2 * kp && row < k) {
@@ -668,6 +708,7 @@ ndiv_joint_warp_kernel(const float* __restrict__ z,
     }
     team_sync<G::kNW>(team);
 
+    float hsum = 0.f;  // the thread's hinge terms of this condition
 #pragma unroll
     for (int u = 0; u < G::kU; ++u)
 #pragma unroll
@@ -679,16 +720,31 @@ ndiv_joint_warp_kernel(const float* __restrict__ z,
           const float nx = row_normalized(Dx[e], rx[i]);
           const float h = hinge_term(alpha, nz, nx);
           hsum += h;  // the diagonal has D = 0, so h = 0 there
-          const float sl = (h > 0.f && i != j) ? inv_m : 0.f;
-          Gz[e] = sl;
-          Tz[e] = c_term(__fmul_rn(alpha, sl), nz);
-          Gx[e] = c_term(-sl, nx);
+          if constexpr (kGrads) {
+            const float sl = (h > 0.f && i != j) ? s_on : 0.f;
+            Gz[e] = sl;
+            Tz[e] = c_term(__fmul_rn(alpha, sl), nz);
+            Gx[e] = c_term(-sl, nx);
+          }
         }
       }
+    // The condition's partial: a fixed lane tree, then the team's warps in
+    // order, across the barrier the grad phases need anyway.
+    if constexpr (kLoss) {
+      for (int off = 16; off > 0; off >>= 1)
+        hsum += __shfl_down_sync(0xffffffffu, hsum, off);
+      if ((tt & 31) == 0) team_red[tt >> 5] = hsum;
+    }
     team_sync<G::kNW>(team);
+    if (kLoss && tt == 0) {
+      float sum = 0.f;
+      for (int w = 0; w < G::kNW; ++w) sum += team_red[w];
+      partial[b] = sum;
+    }
+    if constexpr (!kGrads) continue;
 
     // c_i, then dL/dD of the row's off-diagonal entries: the slack takes
-    // only the values inv_m and 0, so a row has two, each computed as the
+    // only the values s_on and 0, so a row has two, each computed as the
     // tile kernel computes every entry.
     if (tt < 2 * kp && row < k) {
       const float* Trow = (on_x ? Gx : Tz) + row * s;
@@ -696,7 +752,7 @@ ndiv_joint_warp_kernel(const float* __restrict__ z,
       for (int j = 0; j < k; ++j) c += Trow[j];
       const float r = (on_x ? rx : rz)[row];
       float* gd = on_x ? gdx : gdz;
-      const float g_on = on_x ? -inv_m : __fmul_rn(alpha, inv_m);
+      const float g_on = on_x ? -s_on : __fmul_rn(alpha, s_on);
       const float g_off = on_x ? -0.f : __fmul_rn(alpha, 0.f);
       gd[row] = dist_grad(true, g_on, c, r);
       gd[kp + row] = dist_grad(true, g_off, c, r);
@@ -726,32 +782,37 @@ ndiv_joint_warp_kernel(const float* __restrict__ z,
                       tt, gx + (size_t)b * k * dx);
     team_sync<G::kNW>(team);  // the next condition's rows overwrite these
   }
+  if constexpr (!kLoss) return;
 
-  // The loss: each warp's lanes in a fixed tree, the block's warps in
-  // order, then the last block to take a ticket sums every block's partial
-  // in a fixed order (the blocks finish in any order; the sum does not
-  // depend on it).
-  const int warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    hsum += __shfl_down_sync(0xffffffffu, hsum, off);
-  if ((threadIdx.x & 31) == 0) red[warp] = hsum;
+  // The last block to take a ticket sums the partials in a fixed order
+  // (the blocks finish in any order; the sum does not depend on it, nor on
+  // the grid) and resets the ticket.
+  __threadfence();  // each team's partials, before its block's ticket
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float sum = 0.f;
-    for (int w = 0; w < kWarpBlockThreads / 32; ++w) sum += red[w];
-    partial[blockIdx.x] = sum;
-    __threadfence();
+  if (threadIdx.x == 0)
     last_block = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
   __syncthreads();
   if (!last_block) return;
   __threadfence();
+  // Thread t sums partials t, t + 128, ... in order, its loads made in
+  // batches ahead of their adds.
+  constexpr int kBatch = 8;
   float acc = 0.f;
-  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
-    acc += __ldcg(partial + i);
+  for (int base = threadIdx.x; base < batch;
+       base += kWarpBlockThreads * kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r) {
+      const int i = base + kWarpBlockThreads * r;
+      v[r] = i < batch ? __ldcg(partial + i) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r)
+      if (base + kWarpBlockThreads * r < batch) acc += v[r];
+  }
   red[threadIdx.x] = acc;
   __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+  for (int w = kWarpBlockThreads / 2; w > 0; w >>= 1) {
     if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
     __syncthreads();
   }
@@ -761,43 +822,45 @@ ndiv_joint_warp_kernel(const float* __restrict__ z,
   }
 }
 
-// The kernel instance for k, with its shared memory raised past 48 KB
-// where it needs more.
-template <int kp>
+// The kernel instance for (mode, k), with its shared memory raised past
+// 48 KB where it needs more.
+template <int kMode, int kp>
 cudaError_t warp_kernel_ready(size_t smem) {
   if (smem <= kSmemLimit) return cudaSuccess;
-  return cudaFuncSetAttribute(ndiv_joint_warp_kernel<kp>,
+  return cudaFuncSetAttribute(ndiv_warp_kernel<kMode, kp>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
 // Blocks of one warp-kernel launch on the current device: the conditions'
 // blocks, at most as many as are resident at once.  0 on an error.
-template <int kp>
+template <int kMode, int kp>
 int warp_blocks_kp(int batch, int k, int dz, int dx) {
-  const size_t smem = warp_smem_bytes(k, dz, dx);
+  const size_t smem = warp_smem_bytes(kMode, k, dz, dx);
   int dev = 0, sms = 0, per_sm = 0;
-  if (warp_kernel_ready<kp>(smem) != cudaSuccess ||
+  if (warp_kernel_ready<kMode, kp>(smem) != cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ndiv_joint_warp_kernel<kp>, kWarpBlockThreads, smem) !=
+          &per_sm, ndiv_warp_kernel<kMode, kp>, kWarpBlockThreads, smem) !=
           cudaSuccess)
     return 0;
-  const int needed = (batch + team_conds(kp) - 1) / team_conds(kp);
+  const int needed =
+      (batch + team_conds(kp, kMode) - 1) / team_conds(kp, kMode);
   const int resident = sms * (per_sm > 0 ? per_sm : 1);
   return needed < resident ? needed : resident;
 }
 
+template <int kMode>
 int warp_blocks(int batch, int k, int dz, int dx) {
   switch (warp_kp(k)) {
     case 8:
-      return warp_blocks_kp<8>(batch, k, dz, dx);
+      return warp_blocks_kp<kMode, 8>(batch, k, dz, dx);
     case 16:
-      return warp_blocks_kp<16>(batch, k, dz, dx);
+      return warp_blocks_kp<kMode, 16>(batch, k, dz, dx);
     default:
-      return warp_blocks_kp<32>(batch, k, dz, dx);
+      return warp_blocks_kp<kMode, 32>(batch, k, dz, dx);
   }
 }
 
@@ -828,7 +891,7 @@ struct Args {
   int batch, k, dz, dx;
   float alpha, inv_m;
   float* partial;
-  int blocks;  // the warp kernel's grid: partial's length
+  int blocks;  // the warp kernel's grid
   float* total;
   unsigned int* ticket;
   float* gz;
@@ -856,35 +919,41 @@ int launch_tiled(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int kp>
-int launch_warp(const Args& a, int blocks) {
-  if (a.ticket == nullptr || blocks < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = warp_smem_bytes(a.k, a.dz, a.dx);
-  const cudaError_t err = warp_kernel_ready<kp>(smem);
+template <int kMode, int kp>
+int launch_warp_kp(const Args& a) {
+  if ((kMode != kBwd && a.ticket == nullptr) || a.blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = warp_smem_bytes(kMode, a.k, a.dz, a.dx);
+  const cudaError_t err = warp_kernel_ready<kMode, kp>(smem);
   if (err != cudaSuccess) return (int)err;
-  ndiv_joint_warp_kernel<kp><<<blocks, kWarpBlockThreads, smem, a.stream>>>(
-      a.z, a.x, a.batch, a.k, a.dz, a.dx, a.alpha, a.inv_m, a.partial,
-      a.total, a.ticket, a.gz, a.gx);
+  ndiv_warp_kernel<kMode, kp>
+      <<<a.blocks, kWarpBlockThreads, smem, a.stream>>>(
+          a.z, a.x, a.g, a.batch, a.k, a.dz, a.dx, a.alpha, a.inv_m,
+          a.partial, a.total, a.ticket, a.gz, a.gx);
   return (int)cudaGetLastError();
 }
 
-// The dispatch by shape: block-layout joint calls with 2 <= k <= 32 whose
-// rows fit in shared memory go to the warp kernel, everything else to the
-// tile kernel.
+template <int kMode>
+int launch_warp(const Args& a) {
+  switch (warp_kp(a.k)) {
+    case 8:
+      return launch_warp_kp<kMode, 8>(a);
+    case 16:
+      return launch_warp_kp<kMode, 16>(a);
+    default:
+      return launch_warp_kp<kMode, 32>(a);
+  }
+}
+
+// The dispatch by shape: block-layout calls with 2 <= k <= 32 whose rows
+// fit in shared memory go to the warp kernel in every mode, everything
+// else to the tile kernel.
 template <int kMode>
 int launch(int tile_rows, const Args& a) {
   if (a.batch < 1 || a.k < 2 || a.dz < 1 || a.dx < 1)
     return (int)cudaErrorInvalidValue;
-  if (kMode == kJoint && warp_serves(a.k, a.dz, a.dx, tile_rows)) {
-    switch (warp_kp(a.k)) {
-      case 8:
-        return launch_warp<8>(a, a.blocks);
-      case 16:
-        return launch_warp<16>(a, a.blocks);
-      default:
-        return launch_warp<32>(a, a.blocks);
-    }
-  }
+  if (warp_serves(kMode, a.k, a.dz, a.dx, tile_rows))
+    return launch_warp<kMode>(a);
   switch (tile_rows) {
     case 0:
       return launch_tiled<kMode, 0>(a);
@@ -901,35 +970,47 @@ int launch(int tile_rows, const Args& a) {
 
 extern "C" {
 
-// Blocks of one fwd launch, hence the length of its partials buffer.
-int ndiv_grid_blocks(int batch, int k, int tile_rows) {
-  return grid_blocks(batch, k, tile_rows);
+// 1 when the call of this mode (0 = fwd, 1 = joint, 2 = bwd) runs the warp
+// kernel at this shape, 0 for the tile kernel.
+int ndiv_warp_serves(int mode, int k, int dz, int dx, int tile_rows) {
+  return warp_serves(mode, k, dz, dx, tile_rows) ? 1 : 0;
 }
 
-// 1 when ndiv_joint runs the warp kernel at this shape, 0 for the tile
-// kernel.
-int ndiv_joint_warp(int k, int dz, int dx, int tile_rows) {
-  return warp_serves(k, dz, dx, tile_rows) ? 1 : 0;
+// Blocks of one launch of this mode (either kernel) on the current device.
+// 0 on an error.
+int ndiv_blocks(int mode, int batch, int k, int dz, int dx, int tile_rows) {
+  if (!warp_serves(mode, k, dz, dx, tile_rows))
+    return grid_blocks(batch, k, tile_rows);
+  switch (mode) {
+    case kFwd:
+      return warp_blocks<kFwd>(batch, k, dz, dx);
+    case kJoint:
+      return warp_blocks<kJoint>(batch, k, dz, dx);
+    default:
+      return warp_blocks<kBwd>(batch, k, dz, dx);
+  }
 }
 
-// Blocks of one ndiv_joint launch (either kernel) on the current device:
-// the partials' length.  0 on an error.
-int ndiv_joint_blocks(int batch, int k, int dz, int dx, int tile_rows) {
-  return warp_serves(k, dz, dx, tile_rows) ? warp_blocks(batch, k, dz, dx)
-                                           : grid_blocks(batch, k, tile_rows);
+// Length of the loss partials of one fwd or joint launch: one per
+// condition (warp kernel) or per block (tile kernel); shape alone sets it.
+int ndiv_partials(int mode, int batch, int k, int dz, int dx,
+                  int tile_rows) {
+  return warp_serves(mode, k, dz, dx, tile_rows)
+             ? batch
+             : grid_blocks(batch, k, tile_rows);
 }
 
 // Floats of global scratch each condition needs (0 when shared memory
-// holds it); mode 0 = fwd, 1 = joint, 2 = bwd.
+// holds it).
 long long ndiv_scratch_floats(int k, int mode, int tile_rows) {
   return mats_fit_smem(k, mode, tile_rows) ? 0
                                            : (long long)mats_floats(k, mode);
 }
 
-// Hinge sum (total [1], partial [blocks] with blocks from
-// ndiv_joint_blocks) and unit-cotangent grads gz, gx.  ticket: one zeroed
-// unsigned int in device memory, owned by the stream (the warp kernel
-// leaves it zero again).
+// Hinge sum (total [1], partial [ndiv_partials]) and unit-cotangent grads
+// gz, gx.  blocks: the warp kernel's grid (ndiv_blocks; any count >= 1
+// gives the same bits).  ticket: one zeroed unsigned int in device memory,
+// owned by the stream (the warp kernel leaves it zero again).
 int ndiv_joint(const float* z, const float* x, int batch, int k, int dz,
                int dx, float alpha, float inv_m, int tile_rows,
                float* partial, int blocks, float* total, unsigned int* ticket,
@@ -940,23 +1021,25 @@ int ndiv_joint(const float* z, const float* x, int batch, int k, int dz,
                                         static_cast<cudaStream_t>(stream)});
 }
 
-// Hinge sum only (total [1], partial [blocks]).
+// Hinge sum only (total [1], partial, blocks and ticket as for ndiv_joint).
 int ndiv_fwd(const float* z, const float* x, int batch, int k, int dz, int dx,
-             float alpha, int tile_rows, float* partial, float* total,
-             float* scratch, void* stream) {
+             float alpha, int tile_rows, float* partial, int blocks,
+             float* total, unsigned int* ticket, float* scratch,
+             void* stream) {
   return launch<kFwd>(tile_rows, Args{z, x, nullptr, batch, k, dz, dx, alpha,
-                                      0.f, partial, 0, total, nullptr,
+                                      0.f, partial, blocks, total, ticket,
                                       nullptr, nullptr, scratch,
                                       static_cast<cudaStream_t>(stream)});
 }
 
-// Grads gz, gx at the cotangent g [1] (device memory).
+// Grads gz, gx at the cotangent g [1] (device memory); blocks as for
+// ndiv_joint.
 int ndiv_bwd(const float* z, const float* x, const float* g, int batch, int k,
              int dz, int dx, float alpha, float inv_m, int tile_rows,
-             float* gz, float* gx, float* scratch, void* stream) {
+             int blocks, float* gz, float* gx, float* scratch, void* stream) {
   return launch<kBwd>(tile_rows, Args{z, x, g, batch, k, dz, dx, alpha, inv_m,
-                                      nullptr, 0, nullptr, nullptr, gz, gx,
-                                      scratch,
+                                      nullptr, blocks, nullptr, nullptr, gz,
+                                      gx, scratch,
                                       static_cast<cudaStream_t>(stream)});
 }
 

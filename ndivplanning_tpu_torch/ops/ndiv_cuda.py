@@ -5,14 +5,16 @@ first use and bound through ``ctypes``:
 
 - ``ndiv_joint``: the hinge sum plus dL/dz and dL/dx at unit cotangent, in
   one pass (replaces ``_joint_kernel_block``).  Under differentiation the
-  backward is then a scalar multiply.  Under "block" with 2 <= k <= 32 it
-  runs the warp kernel (a team of warps per condition, one launch;
-  :func:`joint_kernel` says which kernel serves a shape), else the tile
-  kernel; their grads are bitwise equal.
+  backward is then a scalar multiply.
 - ``ndiv_fwd``: the hinge sum alone (replaces ``_fwd_kernel_block`` and the
   packed ``_fwd_kernel``).
 - ``ndiv_bwd``: dL/dz and dL/dx at an upstream cotangent ``g``, recomputing
   the forward (replaces ``_bwd_kernel_block`` and the packed ``_bwd_kernel``).
+
+Under "block" with 2 <= k <= 32 each runs the warp kernel (a team of warps
+per condition, one launch; :func:`serving_kernel` says which kernel serves
+a shape), else the tile kernel; their grads are bitwise equal, and the
+warp kernel's loss total depends on the shape alone.
 
 Each takes the JAX package's ``variant``: "block", "group" or "packed", the
 TPU's three layouts of the same function, which here choose how many
@@ -87,8 +89,9 @@ _lib = None
 # in, and leaves at 0) per (device, stream): launches on one stream run in
 # order, so they never share it at once.
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
-# ndiv_joint's grid (hence its partials' length) by device and shape.
-_JOINT_BLOCKS: dict[tuple[int, ...], int] = {}
+# (grid, loss partials) of a launch by device, mode and shape: the warp
+# kernel's grid depends on the device's SMs, the partials on the shape.
+_GRIDS: dict[tuple[int, ...], tuple[int, int]] = {}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -218,16 +221,16 @@ def load():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ndiv_joint.argtypes = [p, p, i, i, i, i, f, f, i, p, i, p, p, p,
                                    p, p, p]
-        lib.ndiv_fwd.argtypes = [p, p, i, i, i, i, f, i, p, p, p, p]
-        lib.ndiv_bwd.argtypes = [p, p, p, i, i, i, i, f, f, i, p, p, p, p]
+        lib.ndiv_fwd.argtypes = [p, p, i, i, i, i, f, i, p, i, p, p, p, p]
+        lib.ndiv_bwd.argtypes = [p, p, p, i, i, i, i, f, f, i, i, p, p, p,
+                                 p]
         for fn in (lib.ndiv_joint, lib.ndiv_fwd, lib.ndiv_bwd):
             fn.restype = i
-        lib.ndiv_grid_blocks.argtypes = [i, i, i]
-        lib.ndiv_grid_blocks.restype = i
-        lib.ndiv_joint_blocks.argtypes = [i, i, i, i, i]
-        lib.ndiv_joint_blocks.restype = i
-        lib.ndiv_joint_warp.argtypes = [i, i, i, i]
-        lib.ndiv_joint_warp.restype = i
+        for fn in (lib.ndiv_blocks, lib.ndiv_partials):
+            fn.argtypes = [i, i, i, i, i, i]
+            fn.restype = i
+        lib.ndiv_warp_serves.argtypes = [i, i, i, i, i]
+        lib.ndiv_warp_serves.restype = i
         lib.ndiv_scratch_floats.argtypes = [i, i, i]
         lib.ndiv_scratch_floats.restype = ctypes.c_longlong
         lib.ndiv_error_string.argtypes = [i]
@@ -239,11 +242,13 @@ def load():
 # ---------------------------------------------------------------- wrappers
 
 
-def joint_kernel(k: int, dz: int, dx: int, variant: str = "block") -> str:
-    """The kernel ``ndiv_joint`` launches at this shape: "warp" (block
+def serving_kernel(kernel: str, k: int, dz: int, dx: int,
+                   variant: str = "block") -> str:
+    """The kernel ``ndiv_<kernel>`` launches at this shape: "warp" (block
     layout, 2 <= k <= 32, rows that fit in shared memory) or "tile"."""
-    check_variant(variant, "joint")
-    warp = load().ndiv_joint_warp(k, dz, dx, _TILE_ROWS[variant])
+    check_variant(variant, kernel)
+    warp = load().ndiv_warp_serves(_MODES[kernel], k, dz, dx,
+                                   _TILE_ROWS[variant])
     return "warp" if warp else "tile"
 
 
@@ -285,49 +290,53 @@ def _check_cuda(z: torch.Tensor, x: torch.Tensor) -> None:
 
 
 def _launch(kernel: str, variant: str, z: torch.Tensor, x: torch.Tensor,
-            alpha: float, g: torch.Tensor | None = None):
+            alpha: float, g: torch.Tensor | None = None,
+            blocks: int | None = None):
+    """Launch ``ndiv_<kernel>``; ``blocks`` overrides the warp kernel's
+    grid (the results do not depend on it)."""
     _check_cuda(z, x)
     lib = load()
     b, k, dz = z.shape
     dx = x.shape[2]
-    rows = _TILE_ROWS[variant]
+    mode, rows = _MODES[kernel], _TILE_ROWS[variant]
     f32 = dict(dtype=torch.float32, device=z.device)
-    n_scratch = lib.ndiv_scratch_floats(k, _MODES[kernel], rows)
+    n_scratch = lib.ndiv_scratch_floats(k, mode, rows)
     scratch = torch.empty(b * n_scratch, **f32) if n_scratch else None
     scratch_ptr = scratch.data_ptr() if scratch is not None else None
-    if kernel != "bwd":
-        total = torch.empty((), **f32)
     if kernel != "fwd":
         gz = torch.empty_like(z)
         gx = torch.empty_like(x)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if kernel == "joint":
-            # The warp kernel's grid depends on the device's SMs.
-            key = (z.device.index, b, k, dz, dx, rows)
-            if key not in _JOINT_BLOCKS:
-                _JOINT_BLOCKS[key] = lib.ndiv_joint_blocks(b, k, dz, dx, rows)
-            blocks = _JOINT_BLOCKS[key]
-            if blocks < 1:
-                raise RuntimeError(f"ndiv_joint ({variant}): no grid for "
-                                   f"{tuple(z.shape)}, {tuple(x.shape)}")
-            partial = torch.empty(blocks, **f32)
-            err = lib.ndiv_joint(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
-                                 float(alpha), _inv_m(z), rows,
-                                 partial.data_ptr(), blocks, total.data_ptr(),
-                                 _ticket(z.device, stream).data_ptr(),
-                                 gz.data_ptr(), gx.data_ptr(), scratch_ptr,
-                                 stream)
-        elif kernel == "fwd":
-            partial = torch.empty(lib.ndiv_grid_blocks(b, k, rows), **f32)
-            err = lib.ndiv_fwd(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
-                               float(alpha), rows, partial.data_ptr(),
-                               total.data_ptr(), scratch_ptr, stream)
-        else:
+        key = (z.device.index, mode, b, k, dz, dx, rows)
+        if key not in _GRIDS:
+            _GRIDS[key] = (lib.ndiv_blocks(mode, b, k, dz, dx, rows),
+                           lib.ndiv_partials(mode, b, k, dz, dx, rows))
+        grid, n_partials = _GRIDS[key]
+        grid = grid if blocks is None else blocks
+        if grid < 1:
+            raise RuntimeError(f"ndiv_{kernel} ({variant}): no grid for "
+                               f"{tuple(z.shape)}, {tuple(x.shape)}")
+        if kernel == "bwd":
             err = lib.ndiv_bwd(z.data_ptr(), x.data_ptr(), g.data_ptr(), b, k,
-                               dz, dx, float(alpha), _inv_m(z), rows,
+                               dz, dx, float(alpha), _inv_m(z), rows, grid,
                                gz.data_ptr(), gx.data_ptr(), scratch_ptr,
                                stream)
+        else:
+            total = torch.empty((), **f32)
+            partial = torch.empty(n_partials, **f32)
+            ticket = _ticket(z.device, stream).data_ptr()
+            if kernel == "joint":
+                err = lib.ndiv_joint(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
+                                     float(alpha), _inv_m(z), rows,
+                                     partial.data_ptr(), grid,
+                                     total.data_ptr(), ticket, gz.data_ptr(),
+                                     gx.data_ptr(), scratch_ptr, stream)
+            else:
+                err = lib.ndiv_fwd(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
+                                   float(alpha), rows, partial.data_ptr(),
+                                   grid, total.data_ptr(), ticket,
+                                   scratch_ptr, stream)
     if err != 0:
         raise RuntimeError(f"ndiv_{kernel} ({variant}) launch failed: "
                            f"{lib.ndiv_error_string(err).decode()}")

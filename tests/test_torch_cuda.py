@@ -18,6 +18,7 @@ from ndivplanning_tpu_torch.ops.ndiv import (
     ndiv_loss_reference,
     normalized_pairwise_l2,
 )
+from ndivplanning_tpu_torch.ops.pairwise import pairwise_l2
 
 pytestmark = pytest.mark.cuda
 
@@ -28,11 +29,15 @@ VARIANTS = ("block", "group", "packed")
 # conditions per block); one condition per block at every tiling (k=256);
 # k=32 at pod_dp's widths (its per-rank batch 8192, and 1024); ragged k
 # for the warp kernel (k=2 and 31, batches that fill no whole block of 4
-# or 2 conditions) and the first k past it (33, the tile kernel).
+# or 2 conditions) and the first k past it (33, the tile kernel).  The
+# block layout runs the warp kernel at every k <= 32 in every mode.
 SHAPES = [(256, 8, 2, 64), (512, 8, 2, 64), (3, 5, 3, 7), (9, 5, 3, 7),
           (40, 32, 2, 16), (2, 64, 2, 16), (1, 256, 4, 8),
           (1024, 32, 2, 64), (8192, 32, 2, 64), (7, 2, 3, 7),
           (5, 31, 2, 16), (6, 33, 2, 16)]
+WARP_SHAPES = [s for s in SHAPES if s[1] <= 32]
+ALPHA = 0.8
+G_CHECK = -2.5  # the cotangent the backward kernels are checked at
 
 
 @pytest.fixture
@@ -128,13 +133,14 @@ def test_tilings_give_bitwise_equal_grads(cuda, b, k, dz, dx):
     """Every per-condition value is computed in one fixed order whatever
     the tiling, so the grads agree bitwise; the loss's summation tree
     differs, so the losses agree to rounding (rtol 1e-6).  At k <= 32 the
-    block joint call runs the warp kernel and the group one the tile
-    kernel: the two kernels agree bitwise."""
+    block calls run the warp kernel and the group ones the tile kernel:
+    the two kernels agree bitwise."""
     z, x = _inputs(cuda, b, k, dz, dx)
     g = torch.tensor(0.75, device="cuda")
-    assert ndiv_cuda.joint_kernel(k, dz, dx) == ("warp" if k <= 32
-                                                  else "tile")
-    assert ndiv_cuda.joint_kernel(k, dz, dx, "group") == "tile"
+    for kernel in ("joint", "fwd", "bwd"):
+        assert ndiv_cuda.serving_kernel(kernel, k, dz, dx) == (
+            "warp" if k <= 32 else "tile")
+        assert ndiv_cuda.serving_kernel(kernel, k, dz, dx, "group") == "tile"
     block = ndiv_cuda.ndiv_joint(z, x, 0.8, "block")
     group = ndiv_cuda.ndiv_joint(z, x, 0.8, "group")
     assert torch.equal(block[1], group[1]) and torch.equal(block[2], group[2])
@@ -148,23 +154,164 @@ def test_tilings_give_bitwise_equal_grads(cuda, b, k, dz, dx):
                                    rtol=1e-6, atol=0.0)
 
 
+@pytest.mark.parametrize("g_val", [1.0, G_CHECK])
+@pytest.mark.parametrize("b,k,dz,dx", WARP_SHAPES)
+def test_block_fwd_and_bwd_run_the_warp_kernel_as_the_tile_kernel(
+        cuda, b, k, dz, dx, g_val):
+    """At k <= 32 the block fwd and bwd calls run the warp kernel: its bwd
+    grads are bitwise the tile kernel's (the group tiling) at the
+    cotangent, and its fwd total lies within rtol 1e-6 of the tile
+    kernel's (another summation tree) and repeats bitwise."""
+    z, x = _inputs(cuda, b, k, dz, dx)
+    g = torch.tensor(g_val, device="cuda")
+    assert ndiv_cuda.serving_kernel("bwd", k, dz, dx) == "warp"
+    assert ndiv_cuda.serving_kernel("fwd", k, dz, dx) == "warp"
+    block = ndiv_cuda.ndiv_bwd(z, x, ALPHA, g)
+    group = ndiv_cuda.ndiv_bwd(z, x, ALPHA, g, "group")
+    assert torch.equal(block[0], group[0]) and torch.equal(block[1], group[1])
+    total = ndiv_cuda.ndiv_fwd(z, x, ALPHA)
+    torch.testing.assert_close(total, ndiv_cuda.ndiv_fwd(z, x, ALPHA, "group"),
+                               rtol=1e-6, atol=0.0)
+    assert torch.equal(ndiv_cuda.ndiv_fwd(z, x, ALPHA), total)
+
+
+@pytest.mark.parametrize("kernel", ["joint", "fwd", "bwd"])
+@pytest.mark.parametrize("b,k,dz,dx", WARP_SHAPES)
+def test_warp_kernel_results_do_not_depend_on_its_grid(cuda, b, k, dz, dx,
+                                                       kernel):
+    """One partial per chunk of conditions, summed in an order set by the
+    shape: the total and the grads are bitwise equal whether 1, 7 or the
+    resident count of blocks walks the conditions (a card with other SMs
+    gives other grids)."""
+    z, x = _inputs(cuda, b, k, dz, dx)
+    g = torch.tensor(G_CHECK, device="cuda")
+    resident = ndiv_cuda.load().ndiv_blocks(ndiv_cuda._MODES[kernel], b, k,
+                                            dz, dx, 0)
+    assert resident >= 1
+    runs = [ndiv_cuda._launch(kernel, "block", z, x, ALPHA,
+                              g if kernel == "bwd" else None, blocks=n)
+            for n in (1, 7, resident)]
+    runs = [r if isinstance(r, tuple) else (r,) for r in runs]
+    for other in runs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(runs[0], other))
+
+
+def _kink_band(k):
+    """Relative width of the band around the hinge's kink where the
+    kernel's float32 slack alpha nz - nx may take either sign: each of nz
+    and nx carries the rounding of a distance, a k-term row sum and a
+    quotient (and alpha's product), (k + 1) 2^-24 of it at most."""
+    return 2.0 * (k + 1) * 2.0 ** -24
+
+
+def _with_kinks(z, x, every=8):
+    """Every ``every``-th condition with x_1 moved along x_1 - x_0 until
+    its pair (0, 1) sits on the hinge's kink in float64, alpha nz_01 =
+    nx_01 (nx_01 = D_01 / (D_01 + rest of row 0)), then rounded to
+    float32: within a few 2^-24 of the kink."""
+    x = x.clone()
+    rows = slice(0, None, every)
+    z64, x64 = z[rows].double(), x[rows].double()
+    a = ALPHA * normalized_pairwise_l2(z64)[:, 0, 1]
+    d0 = pairwise_l2(x64)[:, 0]
+    rest = d0.sum(-1) - d0[:, 1]
+    scale = (a * rest / (1.0 - a)) / d0[:, 1]
+    x[rows, 1] = (x64[:, 0] + scale[:, None]
+                  * (x64[:, 1] - x64[:, 0])).float()
+    return x
+
+
+def _plain_grads_given(z, x, s_on, active):
+    """The plain version's grads with slack ``s_on`` on the pairs of
+    ``active`` [b, k, k] (instead of on those whose hinge is positive)."""
+    valid = ~torch.eye(z.shape[1], dtype=torch.bool, device=z.device)
+    dz, rz, nz = ndiv_cuda._distances(z)
+    dx, rx, nx = ndiv_cuda._distances(x)
+    s = torch.where(active & valid, s_on, torch.zeros_like(s_on))
+    return (ndiv_cuda._unit_grad(z, dz, rz, nz, ALPHA * s, valid),
+            ndiv_cuda._unit_grad(x, dx, rx, nx, -s, valid))
+
+
+def _assert_grads_on_either_side(got, z64, x64, s_on):
+    """Grads against the float64 plain version at rtol 1e-4 + 1e-5 of the
+    largest: exactly in every condition without a pair in the kink band,
+    and with each such pair's slack taken on one side or the other in the
+    others."""
+    k = z64.shape[1]
+    off = ~torch.eye(k, dtype=torch.bool, device=z64.device)
+    nz = ALPHA * normalized_pairwise_l2(z64)
+    nx = normalized_pairwise_l2(x64)
+    active = (nz - nx > 0) & off
+    band = ((nz - nx).abs() <= _kink_band(k) * torch.maximum(nz, nx)) & off
+    kinked = band.flatten(1).any(dim=1)
+    assert bool(kinked.any()), "no condition holds a pair at its kink"
+    want = _plain_grads_given(z64, x64, s_on, active)
+    atols = [1e-5 * float(w.abs().max()) for w in want]
+
+    def close(g_c, w_c, atol):
+        return ((g_c.double() - w_c).abs()
+                <= 1e-4 * w_c.abs() + atol).flatten(1).all(dim=1)
+
+    ok = close(got[0], want[0], atols[0]) & close(got[1], want[1], atols[1])
+    assert bool(ok[~kinked].all()), (
+        f"{int((~ok & ~kinked).sum())} conditions away from the kinks off")
+    for c in torch.nonzero(kinked).flatten().tolist():
+        pairs = torch.nonzero(band[c]).tolist()
+        assert len(pairs) <= 10, f"condition {c}: {len(pairs)} kink pairs"
+        sides = []
+        for mask in range(2 ** len(pairs)):
+            act = active[c].clone()
+            for bit, (i, j) in enumerate(pairs):
+                act[i, j] = bool(mask >> bit & 1)
+            w_c = _plain_grads_given(z64[c:c + 1], x64[c:c + 1], s_on,
+                                     act[None])
+            sides.append(all(bool(close(g[c:c + 1], w, atol)[0])
+                             for g, w, atol in zip(got, w_c, atols)))
+        assert any(sides), f"condition {c}: no side of {pairs} matches"
+
+
+@pytest.mark.parametrize("variant", ["block", "group"])
+@pytest.mark.parametrize("b,k,dz,dx", [(1024, 32, 2, 64), (512, 8, 2, 64)])
+def test_kernels_hold_at_the_hinge_kinks(cuda, b, k, dz, dx, variant):
+    """Draws kept with their near-kink pairs, every 8th condition with a
+    pair put on its kink: the totals of ndiv_fwd and ndiv_joint against the
+    float64 plain version at rtol 1e-5 (the hinge is continuous there), and
+    the grads of ndiv_joint and of ndiv_bwd at G_CHECK on either side of
+    each kink (_assert_grads_on_either_side)."""
+    z, x = _draw(cuda, b, k, dz, dx)
+    x = _with_kinks(z, x)
+    z64, x64 = z.double(), x.double()
+    want = ndiv_cuda.ndiv_fwd_plain(z64, x64, ALPHA)
+    joint = ndiv_cuda.ndiv_joint(z, x, ALPHA, variant)
+    for total in (ndiv_cuda.ndiv_fwd(z, x, ALPHA, variant), joint[0]):
+        torch.testing.assert_close(total.double(), want, rtol=1e-5, atol=0.0)
+    inv_m = 1.0 / (b * k * (k - 1))
+    one = torch.tensor(inv_m, dtype=torch.float64, device="cuda")
+    _assert_grads_on_either_side(joint[1:], z64, x64, one)
+    g = torch.tensor(G_CHECK, device="cuda")
+    _assert_grads_on_either_side(ndiv_cuda.ndiv_bwd(z, x, ALPHA, g, variant),
+                                 z64, x64, G_CHECK * one)
+
+
 @pytest.mark.parametrize("k,want", [(8, 1), (32, 1), (33, 2)])
 def test_block_joint_call_is_one_kernel_launch_up_to_k_32(cuda, k, want):
     """The warp kernel sums the loss in its last block: one launch per
-    call; the tile kernel adds its one-block sum of the partials."""
+    block joint or fwd call; the tile kernel adds its one-block sum of the
+    partials."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     z, x = _inputs(cuda, 64, k, 2, 16)
-    ndiv_cuda.ndiv_joint(z, x, 0.8)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ndiv_cuda.ndiv_joint(z, x, 0.8)
+    for call in (ndiv_cuda.ndiv_joint, ndiv_cuda.ndiv_fwd):
+        call(z, x, 0.8)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and ("ndiv" in e.key or "sum_partials" in e.key)]
-    assert sum(e.count for e in kernels) == want
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call(z, x, 0.8)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and ("ndiv" in e.key or "sum_partials" in e.key)]
+        assert sum(e.count for e in kernels) == want, call.__name__
 
 
 def test_padded_conditions_get_zero_hinge_and_grads(cuda):
@@ -172,7 +319,7 @@ def test_padded_conditions_get_zero_hinge_and_grads(cuda):
     warp kernel gives them a zero hinge and zero grads, beside real ones."""
     from ndivplanning_tpu_torch.parallel import sharded_step
 
-    assert ndiv_cuda.joint_kernel(32, 2, 16) == "warp"
+    assert ndiv_cuda.serving_kernel("joint", 32, 2, 16) == "warp"
     zeros_z = torch.zeros((4, 32, 2), device="cuda")
     zeros_x = torch.zeros((4, 32, 16), device="cuda")
     total, gz, gx = ndiv_cuda.ndiv_joint(zeros_z, zeros_x, 0.8)

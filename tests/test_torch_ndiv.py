@@ -290,3 +290,28 @@ def test_variant_and_joint_defaults_come_from_the_environment():
                              env={**full, **env}, capture_output=True,
                              text=True, check=True, timeout=300)
         assert json.loads(out.stdout.strip().splitlines()[-1]) == want
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_recompute_route_at_pod_dp_widths_matches_jax(monkeypatch, variant):
+    """The NDIV_JOINT=0 route (forward, then the backward at the cotangent)
+    at pod_dp's k=32, dz=2, dx=64, where the block layout's kernels are the
+    warp kernel on the card: loss and grads at a cotangent of -2.5 against
+    JAX's fwd and bwd kernels in interpret mode and reference autograd."""
+    monkeypatch.setattr(ndiv_cuda, "JOINT", False)
+    monkeypatch.setattr(ndiv_pallas, "_JOINT", False)
+    z, x = _case(400, 2, 32, 2, 64)
+    zt = torch.from_numpy(z).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    loss = ndiv_cuda.ndiv_loss_fused(zt, xt, 0.8, variant=variant)
+    (-2.5 * loss).backward()
+    zr = torch.from_numpy(z).requires_grad_()
+    xr = torch.from_numpy(x).requires_grad_()
+    (-2.5 * ndiv_loss_reference(zr, xr, 0.8)).backward()
+    want, (jgz, jgx) = jax.value_and_grad(
+        lambda a, c: -2.5 * jax_fused(a, c, 0.8, variant=variant),
+        argnums=(0, 1))(jnp.asarray(z), jnp.asarray(x))
+    np.testing.assert_allclose(-2.5 * loss.item(), float(want), **VAL)
+    for got, ref in ((zt.grad, (zr.grad, jgz)), (xt.grad, (xr.grad, jgx))):
+        for r in ref:
+            _assert_grads_close(got.numpy(), np.asarray(r))

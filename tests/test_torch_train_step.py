@@ -211,3 +211,41 @@ def test_unported_step_knobs_raise_with_their_name():
         cfg = get_config("goalcond", **SMALL, **{knob: value})
         with pytest.raises(NotImplementedError, match=knob):
             train_step_fused(cfg, state)
+
+
+def test_pod_dp_shaped_step_on_the_recompute_route_matches_jax(monkeypatch):
+    """A pod_dp step shrunk in batch and width but at its k=32, dz=2 and
+    dx=64, in float32, with NDIV_JOINT=0 in both packages: the NDiv loss
+    through the forward and the backward at the cotangent (the port's
+    ndiv_bwd once), against JAX's interpret-mode fwd and bwd kernels."""
+    from ndivplanning_tpu.ops import ndiv_pallas
+    from ndivplanning_tpu_torch.ops import ndiv_cuda
+
+    calls = []
+    bwd = ndiv_cuda.ndiv_bwd
+    monkeypatch.setattr(ndiv_cuda, "ndiv_bwd",
+                        lambda *a, **kw: calls.append(1) or bwd(*a, **kw))
+    monkeypatch.setattr(ndiv_cuda, "JOINT", False)
+    monkeypatch.setattr(ndiv_pallas, "_JOINT", False)
+    kw = dict(batch_size=4, k=32, g_hidden=(32, 32), d_hidden=(32, 32),
+              cond_embed_dim=8, compute_dtype="f32", ndiv_impl="pallas",
+              dp_shards=1)
+    jcfg, cfg = jax_get_config("pod_dp", **kw), get_config("pod_dp", **kw)
+    assert (cfg.k, cfg.latent_dim, 2 * cfg.horizon) == (32, 2, 64)
+    jstate = jax_create(jcfg, seed=0)
+    state = train_state_from_flax(cfg, _jax_tree(jstate), device="cpu")
+    jbatch = jax_make_task(jcfg).sample(jax.random.PRNGKey(11),
+                                        cfg.batch_size)
+    z = jax.random.normal(jax.random.split(jstate.rng)[1],
+                          (cfg.batch_size, cfg.k, cfg.latent_dim),
+                          jnp.float32)
+    jstate, jm = jax_train_step(jcfg, jstate, jbatch)
+    state, m = train_step_impl(cfg, state, _torch_batch(jbatch),
+                               z=torch.tensor(np.asarray(z)))
+    assert len(calls) == 1
+    jm = {k: float(v) for k, v in jm.items()}
+    m = {k: float(v) for k, v in m.items()}
+    assert set(m) == set(jm)
+    _assert_metrics_close(m, jm, m.keys())
+    assert m["g_ndiv"] > 0.0
+    _assert_state_close(jstate, state, 1)
