@@ -13,7 +13,11 @@ and plans with 1000 candidates on a rasterised scene; the pod_dp preset
 for virtual ranks, trains 10 steps through the data-parallel step on a 1x1
 mesh of one NCCL rank, takes one float32 step under the NDIV_JOINT=0 route
 (ndiv_fwd + ndiv_bwd) against the default one, and runs two gloo ranks on
-the card against one.
+the card against one.  Last comes the serving path on the vendored
+planning512 model (checkpoints_torch/, torch alone): its restore on the
+card against the CPU's, 16 scenes at 1000 candidates on the card against
+the CPU, two `cli serve --warmup` processes over pipes through the port's
+client, and a profile of a dispatch at buckets 1 and 16.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is the device summary.
 
@@ -125,6 +129,28 @@ TWO_RANK_TOL = {"f32": {"metric_rtol": 1e-3, "sign_atol": METRIC_ATOL,
                          "param_rtol": 1e-3, "param_atol": 0.0,
                          "param_atol_of_lr": 2.0 ** -5,
                          "off_share": 2.0 ** -6}}
+
+
+# The serving path on the vendored planning512 model (converted once by
+# convert_jax_checkpoint.py; restored here with torch alone).
+PLANNING512 = os.path.join("checkpoints_torch", "planning512")
+PLANNING512_STEP = 55000
+SERVE_SCENES = 16  # the largest request bucket
+SERVE_DIVERSE = 4  # the server's n_diverse
+# The card against the CPU, from one state and one set of latents: every
+# candidate's score within SERVE_RTOL |cpu| + SERVE_ATOL (float32 G and
+# rollouts; cuBLAS and the CPU's GEMMs sum in other orders).  Tie rule: a
+# scene's best pick may differ only where the card's pick scores, on the
+# CPU, within 2 (SERVE_RTOL |s| + SERVE_ATOL) of the CPU's best (a near-tie
+# that the tolerance allows to flip); its diverse picks may differ only
+# where the CPU's own selection, fed the card's scores, makes the card's
+# picks (the difference then comes from scores within tolerance, not from
+# the selection or the trajectories).
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-4
+SERVE_REPEATS = 5  # timed round trips per bucket through the CLI server
+# At bucket 16 a dispatch may launch at most this many times the kernels
+# of a bucket-1 dispatch: the scenes are a batch axis, never a loop.
+SERVE_LAUNCH_RATIO = 1.25
 
 
 def emit(obj) -> None:
@@ -733,6 +759,227 @@ def compare_runs(ref, got, dtype, lr, steps, label):
             "g_params": total, "tolerance": tol}
 
 
+def serve_requests(torch, n, seed):
+    """``n`` request dicts from random scenes (3 live obstacles each)."""
+    from ndivplanning_tpu_torch.data.scenes import random_scene_batch
+
+    sc = random_scene_batch(torch.Generator().manual_seed(seed), n)
+    return [{"start": sc.start[i].tolist(), "goal": sc.goal[i].tolist(),
+             "obstacles": sc.obstacles[i][sc.obstacle_mask[i] > 0.5].tolist()}
+            for i in range(n)]
+
+
+def checkpoint_planning512(torch, device="cuda"):
+    """planning512 restored by the CLI's loader on the card (``device``)
+    and on the CPU: step 55000 and every tensor bitwise equal."""
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.utils import checkpoint
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    cfg = load_config(PLANNING512).replace(workdir=PLANNING512)
+    t0 = time.perf_counter()
+    state = _load_state(cfg, device)
+    next(state.g_ema.parameters()).sum().item()  # the copies are done
+    load_s = time.perf_counter() - t0
+    cpu_state = _load_state(cfg, "cpu")
+    if state.step != PLANNING512_STEP or cpu_state.step != PLANNING512_STEP:
+        raise AssertionError(f"planning512 restored at step {state.step} / "
+                             f"{cpu_state.step}, want {PLANNING512_STEP}")
+    card, cpu = checkpoint.state_dict(state), checkpoint.state_dict(cpu_state)
+    del card["rng"], cpu["rng"]
+    tensors, values = [], 0
+
+    def walk(a, b, path):
+        nonlocal values
+        if isinstance(a, dict):
+            if a.keys() != b.keys():
+                raise AssertionError(f"{path}: keys differ")
+            for key in a:
+                walk(a[key], b[key], f"{path}/{key}")
+        elif isinstance(a, torch.Tensor):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{path}: card and CPU restores differ")
+            tensors.append(path)
+            values += a.numel()
+        elif a != b:
+            raise AssertionError(f"{path}: {a} != {b}")
+
+    walk(card, cpu, "")
+    if not all(p.device.type == device for p in state.g_ema.parameters()):
+        raise AssertionError(f"the restore is not on {device}")
+    return cfg, state, cpu_state, {
+        "phase": "checkpoint_planning512", "workdir": PLANNING512,
+        "step": state.step, "tensors": len(tensors), "values": values,
+        "bitwise_equal_cpu": True, "load_s_card": load_s,
+        "g_lr_at_step": state.g_opt.lr(state.g_opt.count)}
+
+
+def serve_vs_cpu(torch, ndiv_cuda, cfg, state, cpu_state):
+    """handle_batch's dispatch program on 16 scenes at 1000 candidates on
+    the card and on the CPU, from one state and one set of latents, then
+    handle_batch itself: scores at SERVE_RTOL/ATOL, picks equal but for
+    the near-ties of the tie rule."""
+    from ndivplanning_tpu_torch.envs.types import Scene
+    from ndivplanning_tpu_torch.planning import server as srv
+    from ndivplanning_tpu_torch.planning.planner import _diverse_top_m
+
+    requests = serve_requests(torch, SERVE_SCENES, 5)
+    scenes = Scene.stack([Scene.create(r["start"], r["goal"], r["obstacles"],
+                                       device="cpu") for r in requests])
+    z = torch.randn((SERVE_SCENES, cfg.n_candidates, cfg.latent_dim),
+                    generator=torch.Generator().manual_seed(6))
+    device = state.rng.device
+    reset(ndiv_cuda)
+    card = srv._serve_plan_program(cfg, state, srv._to_device(scenes, device),
+                                   z.to(device), SERVE_DIVERSE)
+    cpu = srv._serve_plan_program(cfg, cpu_state, scenes, z, SERVE_DIVERSE)
+    card_scores = card.scores.cpu()
+    err = (card_scores - cpu.scores).abs()
+    if bool((err > SERVE_RTOL * cpu.scores.abs() + SERVE_ATOL).any()):
+        raise AssertionError(f"serve scores card vs CPU: {float(err.max())}")
+    rows = torch.arange(SERVE_SCENES)
+    card_best = card.scores.argmin(dim=1).cpu()
+    cpu_best = cpu.scores.argmin(dim=1)
+    gap = (cpu.scores[rows, card_best] - cpu.scores[rows, cpu_best]).abs()
+    near = 2 * (SERVE_RTOL * cpu.scores[rows, cpu_best].abs() + SERVE_ATOL)
+    if bool(((card_best != cpu_best) & (gap > near)).any()):
+        raise AssertionError("serve best picks differ beyond a near-tie")
+    card_div, cpu_div = card.diverse_idx.cpu(), cpu.diverse_idx
+    same_div = (card_div == cpu_div).all(dim=1)
+    explained = _diverse_top_m(cpu.taus.flatten(2), card_scores,
+                               SERVE_DIVERSE)
+    if bool((~same_div & ~(explained == card_div).all(dim=1)).any()):
+        raise AssertionError("serve diverse picks differ beyond near-ties")
+    # handle_batch itself on both devices with those latents.
+    gen = torch.Generator(device=device)
+    resp_card = srv.handle_batch(cfg, state, requests, gen,
+                                 n_diverse=SERVE_DIVERSE, latents=lambda b: z)
+    resp_cpu = srv.handle_batch(cfg, cpu_state, requests, torch.Generator(),
+                                n_diverse=SERVE_DIVERSE, latents=lambda b: z)
+    launches = launched(ndiv_cuda)
+    if launches:
+        raise AssertionError(f"the serving path launched NDiv: {launches}")
+    for i, (rc, rp) in enumerate(zip(resp_card, resp_cpu)):
+        if rc["batch_size"] != SERVE_SCENES or rc["best_score"] != float(
+                card.best_score[i]):
+            raise AssertionError(f"handle_batch response {i} is not its "
+                                 f"dispatch program's answer")
+        if abs(rc["best_score"] - rp["best_score"]) > float(near[i]):
+            raise AssertionError(f"handle_batch best_score {i}: card "
+                                 f"{rc['best_score']} cpu {rp['best_score']}")
+    return {"phase": "serve_vs_cpu", "scenes": SERVE_SCENES,
+            "n_candidates": cfg.n_candidates, "n_diverse": SERVE_DIVERSE,
+            "rtol": SERVE_RTOL, "atol": SERVE_ATOL,
+            "max_abs_score_err": float(err.max()),
+            "best_equal_share": float((card_best == cpu_best).float().mean()),
+            "diverse_equal_share": float(same_div.float().mean()),
+            "reached_share_card": float(card.best_reached.mean()),
+            "reached_share_cpu": float(cpu.best_reached.mean()),
+            "ndiv_launches": launches}
+
+
+def _strip_latency(obj):
+    if isinstance(obj, list):
+        return [_strip_latency(o) for o in obj]
+    return {k: v for k, v in obj.items() if k != "latency_ms"}
+
+
+def serve_session(torch, spawn):
+    """One CLI server over pipes: bucket round trips, a 16-request array
+    and a burst of 16 lines, a malformed line, stats and quit.  Returns
+    the answers (for the bitwise repeat), the served report and timings."""
+    reqs = serve_requests(torch, SERVE_SCENES, 11)
+    answers, latency, round_trip = [], {}, {}
+    with spawn() as c:
+        for bucket in (1, 2, 4, 8, 16):
+            for _ in range(SERVE_REPEATS):
+                t0 = time.perf_counter()
+                out = (c.plan(**reqs[0]) if bucket == 1
+                       else c.plan_batch(reqs[:bucket]))
+                round_trip.setdefault(bucket, []).append(
+                    time.perf_counter() - t0)
+                out = out if isinstance(out, list) else [out]
+                if [r["batch_size"] for r in out] != [bucket] * len(out):
+                    raise AssertionError(f"bucket {bucket}: batch sizes "
+                                         f"{[r['batch_size'] for r in out]}")
+                latency.setdefault(bucket, []).extend(
+                    r["latency_ms"] for r in out)
+                answers.append(out)
+        burst = c.send_lines([json.dumps(r) for r in reqs])
+        bad = c.send_lines(["not json"])
+        stats = c.stats()
+        served = c.close()
+    for out in answers + [burst]:
+        for r in out:
+            if (len(r["best_traj"]) != 32 or len(r["diverse_trajs"])
+                    != SERVE_DIVERSE or len(r["diverse_trajs"][0]) != 32):
+                raise AssertionError(f"response shapes: {list(r)}")
+    if [r["batch_size"] for r in burst] != [SERVE_SCENES] * SERVE_SCENES:
+        raise AssertionError("the burst of 16 lines did not share one "
+                             "bucket-16 dispatch")
+    if "error" not in bad[0] or any("error" in r for r in burst):
+        raise AssertionError("the malformed line's error is out of place")
+    n_lines = len(answers) + SERVE_SCENES + 2
+    if served != [{"served": n_lines}]:
+        raise AssertionError(f"served report {served}, want {n_lines}")
+    want_requests = (sum((1, 2, 4, 8, 16)) * (SERVE_REPEATS + 1)
+                     + SERVE_SCENES)  # warmup, the round trips, the burst
+    if stats["requests"] != want_requests:
+        raise AssertionError(f"stats requests {stats['requests']}, want "
+                             f"{want_requests}")
+    return answers + [burst], n_lines, stats, latency, round_trip
+
+
+def serve_planning512(torch):
+    """Two CLI servers of the same seed over pipes, through the port's
+    client: shapes, error position, served count, bitwise repeat."""
+    from ndivplanning_tpu_torch.planning.client import PlanningClient
+
+    def spawn():
+        return PlanningClient.spawn(["--workdir", PLANNING512, "--warmup"])
+
+    t0 = time.perf_counter()
+    first, n_lines, stats, latency, round_trip = serve_session(torch, spawn)
+    session_s = time.perf_counter() - t0
+    second = serve_session(torch, spawn)[0]
+    if _strip_latency(first) != _strip_latency(second):
+        raise AssertionError("two servers of one seed answered differently")
+    return {"phase": "serve_planning512", "workdir": PLANNING512,
+            "transport": "pipes, PlanningClient.spawn",
+            "lines_served": n_lines, "stats": stats,
+            "repeat_bitwise_but_latency": True,
+            "latency_ms_median_by_bucket": {
+                b: statistics.median(v) for b, v in latency.items()},
+            "round_trip_ms_median_by_bucket": {
+                b: statistics.median(v) * 1e3 for b, v in round_trip.items()},
+            "requests_per_s_16_array": SERVE_SCENES / statistics.median(
+                round_trip[16]),
+            "session_s": session_s}
+
+
+def profile_serve(torch, ndiv_cuda, cfg, state):
+    """torch.profiler around handle_batch at buckets 1 and 16: launches per
+    dispatch may grow at most SERVE_LAUNCH_RATIO-fold with the bucket."""
+    from ndivplanning_tpu_torch.planning import server as srv
+
+    requests = serve_requests(torch, SERVE_SCENES, 13)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    reset(ndiv_cuda)
+    for bucket in (1, SERVE_SCENES):
+        out[bucket] = profile(torch, functools.partial(
+            srv.handle_batch, cfg, state, requests[:bucket], gen,
+            n_diverse=SERVE_DIVERSE), 5)
+    if launched(ndiv_cuda):
+        raise AssertionError(f"serving launched NDiv: {launched(ndiv_cuda)}")
+    ratio = (out[SERVE_SCENES]["kernel_launches_per_call"]
+             / out[1]["kernel_launches_per_call"])
+    if ratio > SERVE_LAUNCH_RATIO:
+        raise AssertionError(f"bucket 16 launches {ratio:.3f}x bucket 1's")
+    return {"phase": "profile_serve", "launch_ratio_16_over_1": ratio,
+            **{f"bucket_{b}": o for b, o in out.items()}}
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -1268,6 +1515,14 @@ def main() -> int:
     emit({"phase": "no_joint_packed", "note": "the JAX package has no "
           "joint kernel under 'packed' (_vjp_fwd sends packed to fwd + "
           "bwd), so neither has the port"})
+    # 10. The serving path on planning512: no NDiv kernel runs on it.
+    pcfg, pstate, cpu_pstate, phase = checkpoint_planning512(torch)
+    emit({**phase, "card": smi})
+    reset(ndiv_cuda)
+    emit({**serve_vs_cpu(torch, ndiv_cuda, pcfg, pstate, cpu_pstate),
+          "card": smi})
+    emit({**serve_planning512(torch), "card": smi})
+    emit({**profile_serve(torch, ndiv_cuda, pcfg, pstate), "card": smi})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,7 +7,7 @@ run on the CUDA card unless the caller passes ``device="cpu"``.
 from ndivplanning_tpu_torch.envs.rollout import ScoreWeights, score_candidates
 from ndivplanning_tpu_torch.envs.types import EnvParams, Scene
 from ndivplanning_tpu_torch.ops.ndiv import ndiv_loss, ndiv_loss_reference
-from ndivplanning_tpu_torch.planning.planner import PlanResult, plan
+from ndivplanning_tpu_torch.planning.planner import PlanResult, plan, plan_batch
 from ndivplanning_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -19,6 +19,7 @@ from ndivplanning_tpu_torch.utils.config import PRESETS, Config, get_config
 __all__ = [
     "Config", "EnvParams", "PRESETS", "PlanResult", "Scene", "ScoreWeights",
     "TrainState", "create_train_state", "gen_params", "get_config",
-    "ndiv_loss", "ndiv_loss_reference", "plan", "score_candidates",
+    "ndiv_loss", "ndiv_loss_reference", "plan", "plan_batch",
+    "score_candidates",
     "train_step_fused", "train_step_impl",
 ]

@@ -1,6 +1,7 @@
 """Point-mass dynamics ``reset`` / ``step``; counterpart of ``ndivplanning_tpu/envs/pointmass.py``.
 
-Branchless over a leading candidate axis ``[N]``:
+Branchless over the candidate axis ``[..., N]`` of a scene's axes ``[...]``
+(none for one scene, ``[B]`` for a stack of them):
 
   v' = clip_speed(v + clip(a, +-max_accel) * dt, max_speed)
   p' = clip(p + v' * dt, bounds); velocity zeroed where a wall clipped it
@@ -16,12 +17,14 @@ from ndivplanning_tpu_torch.envs.types import EnvParams, EnvState, Scene, StepIn
 
 
 def reset(params: EnvParams, scene: Scene, n: int) -> EnvState:
-    """``n`` candidates at the scene's start, at rest."""
+    """``n`` candidates per scene at its start, at rest."""
     del params
-    pos = scene.start.expand(n, 2).clone()
-    zeros = torch.zeros((n,), dtype=torch.float32, device=pos.device)
+    lead = scene.start.shape[:-1]
+    pos = scene.start[..., None, :].expand(*lead, n, 2).clone()
+    zeros = torch.zeros((*lead, n), dtype=torch.float32, device=pos.device)
     return EnvState(pos=pos, vel=torch.zeros_like(pos),
-                    t=torch.zeros((n,), dtype=torch.int32, device=pos.device),
+                    t=torch.zeros((*lead, n), dtype=torch.int32,
+                                  device=pos.device),
                     done=zeros, collided=zeros.clone())
 
 
@@ -35,20 +38,22 @@ def _clip_speed(vel: torch.Tensor, max_speed: float) -> torch.Tensor:
 
 def _collision(prev_pos: torch.Tensor, pos: torch.Tensor,
                scene: Scene) -> torch.Tensor:
-    """``[N]`` 1.0 where the segment prev_pos -> pos meets a live obstacle.
+    """``[..., N]`` 1.0 where the segment prev_pos -> pos meets a live
+    obstacle of its scene.
 
     Swept, not a point check: one step moves up to max_speed * dt = 0.2,
     more than the smallest obstacle diameter."""
-    a = prev_pos[:, None, :]  # [N, 1, 2]
-    d = (pos - prev_pos)[:, None, :]
-    c = scene.obstacles[:, :2]  # [M, 2]
-    len2 = torch.sum(d * d, dim=-1)  # [N, 1]
+    a = prev_pos[..., None, :]  # [..., N, 1, 2]
+    d = (pos - prev_pos)[..., None, :]
+    obs = scene.obstacles[..., None, :, :]  # [..., 1, M, 3]
+    c = obs[..., :2]
+    len2 = torch.sum(d * d, dim=-1)  # [..., N, 1]
     t = torch.sum((c - a) * d, dim=-1) / torch.clamp(len2, min=1e-12)
-    t = torch.clamp(t, 0.0, 1.0)[..., None]  # [N, M, 1]
-    closest = a + t * d  # [N, M, 2]
+    t = torch.clamp(t, 0.0, 1.0)[..., None]  # [..., N, M, 1]
+    closest = a + t * d  # [..., N, M, 2]
     dist2 = torch.sum(torch.square(c - closest), dim=-1)
-    inside = dist2 < torch.square(scene.obstacles[:, 2])
-    hit = torch.any(inside & (scene.obstacle_mask > 0.5), dim=-1)
+    inside = dist2 < torch.square(obs[..., 2])
+    hit = torch.any(inside & (scene.obstacle_mask[..., None, :] > 0.5), dim=-1)
     return hit.float()
 
 
@@ -69,15 +74,16 @@ def step(params: EnvParams, scene: Scene, state: EnvState,
     vel = torch.where(pos == raw_pos, vel, torch.zeros_like(vel))  # absorbing walls
 
     collided_now = _collision(state.pos, pos, scene)
-    dist_to_goal = torch.sqrt(torch.sum(torch.square(pos - scene.goal), dim=-1))
+    dist_to_goal = torch.sqrt(torch.sum(
+        torch.square(pos - scene.goal[..., None, :]), dim=-1))
     reached_now = (dist_to_goal < params.goal_radius).float()
 
     # Freeze the state once done; `where` keeps live steps bitwise exact.
     alive = state.done < 0.5
     live = alive.float()
     new_state = EnvState(
-        pos=torch.where(alive[:, None], pos, state.pos),
-        vel=torch.where(alive[:, None], vel, state.vel),
+        pos=torch.where(alive[..., None], pos, state.pos),
+        vel=torch.where(alive[..., None], vel, state.vel),
         t=state.t + alive.int(),
         done=torch.maximum(state.done, live * reached_now),
         collided=torch.maximum(state.collided, live * collided_now),

@@ -1,9 +1,10 @@
 """Scene, state and dynamics parameters; counterpart of ``ndivplanning_tpu/envs/types.py``.
 
-Dataclasses of tensors.  A :class:`Scene` may carry leading batch axes (a
-training batch's scenes); an :class:`EnvState` carries a leading candidate
-axis ``[N]``, since the rollout batches candidates instead of ``vmap``-ing.
-Obstacles live in a fixed ``[MAX_OBSTACLES, 3]`` buffer with a mask.
+Dataclasses of tensors.  A :class:`Scene` may carry leading scene axes (a
+training batch's or a served chunk's scenes); an :class:`EnvState` carries
+the scene's axes and then a candidate axis ``[..., N]``, since the rollout
+batches scenes and candidates instead of ``vmap``-ing.  Obstacles live in a
+fixed ``[MAX_OBSTACLES, 3]`` buffer with a mask.
 """
 
 from __future__ import annotations
@@ -57,6 +58,12 @@ class Scene:
         return cls(start=start, goal=goal, obstacles=obs, obstacle_mask=mask)
 
     @classmethod
+    def stack(cls, scenes: list["Scene"]) -> "Scene":
+        """Scenes stacked along a new leading axis."""
+        return cls(**{f.name: torch.stack([getattr(s, f.name) for s in scenes])
+                      for f in dataclasses.fields(cls)})
+
+    @classmethod
     def create_batch(cls, start: torch.Tensor, goal: torch.Tensor) -> "Scene":
         """Obstacle-free scenes for ``start, goal [B, 2]``."""
         b = start.shape[0]
@@ -68,8 +75,9 @@ class Scene:
 
 @dataclasses.dataclass
 class EnvState:
-    """Point-mass state for N candidates: ``pos, vel [N, 2]``, ``t [N]``
-    int32, and float {0, 1} latches ``done, collided [N]``."""
+    """Point-mass state of N candidates per scene: ``pos, vel [..., N, 2]``,
+    ``t [..., N]`` int32, and float {0, 1} latches ``done, collided
+    [..., N]``."""
 
     pos: torch.Tensor
     vel: torch.Tensor

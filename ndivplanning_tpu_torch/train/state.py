@@ -8,7 +8,11 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
+import math
+from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -42,12 +46,57 @@ def check_model_knobs(cfg: Config) -> None:
 
 
 def check_optimizer_knobs(cfg: Config) -> None:
-    """Raise for optimizer options the port does not have yet.  Models
-    build and plan under any of them; training needs them."""
-    if cfg.lr_schedule != "constant" or cfg.warmup_steps:
-        raise NotImplementedError(
-            f"lr_schedule={cfg.lr_schedule!r} with warmup_steps="
-            f"{cfg.warmup_steps} is not ported yet (only a constant LR)")
+    """Raise ``ValueError`` for an LR schedule the JAX package does not know."""
+    lr_schedule(cfg, cfg.g_lr)
+
+
+_SCHEDULES = ("constant", "cosine", "linear")
+
+
+def _linear_lr(init: float, end: float, steps: int, count: int) -> float:
+    """``optax.linear_schedule(init, end, steps)(count)`` in float32."""
+    frac = np.float32(1) - (np.float32(min(max(count, 0), steps))
+                            / np.float32(steps))
+    return float(np.float32(init - end) * frac + np.float32(end))
+
+
+def _cosine_lr(init: float, steps: int, alpha: float, count: int) -> float:
+    """``optax.cosine_decay_schedule(init, steps, alpha)(count)`` in float32."""
+    frac = np.float32(math.pi) * np.float32(min(count, steps)) / np.float32(
+        steps)
+    decay = np.float32(0.5) * (np.float32(1) + np.cos(frac))
+    return float(np.float32(init)
+                 * (np.float32(1 - alpha) * decay + np.float32(alpha)))
+
+
+def _scheduled_lr(cfg: Config, peak: float, count: int) -> float:
+    """The LR of the update at ``count`` (updates taken before it): linear
+    warmup from 0 over ``warmup_steps``, then the main schedule over the
+    remaining ``steps``, as ``optax.join_schedules`` joins them."""
+    warmup = cfg.warmup_steps
+    if count < warmup:
+        return _linear_lr(0.0, peak, warmup, count)
+    count -= warmup
+    decay_steps = max(cfg.steps - warmup, 1)
+    if cfg.lr_schedule == "cosine":
+        return _cosine_lr(peak, decay_steps, cfg.lr_final_ratio, count)
+    if cfg.lr_schedule == "linear":
+        return _linear_lr(peak, peak * cfg.lr_final_ratio, decay_steps, count)
+    return float(np.float32(peak))
+
+
+def lr_schedule(cfg: Config, peak: float) -> float | Callable[[int], float]:
+    """The LR schedule of one Adam chain, as the JAX package's
+    ``lr_schedule``: the float ``peak`` for a constant LR without warmup,
+    else a function of the update count.  The decay runs over
+    ``cfg.steps``; a resumed run finds its place from the restored count."""
+    if cfg.lr_schedule not in _SCHEDULES:
+        raise ValueError(
+            f"unknown lr_schedule {cfg.lr_schedule!r}; "
+            f"choose from {list(_SCHEDULES)}")
+    if cfg.lr_schedule == "constant" and cfg.warmup_steps == 0:
+        return peak
+    return functools.partial(_scheduled_lr, cfg, peak)
 
 
 class ConditionedGenerator(nn.Module):
@@ -100,10 +149,14 @@ def f32_pow(base: float, n: int) -> float:
 
 class Adam:
     """Adam as ``optax.adam``: ``p -= lr * mu_hat / (sqrt(nu_hat) + eps)``,
-    bias corrections in float32, moments keyed by parameter name."""
+    bias corrections in float32, moments keyed by parameter name.
 
-    def __init__(self, module: nn.Module, lr: float, b1: float, b2: float,
-                 eps: float = 1e-8):
+    ``lr`` is a float or a schedule ``count -> float``.  optax keeps the
+    schedule's count in a state of its own and reads it before its
+    increment, so the update that makes ``count`` n takes ``lr(n - 1)``."""
+
+    def __init__(self, module: nn.Module, lr: float | Callable[[int], float],
+                 b1: float, b2: float, eps: float = 1e-8):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.count = 0
         self.mu = {n: torch.zeros_like(p) for n, p in module.named_parameters()}
@@ -130,7 +183,8 @@ class Adam:
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, den)
-        torch._foreach_mul_(upd, -self.lr)
+        lr = self.lr(self.count - 1) if callable(self.lr) else self.lr
+        torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(list(params), upd)
 
 
@@ -179,8 +233,8 @@ def create_train_state(cfg: Config, seed: int | None = None,
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return TrainState(
         step=0, rng=rng, g=g, d=d,
-        g_opt=Adam(g, cfg.g_lr, cfg.adam_b1, cfg.adam_b2),
-        d_opt=Adam(d, cfg.d_lr, cfg.adam_b1, cfg.adam_b2),
+        g_opt=Adam(g, lr_schedule(cfg, cfg.g_lr), cfg.adam_b1, cfg.adam_b2),
+        d_opt=Adam(d, lr_schedule(cfg, cfg.d_lr), cfg.adam_b1, cfg.adam_b2),
         g_ema=copy.deepcopy(g).requires_grad_(False),
         ada={"r": zero.clone(), "p": zero.clone()},
     )

@@ -8,6 +8,7 @@ one.  Field meanings are documented beside the JAX definitions.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Tuple
 
@@ -156,3 +157,32 @@ def get_config(preset: str, **overrides) -> Config:
         overrides = {**overrides,
                      "workdir": os.path.join(cfg.workdir, preset)}
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def config_from_dict(d: dict) -> Config:
+    """Rebuild a Config from its JSON dict (tuples arrive as lists); unknown
+    fields are ignored, as the JAX package ignores them."""
+    names = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{name: tuple(v) if isinstance(v, list) else v
+                     for name, v in d.items() if name in names})
+
+
+def _config_path(workdir: str) -> str:
+    return os.path.join(workdir, "config.json")
+
+
+def save_config(cfg: Config, workdir: str) -> None:
+    """Record the run's config as ``<workdir>/config.json``, in the JAX
+    package's format, so plan and serve rebuild the same models."""
+    os.makedirs(workdir, exist_ok=True)
+    with open(_config_path(workdir), "w", encoding="utf-8") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1, sort_keys=True)
+
+
+def load_config(workdir: str) -> Config | None:
+    """The config recorded in ``workdir`` (by either package), or None."""
+    path = _config_path(workdir)
+    if not os.path.exists(path):
+        return None
+    with open(path, encoding="utf-8") as f:
+        return config_from_dict(json.load(f))

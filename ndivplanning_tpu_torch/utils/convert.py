@@ -62,10 +62,24 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def _load_adam(opt: Adam, adam_tree: dict, device) -> None:
-    opt.count = int(adam_tree["count"])
-    for moments, key in ((opt.mu, "mu"), (opt.nu, "nu")):
-        for name, value in params_from_flax(adam_tree[key]).items():
+def _adam_fields(opt_state) -> tuple[int, dict, dict]:
+    """``(count, mu, nu)`` of one Adam chain from its optax state: a
+    ``ScaleByAdamState`` followed by an ``EmptyState`` (constant LR) or a
+    ``ScaleByScheduleState`` (a schedule), whose count must agree."""
+    adam, *rest = opt_state
+    count = int(adam.count)
+    for extra in rest:  # NamedTuples; a tuple's own .count is a method
+        if "count" in extra._fields and int(extra.count) != count:
+            raise ValueError(
+                f"the schedule's count {int(extra.count)} disagrees with "
+                f"Adam's {count}")
+    return count, adam.mu, adam.nu
+
+
+def _load_adam(opt: Adam, opt_state, device) -> None:
+    opt.count, mu, nu = _adam_fields(opt_state)
+    for moments, tree in ((opt.mu, mu), (opt.nu, nu)):
+        for name, value in params_from_flax(tree).items():
             moments[name] = value.to(device)
 
 
@@ -74,10 +88,10 @@ def train_state_from_flax(cfg: Config, tree: dict, device=None) -> TrainState:
     params, step and ADA tracker.
 
     ``tree`` holds numpy leaves under ``step``, ``g_params``, ``d_params``,
-    ``g_ema_params``, ``ada`` and ``g_adam`` / ``d_adam`` (each the optax
-    ``ScaleByAdamState`` fields ``count``, ``mu``, ``nu``).  The port's
-    ``rng`` is seeded from ``cfg.seed``: the two packages' random streams
-    never agree, so callers inject draws where they must match."""
+    ``g_ema_params``, ``ada`` and ``g_adam`` / ``d_adam``, each the optax
+    chain state of its optimizer (see :func:`_adam_fields`).  The port's ``rng`` is seeded from
+    ``cfg.seed``: the two packages' random streams never agree, so callers
+    inject draws where they must match."""
     state = create_train_state(cfg, device=device)
     device = state.rng.device
     for module, key in ((state.g, "g_params"), (state.d, "d_params"),

@@ -1,15 +1,17 @@
-"""The vendored planning model through the torch port, on the CPU.
+"""Torch checkpoints, and the vendored planning model through the port, on the CPU.
 
-``checkpoints/planning512`` (the deployable image-conditioned planning
-model) is restored by the JAX package's own checkpoint code, its EMA
-generator carried across by ``utils/convert.py``, and then G's outputs and
-a 64-candidate plan are held against the JAX package's.  This checks the
-converter on trained conv weights, and that the port builds the models of
-a config whose LR schedule (cosine) it cannot train with yet.
+``checkpoints_torch/planning512`` is ``convert_jax_checkpoint.py``'s form
+of the JAX package's ``checkpoints/planning512`` (the deployable
+image-conditioned planning model, trained under a cosine LR schedule).
+Re-converting the JAX checkpoint here must give it bitwise; the port
+restores it with torch alone (``cli._load_state``), and its EMA G's
+outputs and a 64-candidate plan are held against the JAX package's.
 """
 
 import dataclasses
+import functools
 import os
+from collections import namedtuple
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from convert_jax_checkpoint import convert
 from ndivplanning_tpu.data.scenes import rasterize_batch as jax_rasterize
 from ndivplanning_tpu.data.scenes import rasterize_scene as jax_rasterize_one
 from ndivplanning_tpu.envs.types import Scene as JaxScene
@@ -24,40 +27,51 @@ from ndivplanning_tpu.planning.planner import plan as jax_plan
 from ndivplanning_tpu.train.state import build_models as jax_build_models
 from ndivplanning_tpu.train.state import create_train_state as jax_create
 from ndivplanning_tpu.utils import checkpoint as ckpt
-from ndivplanning_tpu.utils.config import load_config
+from ndivplanning_tpu.utils.config import load_config as jax_load_config
+from ndivplanning_tpu_torch.cli import _load_state
 from ndivplanning_tpu_torch.data.scenes import (
     rasterize_batch,
     rasterize_scene,
 )
 from ndivplanning_tpu_torch.envs.types import Scene
 from ndivplanning_tpu_torch.planning.planner import plan
-from ndivplanning_tpu_torch.train.state import TrainState, build_models
-from ndivplanning_tpu_torch.utils.config import Config
-from ndivplanning_tpu_torch.utils.convert import params_from_flax
+from ndivplanning_tpu_torch.train.state import create_train_state
+from ndivplanning_tpu_torch.train.step import train_step_fused
+from ndivplanning_tpu_torch.utils import checkpoint
+from ndivplanning_tpu_torch.utils.config import get_config, load_config
+from ndivplanning_tpu_torch.utils.convert import train_state_from_flax
 from test_torch_scenes import shared_scenes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKDIR = os.path.join(REPO, "checkpoints", "planning512")
+TORCH_WORKDIR = os.path.join(REPO, "checkpoints_torch", "planning512")
+STEP = 55000
 
-pytestmark = pytest.mark.skipif(
-    not os.path.isdir(WORKDIR), reason="vendored checkpoint not present")
+
+@functools.lru_cache(maxsize=1)
+def jax_planning512():
+    """(JAX config, the JAX package's restore of planning512's best)."""
+    jcfg = jax_load_config(WORKDIR)
+    best = ckpt.restore_latest(os.path.join(WORKDIR, "best"), jax_create(jcfg))
+    assert best is not None and int(best.step) == STEP
+    return jcfg, best
+
+
+def torch_planning512(**overrides):
+    """(the port's config, the committed torch planning512 restored on the
+    CPU by the CLI's loader)."""
+    cfg = load_config(TORCH_WORKDIR).replace(workdir=TORCH_WORKDIR,
+                                              **overrides)
+    return cfg, _load_state(cfg, "cpu")
 
 
 @pytest.fixture(scope="module")
 def planning512():
-    """(JAX config, restored JAX state, the port's config and EMA G)."""
-    jcfg = load_config(WORKDIR)
-    best = ckpt.restore_latest(os.path.join(WORKDIR, "best"), jax_create(jcfg))
-    assert best is not None and int(best.step) == 55000
-    cfg = Config().replace(**dataclasses.asdict(jcfg))
+    """(JAX config, restored JAX state, the port's config and state)."""
+    jcfg, best = jax_planning512()
+    cfg, state = torch_planning512()
+    assert state.step == STEP
     assert cfg.lr_schedule == "cosine" and cfg.conditioning == "image"
-    g, d = build_models(cfg)
-    g.load_state_dict(params_from_flax(jax.tree.map(np.asarray,
-                                                    best.g_ema_params)))
-    # Planning reads only the EMA generator; the optimizers of a cosine
-    # schedule are not ported, so the state carries none.
-    state = TrainState(step=int(best.step), rng=torch.Generator(), g=g, d=d,
-                       g_opt=None, d_opt=None, g_ema=g, ada={})
     return jcfg, best, cfg, state
 
 
@@ -95,3 +109,124 @@ def test_vendored_model_plans_as_jax(planning512):
                                   np.asarray(want.diverse_idx))
     assert int(torch.argmin(got.scores)) == int(np.argmin(want.scores))
     assert float(got.best_reached) == float(want.best_reached) == 1.0
+
+
+def _flat(saved, prefix=""):
+    """A checkpoint's contents as {path: tensor or int or str}."""
+    out = {}
+    for key, value in saved.items():
+        if isinstance(value, dict):
+            out.update(_flat(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = value
+    return out
+
+
+def _assert_same(got: dict, want: dict):
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        if isinstance(value, torch.Tensor):
+            assert got[key].dtype == value.dtype, key
+            assert torch.equal(got[key], value), key
+        else:
+            assert got[key] == value, key
+
+
+def test_committed_artifact_is_the_reconversion_bitwise(tmp_path):
+    step = convert(WORKDIR, str(tmp_path))
+    assert step == STEP
+    for sub in ("config.json", os.path.join("best", "best_path.json")):
+        with open(tmp_path / sub, "rb") as f, \
+                open(os.path.join(TORCH_WORKDIR, sub), "rb") as g:
+            assert f.read() == g.read(), sub
+    load = functools.partial(torch.load, weights_only=True)
+    rel = os.path.join("best", "checkpoints", str(STEP), checkpoint.FILENAME)
+    _assert_same(_flat(load(tmp_path / rel)),
+                 _flat(load(os.path.join(TORCH_WORKDIR, rel))))
+
+
+def test_artifact_carries_the_whole_jax_state(planning512):
+    """G, D, EMA G, both Adam chains (count, mu, nu) and the step."""
+    jcfg, best, cfg, state = planning512
+    tree = jax.tree.map(np.asarray, {
+        "step": best.step, "g_params": best.g_params,
+        "d_params": best.d_params, "g_ema_params": best.g_ema_params,
+        "ada": best.ada, "g_adam": best.g_opt_state,
+        "d_adam": best.d_opt_state})
+    want = train_state_from_flax(cfg, tree, device="cpu")
+    assert state.g_opt.count == state.d_opt.count == STEP
+    saved, ref = checkpoint.state_dict(state), checkpoint.state_dict(want)
+    del saved["rng"], ref["rng"]
+    _assert_same(_flat(saved), _flat(ref))
+    # The cosine schedule was rebuilt: 55000 of 150000 steps in.
+    assert 0.0 < state.g_opt.lr(STEP) < cfg.g_lr
+
+
+def test_converter_rejects_disagreeing_adam_and_schedule_counts():
+    from ndivplanning_tpu_torch.utils.convert import _adam_fields
+
+    adam = namedtuple("ScaleByAdamState", "count mu nu")(np.int32(3), {}, {})
+    sched = namedtuple("ScaleByScheduleState", "count")
+    assert _adam_fields((adam, sched(np.int32(3))))[0] == 3
+    with pytest.raises(ValueError, match="disagrees"):
+        _adam_fields((adam, sched(np.int32(2))))
+
+
+def _trained_state(seed=0):
+    cfg = get_config("goalcond", batch_size=8, k=4, horizon=8,
+                     g_hidden=(16,), d_hidden=(16,), lr_schedule="cosine",
+                     warmup_steps=1, steps=10)
+    state = create_train_state(cfg, seed=seed, device="cpu")
+    for _ in range(2):
+        state, _ = train_step_fused(cfg, state)
+    return cfg, state
+
+
+def test_save_restore_round_trip_is_bitwise(tmp_path):
+    cfg, state = _trained_state()
+    checkpoint.save_checkpoint(str(tmp_path), state)
+    fresh = create_train_state(cfg, seed=5, device="cpu")
+    restored = checkpoint.restore_latest(str(tmp_path), fresh)
+    assert restored is fresh and restored.step == 2
+    _assert_same(_flat(checkpoint.state_dict(restored)),
+                 _flat(checkpoint.state_dict(state)))
+    assert restored.g_opt.count == restored.d_opt.count == 2
+    # The restored run draws what the saved one would have drawn next.
+    assert torch.equal(torch.rand(4, generator=restored.rng),
+                       torch.rand(4, generator=state.rng))
+    # And takes the same next step.
+    train_step_fused(cfg, state)
+    train_step_fused(cfg, restored)
+    for a, b in zip(state.g.parameters(), restored.g.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_three_checkpoints_are_kept(tmp_path):
+    _, state = _trained_state()
+    for step in (10, 20, 30, 40, 50):
+        checkpoint.save_checkpoint(str(tmp_path), state, step=step)
+    assert checkpoint.all_steps(str(tmp_path)) == [30, 40, 50]
+    assert checkpoint.latest_step(str(tmp_path)) == 50
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == ["30", "40", "50"]
+
+
+def test_empty_workdir_restores_none(tmp_path):
+    cfg, state = _trained_state()
+    assert checkpoint.restore_latest(str(tmp_path), state) is None
+    assert checkpoint.latest_step(str(tmp_path)) is None
+    assert state.step == 2
+
+
+def test_cli_loader_prefers_best(tmp_path, capsys):
+    cfg, state = _trained_state()
+    cfg = cfg.replace(workdir=str(tmp_path))
+    state.step = 7
+    checkpoint.save_checkpoint(str(tmp_path), state)
+    state.step = 3
+    checkpoint.save_checkpoint(str(tmp_path / "best"), state)
+    assert _load_state(cfg, "cpu").step == 3
+    assert _load_state(cfg, "cpu", prefer_best=False).step == 7
+    assert "UNTRAINED" not in capsys.readouterr().err
+    assert _load_state(cfg.replace(workdir=str(tmp_path / "none")),
+                       "cpu").step == 0
+    assert "UNTRAINED" in capsys.readouterr().err

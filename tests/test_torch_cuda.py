@@ -497,3 +497,83 @@ def test_pod_dp_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
                                        atol=0.0)
     finally:
         dist.destroy_process_group()
+
+
+# The serving path on the vendored planning512 model: every score on the
+# card within 1e-4 (rtol and atol) of the CPU's, from one state and one
+# set of latents; picks may differ only at a near-tie (chip_smoke.py states
+# the rule, SERVE_RTOL).
+SERVE_TOL = 1e-4
+PLANNING512 = "checkpoints_torch/planning512"
+
+
+def _planning512(device):
+    import os
+
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    workdir = os.path.join(root, PLANNING512)
+    cfg = load_config(workdir).replace(workdir=workdir)
+    return cfg, _load_state(cfg, device)
+
+
+def test_plan_batch_on_the_card_matches_the_cpu(cuda):
+    from ndivplanning_tpu_torch.data.scenes import (
+        rasterize_batch,
+        random_scene_batch,
+    )
+    from ndivplanning_tpu_torch.planning.planner import (
+        _diverse_top_m,
+        plan_batch,
+    )
+
+    cfg, state = _planning512("cuda")
+    _, cpu_state = _planning512("cpu")
+    scenes = random_scene_batch(torch.Generator().manual_seed(3), 16)
+    z = torch.randn((16, 1000, cfg.latent_dim),
+                    generator=torch.Generator().manual_seed(4))
+    want = plan_batch(cfg, cpu_state, scenes, rasterize_batch(scenes, 32),
+                      n_diverse=4, z=z)
+    cuda_scenes = type(scenes)(**{k: v.cuda() for k, v in vars(scenes).items()})
+    got = plan_batch(cfg, state, cuda_scenes,
+                     rasterize_batch(cuda_scenes, 32), n_diverse=4,
+                     z=z.cuda())
+    torch.testing.assert_close(got.scores.cpu(), want.scores, rtol=SERVE_TOL,
+                               atol=SERVE_TOL)
+    rows = torch.arange(16)
+    best, cpu_best = got.scores.argmin(1).cpu(), want.scores.argmin(1)
+    gap = (want.scores[rows, best] - want.scores[rows, cpu_best]).abs()
+    assert bool((gap <= 2 * (SERVE_TOL * want.scores[rows, cpu_best].abs()
+                             + SERVE_TOL)).all())
+    # Differing diverse picks come from the scores alone: the CPU's own
+    # selection, fed the card's scores, picks the card's.
+    same = (got.diverse_idx.cpu() == want.diverse_idx).all(1)
+    explained = (_diverse_top_m(want.taus.flatten(2), got.scores.cpu(), 4)
+                 == got.diverse_idx.cpu()).all(1)
+    assert bool((same | explained).all())
+
+
+def test_bucket_16_dispatch_launches_as_bucket_1(cuda):
+    """The scenes of a dispatch are a batch axis: handle_batch at bucket 16
+    launches at most 1.25x the kernels of bucket 1 (profiler count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndivplanning_tpu_torch.planning.server import handle_batch
+
+    cfg, state = _planning512("cuda")
+    req = {"start": [0.1, 0.1], "goal": [0.9, 0.9],
+           "obstacles": [[0.5, 0.5, 0.1]]}
+    launches = {}
+    for bucket in (1, 16):
+        handle_batch(cfg, state, [req] * bucket, cuda)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = handle_batch(cfg, state, [req] * bucket, cuda)
+            torch.cuda.synchronize()
+        assert {r["batch_size"] for r in out} == {bucket}
+        launches[bucket] = sum(e.count for e in prof.key_averages()
+                               if e.device_type == DeviceType.CUDA)
+    assert 0 < launches[16] <= 1.25 * launches[1], launches

@@ -53,11 +53,29 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert {"ndivplanning_tpu_torch.parallel",
             "ndivplanning_tpu_torch.parallel.mesh",
             "ndivplanning_tpu_torch.parallel.sharded_step",
-            "ndivplanning_tpu_torch.parallel.spawn"} <= set(mods)
+            "ndivplanning_tpu_torch.parallel.spawn",
+            "ndivplanning_tpu_torch.cli",
+            "ndivplanning_tpu_torch.__main__",
+            "ndivplanning_tpu_torch.planning.server",
+            "ndivplanning_tpu_torch.planning.client",
+            "ndivplanning_tpu_torch.utils.checkpoint"} <= set(mods)
     assert len(mods) >= 20
     new = _new_modules(mods)
     assert "torch" in new or "torch" in sys.modules
     assert _forbidden(new) == []
+
+
+def test_the_checkpoint_converter_is_outside_the_package():
+    """convert_jax_checkpoint.py imports both packages, so it sits at the
+    root and nothing in the port imports it."""
+    assert os.path.exists(os.path.join(ROOT, "convert_jax_checkpoint.py"))
+    assert not any(f == "convert_jax_checkpoint.py"
+                   for _, _, files in os.walk(PKG) for f in files)
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f), encoding="utf-8") as fh:
+                    assert "convert_jax_checkpoint" not in fh.read(), f
 
 
 def test_chip_smoke_imports_nothing_of_jax():

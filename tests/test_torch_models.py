@@ -116,11 +116,11 @@ def test_init_matches_flax_scale():
 
 
 def test_unported_knobs_raise():
-    """Model knobs raise where the modules are built; the LR schedule, an
-    optimizer setting, where the optimizers are (models of any schedule
-    build, as the planning512 checkpoint's cosine config needs).  bf16
-    compute is ported; an unknown compute dtype raises ValueError, as in
-    the JAX package."""
+    """Model knobs raise where the modules are built.  bf16 compute is
+    ported; an unknown compute dtype raises ValueError, as in the JAX
+    package.  LR schedules are ported (their Adam chains take a schedule);
+    an unknown schedule raises ValueError where the optimizers are built,
+    with the JAX package's message."""
     for kw in (dict(g_arch="transformer"), dict(d_spectral_norm=True)):
         with pytest.raises(NotImplementedError):
             build_models(get_config("goalcond", **kw))
@@ -129,8 +129,13 @@ def test_unported_knobs_raise():
         build_models(get_config("goalcond", compute_dtype="fp8"))
     for kw in (dict(lr_schedule="cosine"), dict(warmup_steps=10)):
         build_models(get_config("imagecond", **kw))
-        with pytest.raises(NotImplementedError, match="lr_schedule"):
-            create_train_state(get_config("goalcond", **kw), device="cpu")
+        state = create_train_state(get_config("goalcond", **kw),
+                                   device="cpu")
+        assert callable(state.g_opt.lr) and callable(state.d_opt.lr)
+    build_models(get_config("imagecond", lr_schedule="step"))
+    with pytest.raises(ValueError, match="unknown lr_schedule 'step'"):
+        create_train_state(get_config("goalcond", lr_schedule="step"),
+                           device="cpu")
 
 
 # The image encoder at the smaller sizes the module takes: 16 and an odd

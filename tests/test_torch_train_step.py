@@ -14,11 +14,16 @@ import torch
 
 from ndivplanning_tpu.data.tasks import make_task as jax_make_task
 from ndivplanning_tpu.train.state import create_train_state as jax_create
+from ndivplanning_tpu.train.state import lr_schedule as jax_lr_schedule
 from ndivplanning_tpu.train.step import train_step as jax_train_step
 from ndivplanning_tpu.utils.config import get_config as jax_get_config
 from ndivplanning_tpu_torch.data.tasks import Batch
 from ndivplanning_tpu_torch.envs.types import Scene
-from ndivplanning_tpu_torch.train.state import create_train_state
+from ndivplanning_tpu_torch.train.state import (
+    check_optimizer_knobs,
+    create_train_state,
+    lr_schedule,
+)
 from ndivplanning_tpu_torch.train.step import (
     train_step_fused,
     train_step_impl,
@@ -42,6 +47,8 @@ PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
 GRAD_SCALE_TOL = 3e-3
 SMALL = dict(batch_size=8, k=4, horizon=8, g_hidden=(32, 32),
              d_hidden=(32, 32))
+# The port's LR schedules against optax's, both in float32.
+LR_RTOL = 1e-6
 
 
 def _np(tree):
@@ -49,15 +56,22 @@ def _np(tree):
 
 
 def _jax_tree(state):
-    """Numpy copy of a JAX TrainState in the converter's layout."""
-    g_adam, d_adam = state.g_opt_state[0], state.d_opt_state[0]
+    """Numpy copy of a JAX TrainState in the converter's layout: each Adam
+    chain's optax state as it is, (ScaleByAdamState, EmptyState) under a
+    constant LR, (ScaleByAdamState, ScaleByScheduleState) under a
+    schedule."""
     return _np({
         "step": state.step, "g_params": state.g_params,
         "d_params": state.d_params, "g_ema_params": state.g_ema_params,
-        "ada": state.ada,
-        "g_adam": {"count": g_adam.count, "mu": g_adam.mu, "nu": g_adam.nu},
-        "d_adam": {"count": d_adam.count, "mu": d_adam.mu, "nu": d_adam.nu},
+        "ada": state.ada, "g_adam": state.g_opt_state,
+        "d_adam": state.d_opt_state,
     })
+
+
+def _lrs_taken(opt):
+    """The LR of every update an Adam chain has taken."""
+    return [opt.lr(c) if callable(opt.lr) else opt.lr
+            for c in range(opt.count)]
 
 
 def _torch_batch(jbatch):
@@ -105,7 +119,8 @@ def _assert_state_close(jstate, state, n_steps):
     (2 lr per step) of JAX's; after one step, every element outside
     PARAM_TOL has a gradient below 1% of its tensor's largest, and the
     gradients themselves agree within GRAD_SCALE_TOL of that largest."""
-    bound = 2.0 * max(state.g_opt.lr, state.d_opt.lr) * n_steps + 1e-6
+    bound = 2.0 * max(_lrs_taken(state.g_opt) + _lrs_taken(state.d_opt)) \
+        * n_steps + 1e-6
     for tree, module, opt, jopt in (
             (jstate.g_params, state.g, state.g_opt, jstate.g_opt_state),
             (jstate.d_params, state.d, state.d_opt, jstate.d_opt_state),
@@ -249,3 +264,40 @@ def test_pod_dp_shaped_step_on_the_recompute_route_matches_jax(monkeypatch):
     _assert_metrics_close(m, jm, m.keys())
     assert m["g_ndiv"] > 0.0
     _assert_state_close(jstate, state, 1)
+
+
+@pytest.mark.parametrize("schedule,warmup", [("cosine", 0), ("cosine", 5),
+                                             ("linear", 0), ("linear", 5)])
+def test_lr_schedule_matches_optax(schedule, warmup):
+    kw = dict(lr_schedule=schedule, warmup_steps=warmup, steps=100,
+              lr_final_ratio=0.1)
+    want = jax_lr_schedule(jax_get_config("goalcond", **kw), 2e-3)
+    got = lr_schedule(get_config("goalcond", **kw), 2e-3)
+    counts = [0, 1, 37, 100, 110]
+    if warmup:
+        counts += [warmup - 1, warmup, warmup + 1]
+    for count in counts:
+        np.testing.assert_allclose(
+            got(count), float(want(jnp.asarray(count, jnp.int32))),
+            rtol=LR_RTOL, err_msg=f"count {count}")
+
+
+def test_constant_lr_stays_a_float_and_unknown_schedules_raise():
+    assert lr_schedule(get_config("goalcond"), 1e-3) == 1e-3
+    warm = lr_schedule(get_config("goalcond", warmup_steps=4), 1e-3)
+    assert [warm(c) for c in (0, 2)] == [0.0, np.float32(5e-4)]
+    with pytest.raises(ValueError, match="unknown lr_schedule 'step'"):
+        check_optimizer_knobs(get_config("goalcond", lr_schedule="step"))
+
+
+def test_three_cosine_warmup_steps_small_match_jax():
+    """The schedule's LR on each update: optax reads its own count before
+    the increment, the port's one Adam count after it."""
+    kw = dict(SMALL, lr_schedule="cosine", warmup_steps=2, steps=6)
+    jm, m, jstate, state = _run_both(3, **kw)
+    for step in range(3):
+        _assert_metrics_close(m[step], jm[step], ("d_loss", "g_adv", "g_ndiv"))
+    _assert_state_close(jstate, state, 3)
+    assert int(jstate.g_opt_state[1].count) == state.g_opt.count == 3
+    # The first update took LR 0: the warmup starts from 0.
+    assert _lrs_taken(state.g_opt)[0] == 0.0 < _lrs_taken(state.g_opt)[1]
