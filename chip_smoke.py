@@ -2,13 +2,18 @@
 
 Builds the NDiv CUDA kernels from ``ndivplanning_tpu_torch/csrc``, holds
 every kernel route (fwd, joint and bwd under the block, group and packed
-tilings) against its plain PyTorch version, and the warp kernel (block
-calls at k <= 32, every mode) bitwise against the tile kernel (the group
-tiling), then drives the port's main
+layouts) against its plain PyTorch version, and the warp kernel bitwise
+against the tile kernel.  The kernel is chosen by shape, whatever the
+layout: the warp kernel serves fwd and bwd at k <= 64 and the joint at
+k <= 32; the tile kernel serves the joint past k=32 and every call past
+k=64, and is reached on purpose (``impl="tile"``) as the reference.  Then
+it drives the port's main
 paths at full width: the goalcond preset trains 20 steps, plans with 1000
 candidates and evaluates NDiv without a gradient; the imagecond preset
 trains 20 steps, takes one step under each other NDiv route from one state,
-and plans with 1000 candidates on a rasterised scene; the pod_dp preset
+takes one step at k=64 under the packed route against the same step on the
+tile kernel, and plans with 1000 candidates on a rasterised scene; the
+pod_dp preset
 (B=8192, k=32, bf16) checks the sharded NDiv call site's per-rank function
 for virtual ranks, trains 10 steps through the data-parallel step on a 1x1
 mesh of one NCCL rank, takes one float32 step under the NDIV_JOINT=0 route
@@ -26,6 +31,7 @@ The last line is the device summary.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -54,15 +60,25 @@ NDIV_KERNELS = ("ndiv_tile_kernel", "sum_partials_kernel",
 # counted them on an NVIDIA H100 80GB HBM3 at 700.00 W.
 TILE_JOINT_LAUNCHES_PER_STEP = {"goalcond": 263, "imagecond": 529,
                                 "pod_dp": 456.6}
-# The last three are ragged for the warp kernel (block joint, k <= 32):
-# k=2 with a batch that fills no block of four conditions, k=31 with rows
-# of 3 and 7, and k=32 with more conditions than blocks resident at once
-# (132 SMs x 6), so a block walks over a ragged number of them.
+# From (7, 2, 2, 64) on they are ragged for the warp kernel: k=2 with a
+# batch that fills no block of four conditions, k=31 with rows of 3 and 7,
+# k=32 with more conditions than blocks resident at once (132 SMs x 6), so
+# a block walks over a ragged number of them, and k=40 padded to kp = 64;
+# then imagecond's widths at k=64, and 8192 conditions of them (pod_dp's
+# per-rank batch).
 CHECK_SHAPES = [(256, 8, 2, 64), (512, 8, 2, 64), (256, 32, 2, 64),
                 (1024, 32, 2, 64), (3, 5, 3, 7), (1, 256, 4, 8),
-                (7, 2, 2, 64), (5, 31, 3, 7), (1001, 32, 2, 64)]
+                (7, 2, 2, 64), (5, 31, 3, 7), (1001, 32, 2, 64),
+                (5, 40, 3, 7), (512, 64, 2, 64), (8192, 64, 2, 64)]
 GOALCOND_SHAPE = (256, 8, 2, 64)  # B=256, k=8, dz=2, dx=H*S=64
 IMAGECOND_SHAPE = (512, 8, 2, 64)
+K64_SHAPES = [(512, 64, 2, 64), (8192, 64, 2, 64)]  # imagecond's widths
+# The largest k of the warp kernel in each mode, in every layout, where
+# the rows fit in shared memory (as they do at every shape here).
+WARP_K = {"joint": 32, "fwd": 64, "bwd": 64}
+# The warp kernel against the tile kernel: grads bitwise, totals (another
+# summation tree) within this.
+TILE_TOTAL_RTOL = 1e-6
 # Kernel against plain, elementwise: |got - want| <= rtol |want| + atol,
 # with atol a share of the tensor's largest |want| (the unit grads are
 # ~1/(B k (k-1)) in size, so no fixed atol means anything).
@@ -72,6 +88,7 @@ G_CHECK = -2.5  # the upstream cotangent the backward kernels are checked at
 TRAIN_STEPS = 20
 # Every kernel route: (kernel, variant).  The JAX package has no joint
 # kernel under "packed" (its _vjp_fwd sends packed to fwd + bwd).
+VARIANTS = ("block", "group", "packed")
 ROUTES = [("joint", "block"), ("fwd", "block"), ("bwd", "block"),
           ("joint", "group"), ("fwd", "group"), ("bwd", "group"),
           ("fwd", "packed"), ("bwd", "packed")]
@@ -82,10 +99,12 @@ REPLACES = {("joint", "block"): 266, ("fwd", "block"): 212,
             ("fwd", "packed"): 126, ("bwd", "packed"): 142}
 # The imagecond step's NDiv routes besides the default (block, JOINT on),
 # and the launches each makes, as _vjp_fwd routes a differentiated loss.
-STEP_ROUTES = [("block", False, {"fwd": 1, "bwd": 1}),
-               ("group", True, {"joint_group": 1}),
-               ("group", False, {"fwd_group": 1, "bwd_group": 1}),
-               ("packed", True, {"fwd_packed": 1, "bwd_packed": 1})]
+# The last: NDiv kernels a step launches under the profiler (the warp
+# kernel serves every layout at k=8, one kernel a launch).
+STEP_ROUTES = [("block", False, {"fwd": 1, "bwd": 1}, 2),
+               ("group", True, {"joint_group": 1}, 1),
+               ("group", False, {"fwd_group": 1, "bwd_group": 1}, 2),
+               ("packed", True, {"fwd_packed": 1, "bwd_packed": 1}, 2)]
 
 # The pod_dp preset's per-rank NDiv shape on a 1x1 mesh: B=8192, k=32,
 # dz=2, dx=H*S=64.  The sharded call site's per-rank function runs for
@@ -222,7 +241,7 @@ def away_from_kinks(torch, draw, b):
 
 def check_kernels(torch, ndiv_cuda, b, k, dz, dx, gen):
     """One shape: every route against its plain version, bitwise
-    repeatability, and bitwise-equal grads across tilings.  Returns the
+    repeatability, and bitwise-equal grads across layouts.  Returns the
     summary it prints, with the largest absolute error of each route."""
     z, x = away_from_kinks(torch, lambda n: (
         spread_latents(torch, n, k, dz, gen),
@@ -268,27 +287,88 @@ def check_inputs(torch, ndiv_cuda, z, x, label):
                       else max_err(o, want))
         errs[key] = err
         got[key] = out
-    # The tilings compute every per-condition value in one order: equal
-    # grads, bitwise; the loss sums in another tree.
-    tilings_bitwise = all(
+    # The layouts compute every per-condition value in one order: equal
+    # grads, bitwise; the loss may sum in another tree.
+    layouts_bitwise = all(
         torch.equal(got[a][i], got[c][i])
         for a, c in (("joint", "joint_group"), ("bwd", "bwd_group"),
                      ("bwd", "bwd_packed")) for i in (1, 2))
-    if not tilings_bitwise:
-        raise AssertionError(f"{label}: the tilings' grads differ")
+    if not layouts_bitwise:
+        raise AssertionError(f"{label}: the layouts' grads differ")
+    dz, dx = z.shape[2], x.shape[2]
+    kernels = {ndiv_cuda.launch_key(kernel, variant):
+               ndiv_cuda.serving_kernel(kernel, k, dz, dx)
+               for kernel, variant in ROUTES}
+    for kernel, variant in ROUTES:
+        want = "warp" if k <= WARP_K[kernel] else "tile"
+        served = kernels[ndiv_cuda.launch_key(kernel, variant)]
+        if served != want:
+            raise AssertionError(f"{label} {kernel} {variant}: served by "
+                                 f"the {served} kernel, want {want}")
+    # Where the warp kernel serves, the layouts are one launch of one
+    # kernel: totals and grads bitwise equal.
+    warp_modes = [kernel for kernel in ("fwd", "bwd", "joint")
+                  if k <= WARP_K[kernel]]
+    for kernel in warp_modes:
+        keys = [ndiv_cuda.launch_key(kernel, v) for v in VARIANTS
+                if (kernel, v) != ("joint", "packed")]
+        if not all(a is None or torch.equal(a, c) for key in keys[1:]
+                   for a, c in zip(got[keys[0]], got[key])):
+            raise AssertionError(f"{label} {kernel}: the layouts differ "
+                                 f"under the warp kernel")
+    tile_rel = {}
+    for kernel in warp_modes:
+        for g_val in ((1.0, G_CHECK) if kernel == "bwd" else (None,)):
+            tile_rel[f"{kernel}_g{g_val}" if g_val else kernel] = (
+                warp_against_tile(torch, ndiv_cuda, kernel, z, x, g_val,
+                                  label))
     out = {
         "shape": label, "loss": float(got["joint"][0] / m),
-        "kernels": {ndiv_cuda.launch_key(kernel, variant):
-                    ndiv_cuda.serving_kernel(kernel, k, z.shape[2],
-                                             x.shape[2], variant)
-                    for kernel, variant in ROUTES},
+        "kernels": kernels,
         "max_abs_err": errs, "err_over_max": rel,
         "max_abs_dz": float(plain_gz.abs().max()),
         "max_abs_dx": float(plain_gx.abs().max()),
-        "bitwise_repeat": True, "tilings_grads_bitwise_equal": True,
+        "bitwise_repeat": True, "layouts_grads_bitwise_equal": True,
+        "warp_modes_layouts_bitwise_equal": warp_modes,
+        "warp_vs_tile_total_rel_err": tile_rel,
     }
     emit({"phase": "kernel_check", **out})
     return out
+
+
+def warp_against_tile(torch, ndiv_cuda, kernel, z, x, g_val, label):
+    """The warp kernel's call against the tile kernel's (``impl="tile"``)
+    on the same inputs: grads bitwise equal, totals within
+    TILE_TOTAL_RTOL; returns the totals' relative difference (0 for bwd)."""
+    g = None if g_val is None else torch.tensor(g_val, device="cuda")
+    warp = run_route(ndiv_cuda, kernel, "block", z, x, g)
+    tile = ndiv_cuda._launch(kernel, "block", z, x, ALPHA, g, impl="tile")
+    tile = ((tile, None, None) if kernel == "fwd" else
+            (None, *tile) if kernel == "bwd" else tile)
+    if not all(a is None or torch.equal(a, c)
+               for a, c in zip(warp[1:], tile[1:])):
+        raise AssertionError(f"{label} {kernel} at g={g_val}: the warp "
+                             f"kernel's grads differ from the tile kernel's")
+    if warp[0] is None or torch.equal(warp[0], tile[0]):
+        return 0.0
+    total_rel = float((warp[0] - tile[0]).abs() / tile[0].abs())
+    if total_rel > TILE_TOTAL_RTOL:
+        raise AssertionError(f"{label} {kernel}: totals {total_rel} apart "
+                             f"on the warp and the tile kernel")
+    return total_rel
+
+
+@contextlib.contextmanager
+def tile_reference(ndiv_cuda):
+    """Every NDiv launch inside runs the tile kernel (``impl="tile"``),
+    whatever the shape: the reference a step on the warp kernel is held
+    against."""
+    launch = ndiv_cuda._launch
+    ndiv_cuda._launch = functools.partial(launch, impl="tile")
+    try:
+        yield
+    finally:
+        ndiv_cuda._launch = launch
 
 
 def check_step_inputs(torch, ndiv_cuda, z, x, label):
@@ -380,7 +460,7 @@ def bound(b, k, dz, dx, kernel):
     """Least time (ms) on the card: the function's inputs read once and its
     outputs written once over HBM, or its float32 operations (the
     reference's precision) over the float32 peak.  The same for every
-    tiling: the tilings compute one function."""
+    layout: the layouts compute one function."""
     grads = kernel != "fwd"
     d = dz + dx
     io_bytes = 4 * b * k * d  # z and x; the grads are as large
@@ -411,26 +491,32 @@ def profile_step(torch, fn, preset):
                 TILE_JOINT_LAUNCHES_PER_STEP[preset]}
 
 
-def warp_vs_tile_step(torch, ndiv_cuda, step, state, preset, cfg):
-    """One train step from clones of ``state`` with the block joint route
-    (the warp kernel at k <= 32) and the group one (the tile kernel): the
-    grads are bitwise equal, so are G's and D's params and every metric
-    but the NDiv loss and the total G loss, whose sums may differ in their
-    last bits (held at rtol 1e-6)."""
+def warp_vs_tile_step(torch, ndiv_cuda, step, state, preset, cfg,
+                      variant="block", kernels=("joint",)):
+    """One train step from clones of ``state`` under ``variant`` (its
+    ``kernels`` on the warp kernel), then the same step with every NDiv
+    launch on the tile kernel (``tile_reference``): the grads are bitwise
+    equal, so are G's and D's params and every metric but the NDiv loss
+    and the total G loss, whose sums may differ in their last bits (held at
+    TILE_TOTAL_RTOL).  Returns the phase and the first step's launches."""
     shape = (cfg.k, cfg.latent_dim, cfg.traj_dim)
-    if ndiv_cuda.serving_kernel("joint", *shape) != "warp":
-        raise AssertionError(f"{preset}: the warp kernel does not serve "
-                             f"k, dz, dx = {shape}")
+    for kernel in kernels:
+        if ndiv_cuda.serving_kernel(kernel, *shape) != "warp":
+            raise AssertionError(f"{preset}: the warp kernel does not serve "
+                                 f"{kernel} at k, dz, dx = {shape}")
     out = {}
-    for variant in ("block", "group"):
-        ndiv_cuda.VARIANT = variant
-        try:
-            st, m = step(clone_state(torch, state))
+    ndiv_cuda.VARIANT = variant
+    try:
+        reset(ndiv_cuda)
+        out["warp"] = step(clone_state(torch, state))
+        torch.cuda.synchronize()
+        launches = launched(ndiv_cuda)
+        with tile_reference(ndiv_cuda):
+            out["tile"] = step(clone_state(torch, state))
             torch.cuda.synchronize()
-        finally:
-            ndiv_cuda.VARIANT = "block"
-        out[variant] = st, m
-    (warp, wm), (tile, tm) = out["block"], out["group"]
+    finally:
+        ndiv_cuda.VARIANT = "block"
+    (warp, wm), (tile, tm) = out["warp"], out["tile"]
     params_equal = all(torch.equal(a, b) for a, b in zip(
         [*warp.g.parameters(), *warp.d.parameters()],
         [*tile.g.parameters(), *tile.d.parameters()]))
@@ -442,13 +528,15 @@ def warp_vs_tile_step(torch, ndiv_cuda, step, state, preset, cfg):
         if key in ("g_ndiv", "g_total"):
             loss_rel[key] = float((wm[key] - v).abs().max()
                                   / v.abs().max().clamp_min(1e-30))
-            if loss_rel[key] > 1e-6:
+            if loss_rel[key] > TILE_TOTAL_RTOL:
                 raise AssertionError(f"{preset} {key}: {loss_rel[key]} off")
         elif not torch.equal(wm[key], v):
             raise AssertionError(f"{preset} {key}: {wm[key]} vs {v}")
     return {"phase": "warp_vs_tile_step", "preset": preset,
-            "k_dz_dx": list(shape), "params_bitwise_equal": True,
-            "other_metrics_bitwise_equal": True, "loss_rel_err": loss_rel}
+            "k_dz_dx": list(shape), "variant": variant,
+            "launches": launches, "params_bitwise_equal": True,
+            "other_metrics_bitwise_equal": True,
+            "loss_rel_err": loss_rel}, launches
 
 
 def pod_dp_routes(torch, ndiv_cuda, mesh):
@@ -1121,7 +1209,7 @@ def main() -> int:
 
     emit(warp_vs_tile_step(torch, ndiv_cuda,
                            lambda st: train_step_fused(cfg, st), state,
-                           "goalcond", cfg))
+                           "goalcond", cfg)[0])
 
     # Where the time goes: device busy time of a few steps and plans.
     emit(profile_step(torch, lambda: train_step_fused(cfg, state),
@@ -1187,19 +1275,26 @@ def main() -> int:
     if not repeat_bitwise:
         raise AssertionError("the imagecond step is not bitwise repeatable")
     routes_out, path_launches["imagecond_routes"] = [], {}
-    for variant, joint, want in STEP_ROUTES:
+    for variant, joint, want, want_kernels in STEP_ROUTES:
         ndiv_cuda.VARIANT, ndiv_cuda.JOINT = variant, joint
         reset(ndiv_cuda)
         try:
             st, m = train_step_impl(icfg, clone_state(torch, istate), rbatch,
                                     z=rz)
             torch.cuda.synchronize()
+            got = launched(ndiv_cuda)
+            # The NDiv kernels of one such step under the profiler.
+            prof = profile(torch, lambda: train_step_impl(
+                icfg, clone_state(torch, istate), rbatch, z=rz), 1)
         finally:
             ndiv_cuda.VARIANT, ndiv_cuda.JOINT = "block", True
-        got = launched(ndiv_cuda)
         if got != want:
             raise AssertionError(f"route {variant}/joint={joint}: launches "
                                  f"{got}, want {want}")
+        if prof["ndiv_launches_per_call"] != want_kernels:
+            raise AssertionError(f"route {variant}/joint={joint}: "
+                                 f"{prof['ndiv_launches_per_call']} NDiv "
+                                 f"kernels a step, want {want_kernels}")
         for key, n in got.items():
             path_launches["imagecond_routes"][key] = (
                 path_launches["imagecond_routes"].get(key, 0) + n)
@@ -1212,6 +1307,9 @@ def main() -> int:
             for name, mu in ref_state.g_opt.mu.items())
         routes_out.append({
             "variant": variant, "joint": joint, "launches": got,
+            "profiler_ndiv_launches_per_step": prof["ndiv_launches_per_call"],
+            "profiler_ndiv_kernels_ms_per_step":
+                prof["ndiv_kernels_ms_per_call"],
             "g_ndiv": float(m["g_ndiv"]), "g_ndiv_err_over_ref": ndiv_rel,
             "g_grads_err_over_max": grad_rel,
             "g_grads_bitwise_equal": all(
@@ -1220,6 +1318,33 @@ def main() -> int:
     emit({"phase": "imagecond_routes", "ref_g_ndiv": float(ref["g_ndiv"]),
           "default_route_repeats_bitwise": repeat_bitwise,
           "routes": routes_out})
+
+    # 6b. The slice's own path: one full-width imagecond step at k=64 under
+    # the packed route (ndiv_fwd + ndiv_bwd on the warp kernel at kp = 64),
+    # against the same step on the tile kernel: params bitwise equal.
+    k64cfg = get_config("imagecond", k=64)
+    k64state = create_train_state(k64cfg, seed=0)
+    phase, path_launches["imagecond_k64_packed"] = warp_vs_tile_step(
+        torch, ndiv_cuda, lambda st: train_step_fused(k64cfg, st), k64state,
+        "imagecond_k64", k64cfg, "packed", ("fwd", "bwd"))
+    if path_launches["imagecond_k64_packed"] != {"fwd_packed": 1,
+                                                  "bwd_packed": 1}:
+        raise AssertionError(f"imagecond k=64 packed step: launches "
+                             f"{path_launches['imagecond_k64_packed']}")
+    ndiv_cuda.VARIANT = "packed"
+    try:
+        prof = profile(torch, lambda: train_step_fused(
+            k64cfg, clone_state(torch, k64state)), 1)
+    finally:
+        ndiv_cuda.VARIANT = "block"
+    if prof["ndiv_launches_per_call"] != 2:
+        raise AssertionError(f"imagecond k=64 packed step: "
+                             f"{prof['ndiv_launches_per_call']} NDiv kernels")
+    emit({**phase, "batch_size": k64cfg.batch_size,
+          "profiler_ndiv_launches_per_step": prof["ndiv_launches_per_call"],
+          "profiler_ndiv_kernels_ms_per_step":
+              prof["ndiv_kernels_ms_per_call"],
+          "profiler_wall_ms_per_step": prof["wall_ms_per_call"]})
 
     # 7. Image-conditioned planning on a rasterised scene.
     iscene = Scene.create([0.1, 0.1], [0.9, 0.9],
@@ -1239,7 +1364,7 @@ def main() -> int:
           "plan_ms_first": iplan_ms[0]})
     emit(warp_vs_tile_step(torch, ndiv_cuda,
                            lambda st: train_step_fused(icfg, st), istate,
-                           "imagecond", icfg))
+                           "imagecond", icfg)[0])
     emit(profile_step(torch, lambda: train_step_fused(icfg, istate),
                       "imagecond"))
     emit({"phase": "profile_imagecond_plan", "preset": "imagecond",
@@ -1328,7 +1453,8 @@ def main() -> int:
     emit({"phase": "pod_dp_two_ranks", "backend": "gloo",
           "steps": TWO_RANK_STEPS, "seconds": two_rank_s,
           "runs": compared})
-    emit(warp_vs_tile_step(torch, ndiv_cuda, pstep, pstate, "pod_dp", pcfg))
+    emit(warp_vs_tile_step(torch, ndiv_cuda, pstep, pstate, "pod_dp",
+                           pcfg)[0])
     emit(profile_step(torch, lambda: pstep(pstate), "pod_dp"))
 
     # 8d. The sharded call site and ndiv_joint at pod_dp's per-rank shape,
@@ -1347,17 +1473,16 @@ def main() -> int:
             return (loss, *torch.autograd.grad(loss, (zr, xr)))
         return fn
 
-    # ndiv_joint there (the warp kernel) against the group tiling (the tile
-    # kernel): grads bitwise equal, losses within rtol 1e-6; and against
-    # its plain version.
+    # ndiv_joint, ndiv_fwd and ndiv_bwd there (the warp kernel) against the
+    # tile kernel (grads bitwise equal, totals within TILE_TOTAL_RTOL; bwd
+    # at g = 1 and G_CHECK), then against their plain versions.
+    pod_tile_rel = {
+        f"{kernel}_g{g_val}" if g_val else kernel: warp_against_tile(
+            torch, ndiv_cuda, kernel, zp, xp, g_val, "pod_dp shape")
+        for kernel, g_val in (("joint", None), ("fwd", None), ("bwd", 1.0),
+                              ("bwd", G_CHECK))}
+    m_pod = b * k * (k - 1)
     warp = ndiv_cuda.ndiv_joint(zp, xp, ALPHA)
-    tile = ndiv_cuda.ndiv_joint(zp, xp, ALPHA, "group")
-    if not (torch.equal(warp[1], tile[1]) and torch.equal(warp[2], tile[2])):
-        raise AssertionError("pod_dp shape: the warp kernel's grads differ "
-                             "from the tile kernel's")
-    pod_loss_rel = float((warp[0] - tile[0]).abs() / tile[0].abs())
-    if pod_loss_rel > 1e-6:
-        raise AssertionError(f"pod_dp shape: losses {pod_loss_rel} apart")
     pod_plain = ndiv_cuda.ndiv_joint_plain(zp, xp, ALPHA)
     for name, g, w, rtol, atol in zip(
             ("loss", "dz", "dx"), warp, pod_plain,
@@ -1365,20 +1490,11 @@ def main() -> int:
             (0.0, GRAD_ATOL_OF_MAX, GRAD_ATOL_OF_MAX)):
         assert_close(torch, g, w, f"pod_dp shape ndiv_joint {name}", rtol,
                      atol)
-    pod_joint_err = max(max_err(warp[0] / (b * k * (k - 1)),
-                                pod_plain[0] / (b * k * (k - 1))),
+    pod_joint_err = max(max_err(warp[0] / m_pod, pod_plain[0] / m_pod),
                         max_err(warp[1], pod_plain[1]),
                         max_err(warp[2], pod_plain[2]))
-    # ndiv_fwd and ndiv_bwd (block) there: against the group tiling (the
-    # tile kernel: totals within rtol 1e-6, bwd grads bitwise equal at
-    # g = 1 and G_CHECK) and against their plain versions.
-    m_pod = b * k * (k - 1)
     fwd_block = ndiv_cuda.ndiv_fwd(zp, xp, ALPHA)
-    fwd_group = ndiv_cuda.ndiv_fwd(zp, xp, ALPHA, "group")
     fwd_plain = ndiv_cuda.ndiv_fwd_plain(zp, xp, ALPHA)
-    pod_fwd_rel = float((fwd_block - fwd_group).abs() / fwd_group.abs())
-    if pod_fwd_rel > 1e-6:
-        raise AssertionError(f"pod_dp shape: fwd totals {pod_fwd_rel} apart")
     # The warp kernel's totals do not depend on its grid: 7 blocks walking
     # the conditions give the resident grid's bits.
     for kernel, want_total in (("fwd", fwd_block), ("joint", warp[0])):
@@ -1393,11 +1509,6 @@ def main() -> int:
     for g_val in (1.0, G_CHECK):
         g_pod = torch.tensor(g_val, device="cuda")
         bwd_block = ndiv_cuda.ndiv_bwd(zp, xp, ALPHA, g_pod)
-        bwd_group = ndiv_cuda.ndiv_bwd(zp, xp, ALPHA, g_pod, "group")
-        if not all(torch.equal(a, c) for a, c in zip(bwd_block, bwd_group)):
-            raise AssertionError(f"pod_dp shape: ndiv_bwd's block grads "
-                                 f"differ from the group tiling's at "
-                                 f"g={g_val}")
         for name, got_g, want_g in zip(
                 ("dz", "dx"), bwd_block,
                 ndiv_cuda.ndiv_bwd_plain(zp, xp, ALPHA, g_pod)):
@@ -1435,17 +1546,59 @@ def main() -> int:
     emit({"phase": "kernel_times_pod_dp", "shape": list(POD_DP_SHAPE),
           "kernels": {kern: ndiv_cuda.serving_kernel(kern, k, dz, dx)
                       for kern in ("joint", "fwd", "bwd")},
-          "joint_grads_bitwise_equal_group": True,
-          "joint_loss_rel_err_group": pod_loss_rel,
+          "grads_bitwise_equal_tile": True,
+          "total_rel_err_tile": pod_tile_rel,
           "joint_max_abs_err": pod_joint_err,
-          "fwd_total_rel_err_group": pod_fwd_rel,
-          "bwd_grads_bitwise_equal_group": True,
           "fwd_max_abs_err": pod_err["fwd"], "bwd_max_abs_err": pod_err["bwd"],
           "site_max_abs_err": site_err, **pod_times, "card": smi})
     dist.destroy_process_group()
     shutil.rmtree(tmpdir)
 
-    # 9. Kernel times on the first imagecond step's inputs, every route.
+    # 8e. fwd and bwd at k=64 (the warp kernel at kp = 64) and the joint
+    # there (the tile kernel) at imagecond's widths, on inputs away from the
+    # hinge's kinks: times of the kernel, of the tile kernel and of the
+    # plain version beside the bound, and the 7-block check (kernel_check
+    # above held both shapes against the plain version and the tile kernel).
+    k64 = {}
+    for shape in K64_SHAPES:
+        b64, k_64, dz64, dx64 = shape
+        z64, x64 = away_from_kinks(torch, lambda n: (
+            spread_latents(torch, n, k_64, dz64, gen),
+            torch.randn((n, k_64, dx64), generator=gen, device="cuda")), b64)
+        calls = 100 if b64 <= 512 else 10  # calls per window
+        for kernel in ("fwd", "bwd", "joint"):
+            g64 = g_one if kernel == "bwd" else None
+            args = (z64, x64, ALPHA) + ((g_one,) if kernel == "bwd" else ())
+            call = functools.partial(getattr(ndiv_cuda, f"ndiv_{kernel}"),
+                                     *args)
+            row = {"kernel": ndiv_cuda.serving_kernel(kernel, *shape[1:]),
+                   "ms": device_ms(torch, call, calls, 50_000_000),
+                   "plain_ms": device_ms(torch, functools.partial(
+                       getattr(ndiv_cuda, f"ndiv_{kernel}_plain"), *args), 2,
+                       200_000_000)}
+            row["bound_ms"], row["bound_by"] = bound(*shape, kernel)
+            if row["kernel"] == "warp":
+                row["tile_ms"] = device_ms(torch, functools.partial(
+                    ndiv_cuda._launch, kernel, "block", z64, x64, ALPHA, g64,
+                    impl="tile"), max(2, calls // 10), 50_000_000)
+                # The results do not depend on the grid at kp = 64 either.
+                seven = ndiv_cuda._launch(kernel, "block", z64, x64, ALPHA,
+                                          g64, blocks=7)
+                full = call()
+                if not all(torch.equal(a, c) for a, c in zip(
+                        seven if kernel == "bwd" else (seven,),
+                        full if kernel == "bwd" else (full,))):
+                    raise AssertionError(f"{shape} {kernel}: 7 blocks give "
+                                         f"other bits than the resident grid")
+                row["grid_7_blocks_bitwise_equal"] = True
+            k64[shape, kernel] = row
+        emit({"phase": "kernel_times_k64", "shape": list(shape),
+              "kernels": {kern: k64[shape, kern]
+                          for kern in ("fwd", "bwd", "joint")},
+              "card": smi})
+
+    # 9. Kernel times on the first imagecond step's inputs, every route,
+    # beside the tile kernel's (one tiling, the same in every layout).
     totals = {}
     for launches in path_launches.values():
         for key, n in launches.items():
@@ -1460,14 +1613,16 @@ def main() -> int:
         ms = device_ms(torch, functools.partial(run_route, ndiv_cuda, kernel,
                                                 variant, iz0, ix0, g),
                        200, 50_000_000)
+        tile_ms = device_ms(torch, functools.partial(
+            ndiv_cuda._launch, kernel, variant, iz0, ix0, ALPHA,
+            g if kernel == "bwd" else None, impl="tile"), 100, 50_000_000)
         # Few calls: the plain version issues ~60 launches per call, and
         # the queue must not fill while the sleep kernel holds the card.
         plain_ms = device_ms(torch, plain, 8, 200_000_000)
         bound_ms, bound_by = bound(*IMAGECOND_SHAPE, kernel)
         kernels.append({
             "name": f"ndiv_{key}", "route": "cuda", "variant": variant,
-            "kernel": ndiv_cuda.serving_kernel(kernel, *IMAGECOND_SHAPE[1:],
-                                               variant),
+            "kernel": ndiv_cuda.serving_kernel(kernel, *IMAGECOND_SHAPE[1:]),
             "source": "ndivplanning_tpu_torch/csrc/ndiv.cu",
             "replaces": "ndivplanning_tpu/ops/ndiv_pallas.py:"
                         f"{REPLACES[(kernel, variant)]}",
@@ -1475,8 +1630,8 @@ def main() -> int:
             "launches_by_path": {p: n[key] for p, n in path_launches.items()
                                  if key in n},
             "max_abs_err": checks[IMAGECOND_SHAPE]["max_abs_err"][key],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "ms": ms, "tile_ms": tile_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": list(IMAGECOND_SHAPE), "card": smi})
         if variant == "block":
             # The block rows at pod_dp's per-rank shape too.
@@ -1489,6 +1644,31 @@ def main() -> int:
                 plain_ms_pod_dp=pod_times[f"{kernel}_plain_ms"],
                 bound_ms_pod_dp=bound(*POD_DP_SHAPE, kernel)[0],
                 shape_pod_dp=list(POD_DP_SHAPE))
+    # The packed fwd and bwd at k=64: the warp kernel at kp = 64, as the
+    # slice's k=64 imagecond step launched it; 512 and 8192 conditions.
+    for kernel in ("fwd", "bwd"):
+        key = ndiv_cuda.launch_key(kernel, "packed")
+        small, large = (k64[shape, kernel] for shape in K64_SHAPES)
+        kernels.append({
+            "name": f"ndiv_{key}_k64", "route": "cuda", "variant": "packed",
+            "kernel": small["kernel"],
+            "source": "ndivplanning_tpu_torch/csrc/ndiv.cu",
+            "replaces": "ndivplanning_tpu/ops/ndiv_pallas.py:"
+                        f"{REPLACES[(kernel, 'packed')]}",
+            "launches": path_launches["imagecond_k64_packed"][key],
+            "launches_by_path": {"imagecond_k64_packed":
+                                 path_launches["imagecond_k64_packed"][key]},
+            "max_abs_err": checks[K64_SHAPES[0]]["max_abs_err"][key],
+            "ms": small["ms"], "tile_ms": small["tile_ms"],
+            "plain_ms": small["plain_ms"], "bound_ms": small["bound_ms"],
+            "bound_by": small["bound_by"], "library_ms": None,
+            "shape": list(K64_SHAPES[0]), "card": smi,
+            "max_abs_err_8192": checks[K64_SHAPES[1]]["max_abs_err"][key],
+            "ms_8192": large["ms"], "tile_ms_8192": large["tile_ms"],
+            "plain_ms_8192": large["plain_ms"],
+            "bound_ms_8192": large["bound_ms"],
+            "bound_by_8192": large["bound_by"],
+            "shape_8192": list(K64_SHAPES[1])})
     # The sharded call site on the 1x1 mesh: a call site over ndiv_joint,
     # with no kernel of its own: the joint kernel, a sum over the world and
     # the division by the global pair count.  Its launches are the joint

@@ -5,14 +5,21 @@
 Each directory is a checkout of the repository (for example a parent
 commit unpacked with ``git archive``).  Each turn runs in a subprocess
 that imports that tree's ``ndivplanning_tpu_torch``, builds its
-``csrc/ndiv.cu`` and, under the block layout at the imagecond step's
-512x8x2x64 and pod_dp's per-rank 8192x32x2x64:
+``csrc/ndiv.cu`` and, under each layout (block, group and packed; the
+packed layout has no joint call) at the imagecond step's 512x8x2x64,
+pod_dp's per-rank 8192x32x2x64 and both at k=64 (512x64x2x64,
+8192x64x2x64):
 
 - times ``ndiv_fwd``, ``ndiv_bwd`` (at g = 1) and ``ndiv_joint``: the
   median of five windows of back-to-back calls behind a sleep kernel,
   CUDA events (device time, not launch overhead);
 - counts the profiler's NDiv kernel launches of one call of each;
 - hashes each output's bytes, so the trees can be compared bitwise.
+
+At k > 32 it also times the tile kernel's fwd and bwd ("tile fwd block
+..."): ``_launch(..., impl="tile")`` in a tree that has it, and the block
+call in one that has not (whose dispatch served k > 32 with the tile
+kernel).
 
 The inputs are the same in every turn: spread latents and Gaussian
 outputs from one seeded CUDA generator.  Prints one JSON line per turn,
@@ -23,6 +30,7 @@ limit.  Exits non-zero without a card.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -30,12 +38,16 @@ import statistics
 import subprocess
 import sys
 
-SHAPES = [(512, 8, 2, 64), (8192, 32, 2, 64)]
-KERNELS = ("fwd", "bwd", "joint")
+SHAPES = [(512, 8, 2, 64), (8192, 32, 2, 64), (512, 64, 2, 64),
+          (8192, 64, 2, 64)]
+ROUTES = [(kernel, variant) for kernel in ("fwd", "bwd", "joint")
+          for variant in ("block", "group", "packed")
+          if (kernel, variant) != ("joint", "packed")]
 ALPHA = 0.8
-# (calls per window, sleep cycles ahead of them): enough queued work that
-# the sleep outlasts the host's launches.
-TIMING = {8: (200, 50_000_000), 32: (100, 50_000_000)}
+# (calls per window, sleep cycles ahead of them) by batch: enough queued
+# work that the sleep outlasts the host's launches, and few calls where a
+# call may take milliseconds.
+TIMING = {512: (100, 50_000_000), 8192: (10, 50_000_000)}
 
 
 def _device_ms(torch, fn, n, sleep_cycles, repeats=5):
@@ -89,6 +101,18 @@ def _digest(t) -> str:
     return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def _tile_call(ndiv_cuda, kernel, args):
+    """The tile kernel's ``ndiv_<kernel>`` under the block layout."""
+    import inspect
+
+    if "impl" in inspect.signature(ndiv_cuda._launch).parameters:
+        g = args[3] if kernel == "bwd" else None
+        return functools.partial(ndiv_cuda._launch, kernel, "block",
+                                 *args[:3], g, impl="tile")
+    return functools.partial(getattr(ndiv_cuda, f"ndiv_{kernel}"), *args,
+                             variant="block")
+
+
 def child() -> int:
     """One turn in the tree this process runs from."""
     sys.path.insert(0, os.getcwd())  # ahead of this script's own tree
@@ -104,17 +128,24 @@ def child() -> int:
            "launches": {}, "digests": {}}
     for b, k, dz, dx in SHAPES:
         z, x = _inputs(torch, b, k, dz, dx, seed=b + k)
-        calls = {"fwd": lambda: ndiv_cuda.ndiv_fwd(z, x, ALPHA),
-                 "bwd": lambda: ndiv_cuda.ndiv_bwd(z, x, ALPHA, g),
-                 "joint": lambda: ndiv_cuda.ndiv_joint(z, x, ALPHA)}
         label = f"{b}x{k}x{dz}x{dx}"
-        for kernel in KERNELS:
-            key = f"{kernel} {label}"
-            res = calls[kernel]()
+        routes = [(kernel, variant, None) for kernel, variant in ROUTES]
+        if k > 32:
+            routes += [("fwd", "block", "tile"), ("bwd", "block", "tile")]
+        for kernel, variant, impl in routes:
+            args = (z, x, ALPHA) + ((g,) if kernel == "bwd" else ())
+            if impl == "tile":
+                call = _tile_call(ndiv_cuda, kernel, args)
+                key = f"tile {kernel} {variant} {label}"
+            else:
+                call = functools.partial(getattr(ndiv_cuda, f"ndiv_{kernel}"),
+                                         *args, variant=variant)
+                key = f"{kernel} {variant} {label}"
+            res = call()
             res = res if isinstance(res, tuple) else (res,)
             out["digests"][key] = [_digest(t) for t in res]
-            out["launches"][key] = _launches(torch, calls[kernel])
-            out["times"][key] = _device_ms(torch, calls[kernel], *TIMING[k])
+            out["launches"][key] = _launches(torch, call)
+            out["times"][key] = _device_ms(torch, call, *TIMING[b])
     print(json.dumps(out), flush=True)
     return 0
 

@@ -6,17 +6,19 @@
 //   ndiv_fwd   -> _fwd_kernel_block and the packed _fwd_kernel (hinge sum only)
 //   ndiv_bwd   -> _bwd_kernel_block and the packed _bwd_kernel (grads at an
 //                 upstream cotangent g, recomputing the forward)
-// and the three TPU layouts "block", "group" and "packed" as tilings of one
-// kernel (below).
+// in each of the TPU's three layouts "block", "group" and "packed" (below).
 //
-// Two kernels, chosen by shape: every call under the block layout with
-// 2 <= k <= 32 (and rows that fit in shared memory) runs
-// ndiv_warp_kernel<mode, kp>, whatever its mode (fwd, joint or bwd); every
-// other call (k > 32, the group and packed tilings) runs ndiv_tile_kernel.
-// Both compute every per-condition value with the same helpers in the same
-// order, so their grads are bitwise equal; a launch that fails raises in
-// the wrapper.
-//
+// Two kernels, chosen by shape alone, whatever the layout: every call with
+// 2 <= k <= 32 (joint) or 2 <= k <= 64 (fwd and bwd) whose rows fit in
+// shared memory runs ndiv_warp_kernel<mode, kp>; every other call (the
+// joint past k = 32, anything past k = 64, rows past shared memory) runs
+// ndiv_tile_kernel.  Both compute every
+// per-condition value with the same helpers in the same order, so their
+// grads are bitwise equal; a launch that fails raises in the wrapper.  The
+// tile kernel can also be asked for at any shape (impl = kTile), as the
+// reference the tests hold the warp kernel against; the dispatch never
+// takes it in the warp kernel's place.
+
 // Per condition b (k samples, latents z [k, dz], outputs x [k, dx]):
 //   D_ij  = sqrt(max(sq_i + sq_j - 2 <a_i, a_j>, 0)), 0 on the diagonal
 //   n_ij  = D_ij / r_i with r_i = sum_j D_ij (0 where r_i == 0)
@@ -51,25 +53,28 @@
 //
 // ndiv_warp_kernel: a team of warps per condition (two at k <= 16,
 // four at 16 < k <= 32 with grads, where a single warp waits on its own
-// latencies; two for fwd), two teams or one per block of 128 threads,
-// persistent blocks walking over the conditions.  The
+// latencies; two for fwd; eight at 32 < k <= 64), two teams or one per
+// block of 128 threads (256 at kp = 64), persistent blocks walking over
+// the conditions.  The
 // team copies its condition's rows into shared memory once, coalesced and
 // in one batch of loads, in f64 and transposed ([d][kp + 1], k padded to
-// kp = 8, 16 or 32 with zero rows), so nothing is converted or re-read
+// kp = 8, 16, 32 or 64 with zero rows), so nothing is converted or re-read
 // from device memory in the f64 loops.  Its threads form a (kT / 8) x 8
 // grid: thread (p, q) owns the entries (p + (kT / 8) u, q + 8 v) of every
 // kp x kp matrix, a register tile of the Gram matrix whose step over t
 // reads 4 and 8 neighbouring doubles a warp.  The k x k matrices have a
 // row stride of kp + 1 floats, so row reads and the transposed read of W
 // are free of bank conflicts.  The hinge phase stores each entry's c_i
-// term, so r_i and c_i are sequential sums of stored values, one thread a
-// row; as the slack is 0 or 1/M, a row's dL/dD takes two values, each
+// term (z's over the slack's matrix) and the slack as one bit an entry
+// (a warp ballot, kp^2 / 8 bytes), so r_i and c_i are sequential sums of
+// stored values, one thread a row, and two bwd conditions fit on an SM at
+// kp = 64; as the slack is 0 or 1/M, a row's dL/dD takes two values, each
 // computed once by that thread.  W is stored in f64
 // over the dead D and dL/dD of its matrix, and the grad sum runs on the
 // team's grid (x's wide rows) or one output a thread (z's narrow ones).
 // The forward mode stops after the hinge and keeps only the rows and the
 // two distance matrices in shared memory (~26 KB a condition at pod_dp's
-// widths against the grad modes' ~38 KB), so 8 conditions reside on an SM
+// widths against the grad modes' ~35 KB), so 8 conditions reside on an SM
 // instead of 5, on teams of two warps.  The backward mode is the joint
 // one with the slack g / M on an active pair, rounded as the tile kernel
 // rounds it, and no loss.
@@ -84,21 +89,27 @@
 // fmas at their least count but the f64 pipes well short of full; the
 // rest is f64 square roots, exact f32 divisions and index arithmetic.  Not
 // used: f64 mma (it breaks the bitwise equality), cp.async double
-// buffering.
+// buffering.  At kp = 64 (8192 conditions at imagecond's widths) fwd took
+// ~0.54 ms and bwd ~1.26 ms against bounds of 0.041 and 0.114 ms
+// (ndiv_kernel_ab.py, same card): bwd ran 1.79 ms at one condition an SM
+// until the slack's bits replaced a k x k matrix and two fit; recomputing
+// z's c_i terms in the row phase instead cost 22% at kp <= 32.
 
 // ndiv_tile_kernel.  On the TPU "block" gives each condition its own
 // [kp, kp] Gram (kp = k rounded up to 8), "group" packs 128 // kp
 // conditions into one [128, 128] Gram and "packed" 256 // kp into one
 // [256, 256] Gram, under a block-diagonal mask: the same function on other
-// lane layouts.  Here the tile's row count is the kernel's template
-// parameter kTileRows (0 for block), and a thread block holds conds =
-// max(1, kTileRows / kp) conditions (1, 16 and 32 at k = 8), each on its
-// own slice of the block's 256 threads and its own slice of shared memory.
-// Every per-condition value is computed by one thread in a fixed
-// sequential order that does not depend on the slice's width, so the grads
-// of the three tilings are bitwise equal; only the loss's summation tree
-// differs (each block sums its conditions' hinge terms).
-//
+// lane layouts, packed to fill the MXU's lanes.  That reason does not
+// exist on this card, so both kernels serve all three alike.  The tile
+// kernel gives each condition a block of 256 threads and its k x k
+// matrices shared memory (or global scratch, where they pass 48 KB).  Until
+// the warp kernel took k <= 64 it also packed 128 // kp or 256 // kp
+// conditions on one block for the group and packed layouts; at k = 64
+// every such tiling was slower than one condition a block
+// (ndiv_kernel_ab.py, NVIDIA H100 80GB HBM3, 700 W, at 8192 conditions:
+// fwd 9.24 and 9.26 ms against 8.96, bwd 10.94 and 11.25 against 10.80,
+// the joint 10.95 against 10.80), so they went.
+
 // Determinism: no float atomics in either kernel.  The tile kernel's blocks
 // each write one partial and a second one-block kernel sums the partials
 // in a fixed order; the warp kernel sums its per-condition partials in
@@ -110,16 +121,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSublane = 8;
 constexpr size_t kSmemLimit = 48 * 1024;
 constexpr size_t kSmemOptin = 232448;  // a block's most, opted in (H100)
 
 enum Mode : int { kFwd = 0, kJoint = 1, kBwd = 2 };
-
-__host__ __device__ constexpr int conds_per_block(int tile_rows, int k) {
-  const int kp = (k + kSublane - 1) / kSublane * kSublane;
-  return tile_rows / kp > 1 ? tile_rows / kp : 1;
-}
 
 __host__ __device__ constexpr int mats_per_cond(int mode) {
   return mode == kFwd ? 2 : 4;
@@ -200,37 +205,30 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-// One thread block per `conds` conditions.  Each phase is a loop over one
-// condition's elements on that condition's `per` threads, guarded by
-// `active`; the barriers between phases are outside the guard, so every
-// thread of the block reaches them.
-template <int kMode, int kTileRows>
+// One thread block per condition.  Each phase is a loop over the
+// condition's elements on the block's threads, with a barrier between
+// phases; every per-condition value is computed by one thread in a fixed
+// sequential order.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 ndiv_tile_kernel(const float* __restrict__ z, const float* __restrict__ x,
-                 const float* __restrict__ g, int batch, int k, int dz, int dx,
+                 const float* __restrict__ g, int k, int dz, int dx,
                  float alpha, float inv_m, float* __restrict__ partial,
                  float* __restrict__ gz, float* __restrict__ gx,
                  float* __restrict__ scratch) {
   extern __shared__ float smem[];
   constexpr bool kGrads = kMode != kFwd;
   constexpr int kMats = mats_per_cond(kMode);
-  const int conds = conds_per_block(kTileRows, k);
-  const int per = kThreads / conds;  // threads per condition
-  const int tid = threadIdx.x;
-  const int c = tid / per;  // == conds for the block's leftover threads
-  const int t = tid - c * per;
-  const int b = blockIdx.x * conds + c;
-  const bool active = c < conds && b < batch;
-  const int slot = active ? c : 0;
+  constexpr int per = kThreads;
+  const int t = threadIdx.x;
+  const int b = blockIdx.x;
   const int kk = k * k;
 
-  // Shared memory: [conds x mats (unless in scratch)] [conds x vec] [red].
-  // Every piece holds an even number of floats, so the doubles stay aligned.
-  float* vecs = scratch ? smem : smem + (size_t)conds * kMats * kk;
-  float* mats = scratch ? scratch + (size_t)(active ? b : 0) * kMats * kk
-                        : smem + (size_t)slot * kMats * kk;
-  float* vec = vecs + (size_t)slot * 8 * k;
-  float* red = vecs + (size_t)conds * 8 * k;
+  // Shared memory: [mats (unless in scratch)] [vec] [red].  Every piece
+  // holds an even number of floats, so the doubles stay aligned.
+  float* vec = scratch ? smem : smem + (size_t)kMats * kk;
+  float* mats = scratch ? scratch + (size_t)b * kMats * kk : smem;
+  float* red = vec + (size_t)8 * k;
   float* Dz = mats;           // distances, later W for z
   float* Dx = mats + kk;      // distances, later W for x
   float* Gz = mats + 2 * kk;  // hinge slack s, later dL/dD for z
@@ -241,45 +239,39 @@ ndiv_tile_kernel(const float* __restrict__ z, const float* __restrict__ x,
   float* rx = vec + 5 * k;
   float* cz = vec + 6 * k;  // c_i for z
   float* cx = vec + 7 * k;  // c_i for x
-  const float* zb = z + (size_t)(active ? b : 0) * k * dz;
-  const float* xb = x + (size_t)(active ? b : 0) * k * dx;
+  const float* zb = z + (size_t)b * k * dz;
+  const float* xb = x + (size_t)b * k * dx;
 
-  if (active) {
-    for (int i = t; i < k; i += per) {
-      sqz[i] = dot_rows(zb + (size_t)i * dz, zb + (size_t)i * dz, dz);
-      sqx[i] = dot_rows(xb + (size_t)i * dx, xb + (size_t)i * dx, dx);
-    }
+  for (int i = t; i < k; i += per) {
+    sqz[i] = dot_rows(zb + (size_t)i * dz, zb + (size_t)i * dz, dz);
+    sqx[i] = dot_rows(xb + (size_t)i * dx, xb + (size_t)i * dx, dx);
   }
   __syncthreads();
 
-  if (active) {
-    for (int e = t; e < kk; e += per) {
-      const int i = e / k, j = e - (e / k) * k;
-      float vz = 0.f, vx = 0.f;
-      if (i != j) {
-        const double gzij =
-            dot_rows(zb + (size_t)i * dz, zb + (size_t)j * dz, dz);
-        const double gxij =
-            dot_rows(xb + (size_t)i * dx, xb + (size_t)j * dx, dx);
-        vz = pair_distance(sqz[i], sqz[j], gzij);
-        vx = pair_distance(sqx[i], sqx[j], gxij);
-      }
-      Dz[e] = vz;
-      Dx[e] = vx;
+  for (int e = t; e < kk; e += per) {
+    const int i = e / k, j = e - (e / k) * k;
+    float vz = 0.f, vx = 0.f;
+    if (i != j) {
+      const double gzij =
+          dot_rows(zb + (size_t)i * dz, zb + (size_t)j * dz, dz);
+      const double gxij =
+          dot_rows(xb + (size_t)i * dx, xb + (size_t)j * dx, dx);
+      vz = pair_distance(sqz[i], sqz[j], gzij);
+      vx = pair_distance(sqx[i], sqx[j], gxij);
     }
+    Dz[e] = vz;
+    Dx[e] = vx;
   }
   __syncthreads();
 
-  if (active) {
-    for (int i = t; i < k; i += per) {
-      float sz = 0.f, sx = 0.f;
-      for (int j = 0; j < k; ++j) {
-        sz += Dz[i * k + j];
-        sx += Dx[i * k + j];
-      }
-      rz[i] = sz;
-      rx[i] = sx;
+  for (int i = t; i < k; i += per) {
+    float sz = 0.f, sx = 0.f;
+    for (int j = 0; j < k; ++j) {
+      sz += Dz[i * k + j];
+      sx += Dx[i * k + j];
     }
+    rz[i] = sz;
+    rx[i] = sx;
   }
   __syncthreads();
 
@@ -288,72 +280,62 @@ ndiv_tile_kernel(const float* __restrict__ z, const float* __restrict__ x,
   float s_on = inv_m;
   if constexpr (kMode == kBwd) s_on = __fmul_rn(g[0], inv_m);
   float hsum = 0.f;
-  if (active) {
-    for (int e = t; e < kk; e += per) {
-      const int i = e / k, j = e - (e / k) * k;
-      const float nz = row_normalized(Dz[e], rz[i]);
-      const float nx = row_normalized(Dx[e], rx[i]);
-      const float h = hinge_term(alpha, nz, nx);
-      hsum += h;  // the diagonal has D = 0, so h = 0 there
-      if constexpr (kGrads) Gz[e] = (h > 0.f && i != j) ? s_on : 0.f;
-    }
+  for (int e = t; e < kk; e += per) {
+    const int i = e / k, j = e - (e / k) * k;
+    const float nz = row_normalized(Dz[e], rz[i]);
+    const float nx = row_normalized(Dx[e], rx[i]);
+    const float h = hinge_term(alpha, nz, nx);
+    hsum += h;  // the diagonal has D = 0, so h = 0 there
+    if constexpr (kGrads) Gz[e] = (h > 0.f && i != j) ? s_on : 0.f;
   }
   if constexpr (kMode != kBwd) {
     const float total = block_sum(hsum, red);
-    if (tid == 0) partial[blockIdx.x] = total;
+    if (t == 0) partial[b] = total;
   }
   if constexpr (!kGrads) return;
   __syncthreads();
 
-  if (active) {
-    for (int i = t; i < k; i += per) {
-      float accz = 0.f, accx = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const int e = i * k + j;
-        const float s = Gz[e];
-        accz += c_term(__fmul_rn(alpha, s), row_normalized(Dz[e], rz[i]));
-        accx += c_term(-s, row_normalized(Dx[e], rx[i]));
-      }
-      cz[i] = accz;
-      cx[i] = accx;
+  for (int i = t; i < k; i += per) {
+    float accz = 0.f, accx = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const int e = i * k + j;
+      const float s = Gz[e];
+      accz += c_term(__fmul_rn(alpha, s), row_normalized(Dz[e], rz[i]));
+      accx += c_term(-s, row_normalized(Dx[e], rx[i]));
     }
+    cz[i] = accz;
+    cx[i] = accx;
   }
   __syncthreads();
 
-  if (active) {
-    for (int e = t; e < kk; e += per) {
-      const int i = e / k, j = e - (e / k) * k;
-      const float s = Gz[e];
-      const bool valid = i != j;
-      Gz[e] = dist_grad(valid, __fmul_rn(alpha, s), cz[i], rz[i]);
-      Gx[e] = dist_grad(valid, -s, cx[i], rx[i]);
-    }
+  for (int e = t; e < kk; e += per) {
+    const int i = e / k, j = e - (e / k) * k;
+    const float s = Gz[e];
+    const bool valid = i != j;
+    Gz[e] = dist_grad(valid, __fmul_rn(alpha, s), cz[i], rz[i]);
+    Gx[e] = dist_grad(valid, -s, cx[i], rx[i]);
   }
   __syncthreads();
 
   // W overwrites D in place: element e is read and written by one thread only.
-  if (active) {
-    for (int e = t; e < kk; e += per) {
-      const int i = e / k, j = e - (e / k) * k;
-      const int tr = j * k + i;
-      const float dzv = Dz[e], dxv = Dx[e];
-      Dz[e] = pair_weight(Gz[e], Gz[tr], dzv);
-      Dx[e] = pair_weight(Gx[e], Gx[tr], dxv);
-    }
+  for (int e = t; e < kk; e += per) {
+    const int i = e / k, j = e - (e / k) * k;
+    const int tr = j * k + i;
+    const float dzv = Dz[e], dxv = Dx[e];
+    Dz[e] = pair_weight(Gz[e], Gz[tr], dzv);
+    Dx[e] = pair_weight(Gx[e], Gx[tr], dxv);
   }
   __syncthreads();
 
-  if (active) {
-    float* gzb = gz + (size_t)b * k * dz;
-    float* gxb = gx + (size_t)b * k * dx;
-    for (int o = t; o < k * dz; o += per) {
-      const int i = o / dz;
-      gzb[o] = weighted_diff(Dz + (size_t)i * k, zb, k, dz, i, o - i * dz);
-    }
-    for (int o = t; o < k * dx; o += per) {
-      const int i = o / dx;
-      gxb[o] = weighted_diff(Dx + (size_t)i * k, xb, k, dx, i, o - i * dx);
-    }
+  float* gzb = gz + (size_t)b * k * dz;
+  float* gxb = gx + (size_t)b * k * dx;
+  for (int o = t; o < k * dz; o += per) {
+    const int i = o / dz;
+    gzb[o] = weighted_diff(Dz + (size_t)i * k, zb, k, dz, i, o - i * dz);
+  }
+  for (int o = t; o < k * dx; o += per) {
+    const int i = o / dx;
+    gxb[o] = weighted_diff(Dx + (size_t)i * k, xb, k, dx, i, o - i * dx);
   }
 }
 
@@ -370,52 +352,74 @@ sum_partials_kernel(const float* __restrict__ partial, int n,
 
 // ---------------------------------------------------- the warp kernel
 
-// The warp kernel's team for one condition: k padded to kp = 8, 16 or 32,
-// team_warps warps on it, team_conds teams per block of 128 threads, and
-// the blocks per SM its registers are sized for.  At kp = 32 the grad
-// modes take four warps a condition (one thread a 2 x 4 tile of each
-// matrix) and 5 blocks an SM, as many as their shared memory allows at
-// pod_dp's widths; fwd takes two (a 4 x 4 tile: 8 loads for 16 fmas in
-// the Gram loop instead of 6 for 8) and 4 blocks, 8 conditions an SM.
-// Measured at pod_dp's shape (ndiv_kernel_ab.py, NVIDIA H100 80GB HBM3,
-// 700 W): fwd on teams of four took 0.180-0.194 ms at 5-8 blocks an SM,
-// on teams of two 0.161.
+// The warp kernel's team for one condition: k padded to kp = 8, 16, 32 or
+// 64, team_warps warps on it, team_conds teams per block, and the blocks
+// per SM its registers are sized for.  At kp = 32 the grad modes take four
+// warps a condition (one thread a 2 x 4 tile of each matrix) and 5 blocks
+// an SM, as many as their shared memory allows at pod_dp's widths; fwd
+// takes two (a 4 x 4 tile: 8 loads for 16 fmas in the Gram loop instead of
+// 6 for 8) and 4 blocks, 8 conditions an SM.  Measured at pod_dp's shape
+// (ndiv_kernel_ab.py, NVIDIA H100 80GB HBM3, 700 W): fwd on teams of four
+// took 0.180-0.194 ms at 5-8 blocks an SM, on teams of two 0.161.  At
+// kp = 64 (fwd and bwd only) a team of four would give each thread a 4 x 8
+// tile, 32 f64 accumulators: the team takes eight warps (a 2 x 8 tile), so
+// the block grows to 256 threads, one condition a block; shared memory
+// holds 3 fwd conditions an SM and 2 bwd conditions at imagecond's widths.
+// fwd on teams of four (4 x 8 tiles, no spills) took 0.606 ms at 8192
+// conditions against 0.546 on teams of eight (ndiv_kernel_ab.py, same card).
 __host__ __device__ constexpr int warp_kp(int k) {
-  return k <= 8 ? 8 : (k <= 16 ? 16 : 32);
+  return k <= 8 ? 8 : (k <= 16 ? 16 : (k <= 32 ? 32 : 64));
 }
 __host__ __device__ constexpr int team_warps(int kp, int mode = kJoint) {
-  return kp == 32 && mode != kFwd ? 4 : 2;
+  return kp == 64 ? 8 : (kp == 32 && mode != kFwd ? 4 : 2);
 }
 __host__ __device__ constexpr int team_conds(int kp, int mode = kJoint) {
-  return 4 / team_warps(kp, mode);
+  return team_warps(kp, mode) >= 4 ? 1 : 4 / team_warps(kp, mode);
+}
+__host__ __device__ constexpr int warp_block_threads(int kp, int mode) {
+  return 32 * team_warps(kp, mode) * team_conds(kp, mode);
 }
 __host__ __device__ constexpr int warp_min_blocks(int mode, int kp) {
-  return kp == 32 ? (mode == kFwd ? 4 : 5) : 2;
+  return kp == 64 ? (mode == kFwd ? 3 : 2)
+                  : (kp == 32 ? (mode == kFwd ? 4 : 5) : 2);
 }
-constexpr int kWarpBlockThreads = 128;  // team_warps * team_conds * 32
+// The largest k of each mode's warp kernel: the joint's stops at 32.
+__host__ __device__ constexpr int warp_max_k(int mode) {
+  return mode == kJoint ? 32 : 64;
+}
 
 // Bytes of one condition's slice of shared memory: the rows, transposed
 // in f64 [d][kp + 1]; the f32 matrices [kp][kp + 1] (kp (kp + 1) is even,
-// so the doubles after them stay aligned): Dz and Dx, and with grads Gz,
-// Gx and Tz too; sq_z and sq_x in f64; r_z and r_x in f32, and with grads
-// each row's two dL/dD values for z and for x.
+// so the doubles after them stay aligned): Dz and Dx, and with grads Gz
+// and Gx too; sq_z and sq_x in f64; r_z and r_x in f32, and with grads
+// each row's two dL/dD values for z and for x and the slack's bits
+// [kp][kp / 8] (kp^2 / 8 bytes, a multiple of 8).
 __host__ __device__ inline size_t warp_cond_bytes(int mode, int kp, int dz,
                                                   int dx) {
   const size_t s = kp + 1;
   const bool grads = mode != kFwd;
-  return 8 * s * (dz + dx) + (grads ? 20 : 8) * (size_t)kp * s +
-         16 * (size_t)kp + (grads ? 24 : 8) * (size_t)kp;
+  return 8 * s * (dz + dx) + (grads ? 16 : 8) * (size_t)kp * s +
+         16 * (size_t)kp + (grads ? 24 + kp / 8 : 8) * (size_t)kp;
 }
 
 size_t warp_smem_bytes(int mode, int k, int dz, int dx) {
   const int kp = warp_kp(k);
   return team_conds(kp, mode) * warp_cond_bytes(mode, kp, dz, dx) +
-         kWarpBlockThreads * sizeof(float);
+         warp_block_threads(kp, mode) * sizeof(float);
 }
 
-bool warp_serves(int mode, int k, int dz, int dx, int tile_rows) {
-  return tile_rows == 0 && k >= 2 && k <= 32 &&
+// The dispatch by shape: the layout plays no part.
+bool warp_serves(int mode, int k, int dz, int dx) {
+  return k >= 2 && k <= warp_max_k(mode) &&
          warp_smem_bytes(mode, k, dz, dx) <= kSmemOptin;
+}
+
+// impl: kByShape dispatches as warp_serves says; kTile asks for the tile
+// kernel at any shape (the tests' reference for the warp kernel).
+enum Impl : int { kByShape = 0, kTile = 1 };
+
+bool runs_warp(int mode, int k, int dz, int dx, int impl) {
+  return impl == kByShape && warp_serves(mode, k, dz, dx);
 }
 
 // a [k, d] (row-major, device memory) -> at [d][kp + 1] in f64, rows
@@ -642,7 +646,7 @@ __device__ __forceinline__ void warp_grads_of(const double* at,
 // teams, chunks of 2 would take 14 rounds instead of 13, chunks of 4 16)
 // and keep no sum live across the grad phases.
 template <int kMode, int kp>
-__global__ void __launch_bounds__(kWarpBlockThreads,
+__global__ void __launch_bounds__(warp_block_threads(kp, kMode),
                                   warp_min_blocks(kMode, kp))
 ndiv_warp_kernel(const float* __restrict__ z, const float* __restrict__ x,
                  const float* __restrict__ g, int batch, int k, int dz,
@@ -655,7 +659,8 @@ ndiv_warp_kernel(const float* __restrict__ z, const float* __restrict__ x,
   constexpr bool kLoss = kMode != kBwd;
   constexpr int conds = team_conds(kp, kMode);
   constexpr int s = G::s;
-  static_assert(G::kT * conds == kWarpBlockThreads, "block size");
+  constexpr int kBlock = warp_block_threads(kp, kMode);
+  static_assert(G::kT * conds == kBlock, "block size");
   static_assert(G::kT >= 2 * kp, "a thread per row of both matrices");
   extern __shared__ double warp_smem[];
   __shared__ bool last_block;
@@ -669,16 +674,17 @@ ndiv_warp_kernel(const float* __restrict__ z, const float* __restrict__ x,
   // W_z (f64) later lies over Dz and Gz, W_x over Dx and Gx; without
   // grads there are only Dz and Dx.
   float* Dz = reinterpret_cast<float*>(xt + dx * s);
-  float* Gz = Dz + kp * s;  // hinge slack s, later dL/dD for z
+  float* Gz = Dz + kp * s;  // z's c terms, later dL/dD for z
   float* Dx = kGrads ? Gz + kp * s : Gz;
   float* Gx = Dx + kp * s;  // x's c terms, later dL/dD for x
-  float* Tz = Gx + kp * s;  // z's c terms
-  double* sqz = reinterpret_cast<double*>(kGrads ? Tz + kp * s : Gx);
+  double* sqz = reinterpret_cast<double*>(kGrads ? Gx + kp * s : Gx);
   double* sqx = sqz + kp;
   float* rz = reinterpret_cast<float*>(sqx + kp);
   float* rx = rz + kp;
   float* gdz = rx + kp;       // [2][kp]: a row's dL/dD where its slack is
   float* gdx = gdz + 2 * kp;  // s_on, and where it is 0
+  // Bit q of on_bits[i][v]: the slack of entry (i, q + 8 v) is s_on.
+  unsigned char* on_bits = reinterpret_cast<unsigned char*>(gdx + 2 * kp);
   float* red = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(warp_smem) + conds * cond_bytes);
   float* team_red = red + team * G::kNW;  // the condition's warp sums
@@ -714,6 +720,7 @@ ndiv_warp_kernel(const float* __restrict__ z, const float* __restrict__ x,
 #pragma unroll
       for (int v = 0; v < G::kV; ++v) {
         const int i = p + G::kR * u, j = q + 8 * v;
+        bool on = false;  // the pair's slack is s_on
         if (i < k && j < k) {
           const int e = i * s + j;
           const float nz = row_normalized(Dz[e], rz[i]);
@@ -721,11 +728,19 @@ ndiv_warp_kernel(const float* __restrict__ z, const float* __restrict__ x,
           const float h = hinge_term(alpha, nz, nx);
           hsum += h;  // the diagonal has D = 0, so h = 0 there
           if constexpr (kGrads) {
-            const float sl = (h > 0.f && i != j) ? s_on : 0.f;
-            Gz[e] = sl;
-            Tz[e] = c_term(__fmul_rn(alpha, sl), nz);
+            on = h > 0.f && i != j;
+            const float sl = on ? s_on : 0.f;
+            Gz[e] = c_term(__fmul_rn(alpha, sl), nz);
             Gx[e] = c_term(-sl, nx);
           }
+        }
+        if constexpr (kGrads) {
+          // Lane 8 (p & 3) + q holds entry (i, q + 8 v) of one of the
+          // warp's four rows: each row's byte of the ballot.
+          const unsigned bits = __ballot_sync(0xffffffffu, on);
+          if (q == 0)
+            on_bits[i * G::kV + v] =
+                static_cast<unsigned char>(bits >> (8 * (p & 3)));
         }
       }
     // The condition's partial: a fixed lane tree, then the team's warps in
@@ -747,7 +762,7 @@ ndiv_warp_kernel(const float* __restrict__ z, const float* __restrict__ x,
     // only the values s_on and 0, so a row has two, each computed as the
     // tile kernel computes every entry.
     if (tt < 2 * kp && row < k) {
-      const float* Trow = (on_x ? Gx : Tz) + row * s;
+      const float* Trow = (on_x ? Gx : Gz) + row * s;
       float c = 0.f;
       for (int j = 0; j < k; ++j) c += Trow[j];
       const float r = (on_x ? rx : rz)[row];
@@ -766,7 +781,8 @@ ndiv_warp_kernel(const float* __restrict__ z, const float* __restrict__ x,
         const int i = p + G::kR * u, j = q + 8 * v;
         if (i < k && j < k) {
           const int e = i * s + j;
-          const int slot = (Gz[e] != 0.f ? 0 : kp) + i;
+          const bool on = on_bits[i * G::kV + v] >> q & 1;
+          const int slot = (on ? 0 : kp) + i;
           Gz[e] = i != j ? gdz[slot] : 0.f;
           Gx[e] = i != j ? gdx[slot] : 0.f;
         }
@@ -794,25 +810,25 @@ ndiv_warp_kernel(const float* __restrict__ z, const float* __restrict__ x,
   __syncthreads();
   if (!last_block) return;
   __threadfence();
-  // Thread t sums partials t, t + 128, ... in order, its loads made in
+  // Thread t sums partials t, t + kBlock, ... in order, its loads made in
   // batches ahead of their adds.
   constexpr int kBatch = 8;
   float acc = 0.f;
   for (int base = threadIdx.x; base < batch;
-       base += kWarpBlockThreads * kBatch) {
+       base += kBlock * kBatch) {
     float v[kBatch];
 #pragma unroll
     for (int r = 0; r < kBatch; ++r) {
-      const int i = base + kWarpBlockThreads * r;
+      const int i = base + kBlock * r;
       v[r] = i < batch ? __ldcg(partial + i) : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < kBatch; ++r)
-      if (base + kWarpBlockThreads * r < batch) acc += v[r];
+      if (base + kBlock * r < batch) acc += v[r];
   }
   red[threadIdx.x] = acc;
   __syncthreads();
-  for (int w = kWarpBlockThreads / 2; w > 0; w >>= 1) {
+  for (int w = kBlock / 2; w > 0; w >>= 1) {
     if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
     __syncthreads();
   }
@@ -843,7 +859,8 @@ int warp_blocks_kp(int batch, int k, int dz, int dx) {
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ndiv_warp_kernel<kMode, kp>, kWarpBlockThreads, smem) !=
+          &per_sm, ndiv_warp_kernel<kMode, kp>, warp_block_threads(kp, kMode),
+          smem) !=
           cudaSuccess)
     return 0;
   const int needed =
@@ -859,8 +876,12 @@ int warp_blocks(int batch, int k, int dz, int dx) {
       return warp_blocks_kp<kMode, 8>(batch, k, dz, dx);
     case 16:
       return warp_blocks_kp<kMode, 16>(batch, k, dz, dx);
-    default:
+    case 32:
       return warp_blocks_kp<kMode, 32>(batch, k, dz, dx);
+    default:  // kp = 64: fwd and bwd only (warp_max_k)
+      if constexpr (kMode != kJoint)
+        return warp_blocks_kp<kMode, 64>(batch, k, dz, dx);
+      return 0;
   }
 }
 
@@ -873,15 +894,9 @@ size_t mats_floats(int k, int mode) {
 // sq (2k doubles), r and c (4k floats).
 size_t vec_floats(int k) { return (size_t)8 * k; }
 
-bool mats_fit_smem(int k, int mode, int tile_rows) {
-  const size_t conds = conds_per_block(tile_rows, k);
-  return (conds * (mats_floats(k, mode) + vec_floats(k)) + kThreads) *
-             sizeof(float) <= kSmemLimit;
-}
-
-int grid_blocks(int batch, int k, int tile_rows) {
-  const int conds = conds_per_block(tile_rows, k);
-  return (batch + conds - 1) / conds;
+bool mats_fit_smem(int k, int mode) {
+  return (mats_floats(k, mode) + vec_floats(k) + kThreads) * sizeof(float) <=
+         kSmemLimit;
 }
 
 struct Args {
@@ -900,21 +915,19 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int kMode, int kTileRows>
+template <int kMode>
 int launch_tiled(const Args& a) {
-  const bool in_smem = mats_fit_smem(a.k, kMode, kTileRows);
+  const bool in_smem = mats_fit_smem(a.k, kMode);
   if (!in_smem && a.scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t conds = conds_per_block(kTileRows, a.k);
   const size_t smem =
-      (conds * (vec_floats(a.k) + (in_smem ? mats_floats(a.k, kMode) : 0)) +
-       kThreads) * sizeof(float);
-  const int blocks = grid_blocks(a.batch, a.k, kTileRows);
-  ndiv_tile_kernel<kMode, kTileRows><<<blocks, kThreads, smem, a.stream>>>(
-      a.z, a.x, a.g, a.batch, a.k, a.dz, a.dx, a.alpha, a.inv_m, a.partial,
-      a.gz, a.gx, in_smem ? nullptr : a.scratch);
+      (vec_floats(a.k) + (in_smem ? mats_floats(a.k, kMode) : 0) + kThreads) *
+      sizeof(float);
+  ndiv_tile_kernel<kMode><<<a.batch, kThreads, smem, a.stream>>>(
+      a.z, a.x, a.g, a.k, a.dz, a.dx, a.alpha, a.inv_m, a.partial, a.gz,
+      a.gx, in_smem ? nullptr : a.scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || kMode == kBwd) return (int)err;
-  sum_partials_kernel<<<1, kThreads, 0, a.stream>>>(a.partial, blocks,
+  sum_partials_kernel<<<1, kThreads, 0, a.stream>>>(a.partial, a.batch,
                                                     a.total);
   return (int)cudaGetLastError();
 }
@@ -927,7 +940,7 @@ int launch_warp_kp(const Args& a) {
   const cudaError_t err = warp_kernel_ready<kMode, kp>(smem);
   if (err != cudaSuccess) return (int)err;
   ndiv_warp_kernel<kMode, kp>
-      <<<a.blocks, kWarpBlockThreads, smem, a.stream>>>(
+      <<<a.blocks, warp_block_threads(kp, kMode), smem, a.stream>>>(
           a.z, a.x, a.g, a.batch, a.k, a.dz, a.dx, a.alpha, a.inv_m,
           a.partial, a.total, a.ticket, a.gz, a.gx);
   return (int)cudaGetLastError();
@@ -940,47 +953,42 @@ int launch_warp(const Args& a) {
       return launch_warp_kp<kMode, 8>(a);
     case 16:
       return launch_warp_kp<kMode, 16>(a);
-    default:
+    case 32:
       return launch_warp_kp<kMode, 32>(a);
+    default:  // kp = 64: fwd and bwd only (warp_max_k)
+      if constexpr (kMode != kJoint) return launch_warp_kp<kMode, 64>(a);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
-// The dispatch by shape: block-layout calls with 2 <= k <= 32 whose rows
-// fit in shared memory go to the warp kernel in every mode, everything
-// else to the tile kernel.
+// The dispatch by shape (runs_warp): calls the warp kernel serves go to it,
+// everything else, and every call with impl = kTile, to the tile kernel.
 template <int kMode>
-int launch(int tile_rows, const Args& a) {
-  if (a.batch < 1 || a.k < 2 || a.dz < 1 || a.dx < 1)
+int launch(int impl, const Args& a) {
+  if (a.batch < 1 || a.k < 2 || a.dz < 1 || a.dx < 1 ||
+      (impl != kByShape && impl != kTile))
     return (int)cudaErrorInvalidValue;
-  if (warp_serves(kMode, a.k, a.dz, a.dx, tile_rows))
-    return launch_warp<kMode>(a);
-  switch (tile_rows) {
-    case 0:
-      return launch_tiled<kMode, 0>(a);
-    case 128:
-      return launch_tiled<kMode, 128>(a);
-    case 256:
-      return launch_tiled<kMode, 256>(a);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (runs_warp(kMode, a.k, a.dz, a.dx, impl)) return launch_warp<kMode>(a);
+  return launch_tiled<kMode>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when the call of this mode (0 = fwd, 1 = joint, 2 = bwd) runs the warp
+// 1 when a call of this mode (0 = fwd, 1 = joint, 2 = bwd) runs the warp
 // kernel at this shape, 0 for the tile kernel.
-int ndiv_warp_serves(int mode, int k, int dz, int dx, int tile_rows) {
-  return warp_serves(mode, k, dz, dx, tile_rows) ? 1 : 0;
+int ndiv_warp_serves(int mode, int k, int dz, int dx) {
+  return warp_serves(mode, k, dz, dx) ? 1 : 0;
 }
+
+// The launches below take impl (0: the dispatch by shape, 1: the tile
+// kernel at any shape).
 
 // Blocks of one launch of this mode (either kernel) on the current device.
 // 0 on an error.
-int ndiv_blocks(int mode, int batch, int k, int dz, int dx, int tile_rows) {
-  if (!warp_serves(mode, k, dz, dx, tile_rows))
-    return grid_blocks(batch, k, tile_rows);
+int ndiv_blocks(int mode, int batch, int k, int dz, int dx, int impl) {
+  if (!runs_warp(mode, k, dz, dx, impl)) return batch;
   switch (mode) {
     case kFwd:
       return warp_blocks<kFwd>(batch, k, dz, dx);
@@ -991,20 +999,12 @@ int ndiv_blocks(int mode, int batch, int k, int dz, int dx, int tile_rows) {
   }
 }
 
-// Length of the loss partials of one fwd or joint launch: one per
-// condition (warp kernel) or per block (tile kernel); shape alone sets it.
-int ndiv_partials(int mode, int batch, int k, int dz, int dx,
-                  int tile_rows) {
-  return warp_serves(mode, k, dz, dx, tile_rows)
-             ? batch
-             : grid_blocks(batch, k, tile_rows);
-}
-
 // Floats of global scratch each condition needs (0 when shared memory
-// holds it).
-long long ndiv_scratch_floats(int k, int mode, int tile_rows) {
-  return mats_fit_smem(k, mode, tile_rows) ? 0
-                                           : (long long)mats_floats(k, mode);
+// holds it, and always under the warp kernel).
+long long ndiv_scratch_floats(int mode, int k, int dz, int dx, int impl) {
+  return runs_warp(mode, k, dz, dx, impl) || mats_fit_smem(k, mode)
+             ? 0
+             : (long long)mats_floats(k, mode);
 }
 
 // Hinge sum (total [1], partial [ndiv_partials]) and unit-cotangent grads
@@ -1012,35 +1012,35 @@ long long ndiv_scratch_floats(int k, int mode, int tile_rows) {
 // gives the same bits).  ticket: one zeroed unsigned int in device memory,
 // owned by the stream (the warp kernel leaves it zero again).
 int ndiv_joint(const float* z, const float* x, int batch, int k, int dz,
-               int dx, float alpha, float inv_m, int tile_rows,
+               int dx, float alpha, float inv_m, int impl,
                float* partial, int blocks, float* total, unsigned int* ticket,
                float* gz, float* gx, float* scratch, void* stream) {
-  return launch<kJoint>(tile_rows, Args{z, x, nullptr, batch, k, dz, dx,
-                                        alpha, inv_m, partial, blocks, total,
-                                        ticket, gz, gx, scratch,
-                                        static_cast<cudaStream_t>(stream)});
+  return launch<kJoint>(impl,
+                        Args{z, x, nullptr, batch, k, dz, dx, alpha, inv_m,
+                             partial, blocks, total, ticket, gz, gx, scratch,
+                             static_cast<cudaStream_t>(stream)});
 }
 
 // Hinge sum only (total [1], partial, blocks and ticket as for ndiv_joint).
 int ndiv_fwd(const float* z, const float* x, int batch, int k, int dz, int dx,
-             float alpha, int tile_rows, float* partial, int blocks,
+             float alpha, int impl, float* partial, int blocks,
              float* total, unsigned int* ticket, float* scratch,
              void* stream) {
-  return launch<kFwd>(tile_rows, Args{z, x, nullptr, batch, k, dz, dx, alpha,
-                                      0.f, partial, blocks, total, ticket,
-                                      nullptr, nullptr, scratch,
-                                      static_cast<cudaStream_t>(stream)});
+  return launch<kFwd>(impl,
+                      Args{z, x, nullptr, batch, k, dz, dx, alpha, 0.f,
+                           partial, blocks, total, ticket, nullptr, nullptr,
+                           scratch, static_cast<cudaStream_t>(stream)});
 }
 
 // Grads gz, gx at the cotangent g [1] (device memory); blocks as for
 // ndiv_joint.
 int ndiv_bwd(const float* z, const float* x, const float* g, int batch, int k,
-             int dz, int dx, float alpha, float inv_m, int tile_rows,
-             int blocks, float* gz, float* gx, float* scratch, void* stream) {
-  return launch<kBwd>(tile_rows, Args{z, x, g, batch, k, dz, dx, alpha, inv_m,
-                                      nullptr, blocks, nullptr, nullptr, gz,
-                                      gx, scratch,
-                                      static_cast<cudaStream_t>(stream)});
+             int dz, int dx, float alpha, float inv_m, int impl, int blocks, float* gz, float* gx, float* scratch,
+             void* stream) {
+  return launch<kBwd>(impl,
+                      Args{z, x, g, batch, k, dz, dx, alpha, inv_m, nullptr,
+                           blocks, nullptr, nullptr, gz, gx, scratch,
+                           static_cast<cudaStream_t>(stream)});
 }
 
 const char* ndiv_error_string(int err) {

@@ -11,19 +11,25 @@ first use and bound through ``ctypes``:
 - ``ndiv_bwd``: dL/dz and dL/dx at an upstream cotangent ``g``, recomputing
   the forward (replaces ``_bwd_kernel_block`` and the packed ``_bwd_kernel``).
 
-Under "block" with 2 <= k <= 32 each runs the warp kernel (a team of warps
-per condition, one launch; :func:`serving_kernel` says which kernel serves
-a shape), else the tile kernel; their grads are bitwise equal, and the
-warp kernel's loss total depends on the shape alone.
+The kernel is chosen by shape alone (:func:`serving_kernel` says which
+serves a call): fwd and bwd at 2 <= k <= 64 and joint at 2 <= k <= 32, where
+the rows fit in shared memory, run the warp kernel (a team of warps per
+condition, one launch); the rest run the tile kernel.  Their grads are
+bitwise equal, and the warp kernel's loss total depends on the shape alone,
+so the layouts it serves give bitwise equal totals and grads.
 
 Each takes the JAX package's ``variant``: "block", "group" or "packed", the
-TPU's three layouts of the same function, which here choose how many
-conditions one thread block holds (``_TILE_ROWS``).  :func:`ndiv_loss_fused`
-routes as ``_vjp_fwd`` does: under differentiation block and group run the
-joint kernel when ``JOINT`` is set, and otherwise (and always for packed)
-the forward kernel, whose backward is ``ndiv_bwd``.  ``VARIANT`` and
-``JOINT`` are read from ``NDIV_VARIANT`` and ``NDIV_JOINT`` at import, as
-the JAX module reads them.
+TPU's three layouts of the same function.  The TPU packs conditions to fill
+its matrix unit's lanes, which this card does not need: the variant only
+names the route in ``LAUNCHES``.
+:func:`ndiv_loss_fused` routes as ``_vjp_fwd`` does: under differentiation
+block and group run the joint kernel when ``JOINT`` is set, and otherwise
+(and always for packed) the forward kernel, whose backward is ``ndiv_bwd``.
+``VARIANT`` and ``JOINT`` are read from ``NDIV_VARIANT`` and ``NDIV_JOINT``
+at import, as the JAX module reads them.  ``_launch(..., impl="tile")``
+runs the tile kernel at any shape, as the reference that the card tests,
+``chip_smoke.py`` and ``ndiv_kernel_ab.py`` hold the warp kernel against;
+nothing else selects it.
 
 The kernels compute in float32 (accumulating in float64).  As the JAX
 kernels do, the wrappers upcast bf16 and f16 inputs to float32 first and
@@ -64,10 +70,10 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Rows of the TPU tile each layout packs conditions into (0: one condition
-# per tile): a thread block holds max(1, rows // round_up(k, 8)) conditions.
-_TILE_ROWS = {"block": 0, "group": 128, "packed": 256}
+_VARIANTS = ("block", "group", "packed")
 _MODES = {"fwd": 0, "joint": 1, "bwd": 2}
+# "auto": the dispatch by shape; "tile": the tile kernel at any shape.
+_IMPLS = {"auto": 0, "tile": 1}
 
 VARIANT = os.environ.get("NDIV_VARIANT", "block")
 JOINT = os.environ.get("NDIV_JOINT", "1") != "0"
@@ -80,7 +86,7 @@ def launch_key(kernel: str, variant: str) -> str:
 
 # Kernel launches since the last reset.  The JAX package has no joint
 # kernel under "packed", so neither has the port.
-LAUNCHES = {launch_key(kern, v): 0 for v in _TILE_ROWS
+LAUNCHES = {launch_key(kern, v): 0 for v in _VARIANTS
             for kern in ("joint", "fwd", "bwd")
             if (kern, v) != ("joint", "packed")}
 
@@ -89,9 +95,9 @@ _lib = None
 # in, and leaves at 0) per (device, stream): launches on one stream run in
 # order, so they never share it at once.
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
-# (grid, loss partials) of a launch by device, mode and shape: the warp
-# kernel's grid depends on the device's SMs, the partials on the shape.
-_GRIDS: dict[tuple[int, ...], tuple[int, int]] = {}
+# The grid of a launch by device, mode and shape: the warp kernel's
+# depends on the device's SMs.
+_GRIDS: dict[tuple[int, ...], int] = {}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -105,7 +111,7 @@ def fused_available(k: int) -> bool:
 
 def check_variant(variant: str, kernel: str = "fwd") -> None:
     """Raise ``ValueError`` for a layout the JAX package does not have."""
-    if variant not in _TILE_ROWS:
+    if variant not in _VARIANTS:
         raise ValueError(
             f"unknown NDiv kernel variant {variant!r}; "
             "choose from 'block', 'group', 'packed'")
@@ -226,12 +232,11 @@ def load():
                                  p]
         for fn in (lib.ndiv_joint, lib.ndiv_fwd, lib.ndiv_bwd):
             fn.restype = i
-        for fn in (lib.ndiv_blocks, lib.ndiv_partials):
-            fn.argtypes = [i, i, i, i, i, i]
-            fn.restype = i
-        lib.ndiv_warp_serves.argtypes = [i, i, i, i, i]
+        lib.ndiv_blocks.argtypes = [i, i, i, i, i, i]
+        lib.ndiv_blocks.restype = i
+        lib.ndiv_warp_serves.argtypes = [i, i, i, i]
         lib.ndiv_warp_serves.restype = i
-        lib.ndiv_scratch_floats.argtypes = [i, i, i]
+        lib.ndiv_scratch_floats.argtypes = [i, i, i, i, i]
         lib.ndiv_scratch_floats.restype = ctypes.c_longlong
         lib.ndiv_error_string.argtypes = [i]
         lib.ndiv_error_string.restype = ctypes.c_char_p
@@ -242,13 +247,11 @@ def load():
 # ---------------------------------------------------------------- wrappers
 
 
-def serving_kernel(kernel: str, k: int, dz: int, dx: int,
-                   variant: str = "block") -> str:
-    """The kernel ``ndiv_<kernel>`` launches at this shape: "warp" (block
-    layout, 2 <= k <= 32, rows that fit in shared memory) or "tile"."""
-    check_variant(variant, kernel)
-    warp = load().ndiv_warp_serves(_MODES[kernel], k, dz, dx,
-                                   _TILE_ROWS[variant])
+def serving_kernel(kernel: str, k: int, dz: int, dx: int) -> str:
+    """The kernel ``ndiv_<kernel>`` launches at this shape, in every
+    layout: "warp" (2 <= k <= 64 for fwd and bwd, 2 <= k <= 32 for joint,
+    rows that fit in shared memory) or "tile"."""
+    warp = load().ndiv_warp_serves(_MODES[kernel], k, dz, dx)
     return "warp" if warp else "tile"
 
 
@@ -291,16 +294,21 @@ def _check_cuda(z: torch.Tensor, x: torch.Tensor) -> None:
 
 def _launch(kernel: str, variant: str, z: torch.Tensor, x: torch.Tensor,
             alpha: float, g: torch.Tensor | None = None,
-            blocks: int | None = None):
+            blocks: int | None = None, impl: str = "auto"):
     """Launch ``ndiv_<kernel>``; ``blocks`` overrides the warp kernel's
-    grid (the results do not depend on it)."""
+    grid (the results do not depend on it); ``impl="tile"`` runs the tile
+    kernel whatever the shape (the reference for the warp kernel, never
+    taken in its place)."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; choose from "
+                         f"{sorted(_IMPLS)}")
     _check_cuda(z, x)
     lib = load()
     b, k, dz = z.shape
     dx = x.shape[2]
-    mode, rows = _MODES[kernel], _TILE_ROWS[variant]
+    mode, how = _MODES[kernel], _IMPLS[impl]
     f32 = dict(dtype=torch.float32, device=z.device)
-    n_scratch = lib.ndiv_scratch_floats(k, mode, rows)
+    n_scratch = lib.ndiv_scratch_floats(mode, k, dz, dx, how)
     scratch = torch.empty(b * n_scratch, **f32) if n_scratch else None
     scratch_ptr = scratch.data_ptr() if scratch is not None else None
     if kernel != "fwd":
@@ -308,35 +316,33 @@ def _launch(kernel: str, variant: str, z: torch.Tensor, x: torch.Tensor,
         gx = torch.empty_like(x)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
-        key = (z.device.index, mode, b, k, dz, dx, rows)
+        key = (z.device.index, mode, b, k, dz, dx, how)
         if key not in _GRIDS:
-            _GRIDS[key] = (lib.ndiv_blocks(mode, b, k, dz, dx, rows),
-                           lib.ndiv_partials(mode, b, k, dz, dx, rows))
-        grid, n_partials = _GRIDS[key]
-        grid = grid if blocks is None else blocks
+            _GRIDS[key] = lib.ndiv_blocks(mode, b, k, dz, dx, how)
+        grid = _GRIDS[key] if blocks is None else blocks
         if grid < 1:
             raise RuntimeError(f"ndiv_{kernel} ({variant}): no grid for "
                                f"{tuple(z.shape)}, {tuple(x.shape)}")
         if kernel == "bwd":
             err = lib.ndiv_bwd(z.data_ptr(), x.data_ptr(), g.data_ptr(), b, k,
-                               dz, dx, float(alpha), _inv_m(z), rows, grid,
+                               dz, dx, float(alpha), _inv_m(z), how, grid,
                                gz.data_ptr(), gx.data_ptr(), scratch_ptr,
                                stream)
         else:
             total = torch.empty((), **f32)
-            partial = torch.empty(n_partials, **f32)
+            partial = torch.empty(b, **f32)  # one per condition
             ticket = _ticket(z.device, stream).data_ptr()
             if kernel == "joint":
                 err = lib.ndiv_joint(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
-                                     float(alpha), _inv_m(z), rows,
+                                     float(alpha), _inv_m(z), how,
                                      partial.data_ptr(), grid,
                                      total.data_ptr(), ticket, gz.data_ptr(),
                                      gx.data_ptr(), scratch_ptr, stream)
             else:
                 err = lib.ndiv_fwd(z.data_ptr(), x.data_ptr(), b, k, dz, dx,
-                                   float(alpha), rows, partial.data_ptr(),
-                                   grid, total.data_ptr(), ticket,
-                                   scratch_ptr, stream)
+                                   float(alpha), how, partial.data_ptr(), grid,
+                                   total.data_ptr(), ticket, scratch_ptr,
+                                   stream)
     if err != 0:
         raise RuntimeError(f"ndiv_{kernel} ({variant}) launch failed: "
                            f"{lib.ndiv_error_string(err).decode()}")

@@ -28,11 +28,8 @@ from ndivplanning_tpu_torch.utils.config import Config
 _F32_TINY = torch.finfo(torch.float32).tiny
 
 
-def check_step_knobs(cfg: Config, mesh=None) -> None:
-    """Raise ``NotImplementedError`` naming the first unported knob set.
-
-    dp_shards * div_shards > 1 needs a mesh: the JAX package shards such a
-    config implicitly under GSPMD, which the port has no counterpart of."""
+def check_step_knobs(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` naming the first unported knob set."""
     check_model_knobs(cfg)
     check_optimizer_knobs(cfg)
     knobs = {
@@ -46,8 +43,6 @@ def check_step_knobs(cfg: Config, mesh=None) -> None:
         "div_floor": cfg.div_floor > 0,
         "d_reset_every": cfg.d_reset_every > 0,
         "remat": cfg.remat,
-        "dp_shards/div_shards without a mesh (implicit sharding)":
-            mesh is None and cfg.dp_shards * cfg.div_shards > 1,
     }
     for name, on in knobs.items():
         if on:
@@ -64,6 +59,10 @@ def _ndiv(cfg: Config, z: torch.Tensor, traj: torch.Tensor,
     ``parallel/sharded_step.py``: "pallas", and "auto" on CUDA tensors, go
     through the fused kernel's call site, and "jnp" (and "auto" on the CPU)
     through the row-block strategy, as the JAX package dispatches.
+    Without a mesh the inputs are the global batch, whatever dp_shards and
+    div_shards say, and ``ndiv_loss`` serves it: the fused kernel on the
+    card, the reference on the CPU (the JAX step takes the reference for
+    such a config on every backend).
     """
     b, k = z.shape[:2]
     x = traj.reshape(b, k, -1)
@@ -113,7 +112,7 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
     summed shares.
     Returns (state, metrics), metrics a dict of 0-d float32 tensors.
     """
-    check_step_knobs(cfg, mesh)
+    check_step_knobs(cfg)
     d_loss_fn, g_loss_fn = get_gan_losses(cfg.gan_loss)
     b = batch.real_traj.shape[0]
     if z is None:

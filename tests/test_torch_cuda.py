@@ -25,17 +25,22 @@ pytestmark = pytest.mark.cuda
 VARIANTS = ("block", "group", "packed")
 # Shapes: the goalcond and imagecond main paths; k padding (k=5) with a
 # batch that fills no whole group or packed tile; conditions whose k x k
-# matrices spill to global scratch under group and packed (k=32: 4 and 8
-# conditions per block); one condition per block at every tiling (k=256);
-# k=32 at pod_dp's widths (its per-rank batch 8192, and 1024); ragged k
-# for the warp kernel (k=2 and 31, batches that fill no whole block of 4
-# or 2 conditions) and the first k past it (33, the tile kernel).  The
-# block layout runs the warp kernel at every k <= 32 in every mode.
+# matrices spill to global scratch under the tile kernel (the joint at
+# k=63 and 64, and k=256, where the tile kernel serves every mode); k=32
+# at pod_dp's widths (its per-rank batch 8192, and 1024); ragged k for the warp kernel
+# (k=2 and 31, batches that fill no whole block of 4 or 2 conditions; k=33,
+# 40 and 63, padded to kp = 64, where fwd and bwd run the warp kernel and
+# the joint the tile kernel); k=64 at imagecond's widths.
 SHAPES = [(256, 8, 2, 64), (512, 8, 2, 64), (3, 5, 3, 7), (9, 5, 3, 7),
           (40, 32, 2, 16), (2, 64, 2, 16), (1, 256, 4, 8),
           (1024, 32, 2, 64), (8192, 32, 2, 64), (7, 2, 3, 7),
-          (5, 31, 2, 16), (6, 33, 2, 16)]
-WARP_SHAPES = [s for s in SHAPES if s[1] <= 32]
+          (5, 31, 2, 16), (6, 33, 2, 16), (5, 40, 3, 7), (3, 63, 2, 16),
+          (512, 64, 2, 64)]
+# The largest k the warp kernel serves in each mode, in every layout (the
+# rows of every shape here fit in shared memory).
+WARP_K = {"joint": 32, "fwd": 64, "bwd": 64}
+WARP_SHAPES = [s for s in SHAPES if s[1] <= WARP_K["fwd"]]
+JOINT_WARP_SHAPES = [s for s in SHAPES if s[1] <= WARP_K["joint"]]
 ALPHA = 0.8
 G_CHECK = -2.5  # the cotangent the backward kernels are checked at
 
@@ -128,19 +133,28 @@ def test_bwd_matches_plain_version_at_a_cotangent(cuda, b, k, dz, dx,
     assert torch.equal(again[0], gz) and torch.equal(again[1], gx)
 
 
+def _tile(kernel, variant, z, x, g=None):
+    """The tile kernel at this shape, whatever the dispatch would run: the
+    reference the warp kernel is held against."""
+    return ndiv_cuda._launch(kernel, variant, z, x, ALPHA, g, impl="tile")
+
+
+def _serves_warp(kernel, k):
+    return k <= WARP_K[kernel]
+
+
 @pytest.mark.parametrize("b,k,dz,dx", SHAPES)
 def test_tilings_give_bitwise_equal_grads(cuda, b, k, dz, dx):
     """Every per-condition value is computed in one fixed order whatever
-    the tiling, so the grads agree bitwise; the loss's summation tree
-    differs, so the losses agree to rounding (rtol 1e-6).  At k <= 32 the
-    block calls run the warp kernel and the group ones the tile kernel:
-    the two kernels agree bitwise."""
+    the layout or kernel, so the grads agree bitwise; the loss's summation
+    tree may differ, so the losses agree to rounding (rtol 1e-6).  The
+    kernel is chosen by shape alone, in every layout: the warp kernel up
+    to WARP_K, the tile kernel past it."""
     z, x = _inputs(cuda, b, k, dz, dx)
     g = torch.tensor(0.75, device="cuda")
     for kernel in ("joint", "fwd", "bwd"):
-        assert ndiv_cuda.serving_kernel(kernel, k, dz, dx) == (
-            "warp" if k <= 32 else "tile")
-        assert ndiv_cuda.serving_kernel(kernel, k, dz, dx, "group") == "tile"
+        want = "warp" if _serves_warp(kernel, k) else "tile"
+        assert ndiv_cuda.serving_kernel(kernel, k, dz, dx) == want
     block = ndiv_cuda.ndiv_joint(z, x, 0.8, "block")
     group = ndiv_cuda.ndiv_joint(z, x, 0.8, "group")
     assert torch.equal(block[1], group[1]) and torch.equal(block[2], group[2])
@@ -154,35 +168,59 @@ def test_tilings_give_bitwise_equal_grads(cuda, b, k, dz, dx):
                                    rtol=1e-6, atol=0.0)
 
 
+@pytest.mark.parametrize("b,k,dz,dx", WARP_SHAPES)
+def test_layouts_are_bitwise_equal_under_the_warp_kernel(cuda, b, k, dz, dx):
+    """Where the warp kernel serves, the three layouts are one launch of
+    one kernel: totals and grads bitwise equal, not only to rounding."""
+    z, x = _inputs(cuda, b, k, dz, dx)
+    g = torch.tensor(G_CHECK, device="cuda")
+    fwd = [ndiv_cuda.ndiv_fwd(z, x, ALPHA, v) for v in VARIANTS]
+    bwd = [ndiv_cuda.ndiv_bwd(z, x, ALPHA, g, v) for v in VARIANTS]
+    for other_fwd, other_bwd in zip(fwd[1:], bwd[1:]):
+        assert torch.equal(fwd[0], other_fwd)
+        assert all(torch.equal(a, c) for a, c in zip(bwd[0], other_bwd))
+    if _serves_warp("joint", k):
+        block = ndiv_cuda.ndiv_joint(z, x, ALPHA, "block")
+        group = ndiv_cuda.ndiv_joint(z, x, ALPHA, "group")
+        assert all(torch.equal(a, c) for a, c in zip(block, group))
+
+
 @pytest.mark.parametrize("g_val", [1.0, G_CHECK])
 @pytest.mark.parametrize("b,k,dz,dx", WARP_SHAPES)
 def test_block_fwd_and_bwd_run_the_warp_kernel_as_the_tile_kernel(
         cuda, b, k, dz, dx, g_val):
-    """At k <= 32 the block fwd and bwd calls run the warp kernel: its bwd
-    grads are bitwise the tile kernel's (the group tiling) at the
-    cotangent, and its fwd total lies within rtol 1e-6 of the tile
-    kernel's (another summation tree) and repeats bitwise."""
+    """Where the warp kernel serves (fwd and bwd up to k=64, joint up to
+    32), its grads are bitwise the tile kernel's (reached on purpose,
+    _tile) at the cotangent, and its totals lie within rtol 1e-6 of the
+    tile kernel's (another summation tree) and repeat bitwise."""
     z, x = _inputs(cuda, b, k, dz, dx)
     g = torch.tensor(g_val, device="cuda")
     assert ndiv_cuda.serving_kernel("bwd", k, dz, dx) == "warp"
     assert ndiv_cuda.serving_kernel("fwd", k, dz, dx) == "warp"
     block = ndiv_cuda.ndiv_bwd(z, x, ALPHA, g)
-    group = ndiv_cuda.ndiv_bwd(z, x, ALPHA, g, "group")
-    assert torch.equal(block[0], group[0]) and torch.equal(block[1], group[1])
+    tile = _tile("bwd", "block", z, x, g)
+    assert torch.equal(block[0], tile[0]) and torch.equal(block[1], tile[1])
     total = ndiv_cuda.ndiv_fwd(z, x, ALPHA)
-    torch.testing.assert_close(total, ndiv_cuda.ndiv_fwd(z, x, ALPHA, "group"),
-                               rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(total, _tile("fwd", "block", z, x), rtol=1e-6,
+                               atol=0.0)
     assert torch.equal(ndiv_cuda.ndiv_fwd(z, x, ALPHA), total)
+    if _serves_warp("joint", k):
+        joint = ndiv_cuda.ndiv_joint(z, x, ALPHA)
+        tile = _tile("joint", "block", z, x)
+        assert torch.equal(joint[1], tile[1]) and torch.equal(joint[2],
+                                                              tile[2])
+        torch.testing.assert_close(joint[0], tile[0], rtol=1e-6, atol=0.0)
 
 
-@pytest.mark.parametrize("kernel", ["joint", "fwd", "bwd"])
-@pytest.mark.parametrize("b,k,dz,dx", WARP_SHAPES)
+@pytest.mark.parametrize("kernel,b,k,dz,dx", [
+    (kernel, *s) for kernel in ("joint", "fwd", "bwd") for s in SHAPES
+    if _serves_warp(kernel, s[1])])
 def test_warp_kernel_results_do_not_depend_on_its_grid(cuda, b, k, dz, dx,
                                                        kernel):
-    """One partial per chunk of conditions, summed in an order set by the
-    shape: the total and the grads are bitwise equal whether 1, 7 or the
-    resident count of blocks walks the conditions (a card with other SMs
-    gives other grids)."""
+    """One partial per condition, summed in an order set by the shape: the
+    total and the grads are bitwise equal whether 1, 7 or the resident
+    count of blocks walks the conditions (a card with other SMs gives
+    other grids)."""
     z, x = _inputs(cuda, b, k, dz, dx)
     g = torch.tensor(G_CHECK, device="cuda")
     resident = ndiv_cuda.load().ndiv_blocks(ndiv_cuda._MODES[kernel], b, k,
@@ -271,7 +309,8 @@ def _assert_grads_on_either_side(got, z64, x64, s_on):
 
 
 @pytest.mark.parametrize("variant", ["block", "group"])
-@pytest.mark.parametrize("b,k,dz,dx", [(1024, 32, 2, 64), (512, 8, 2, 64)])
+@pytest.mark.parametrize("b,k,dz,dx", [(1024, 32, 2, 64), (512, 8, 2, 64),
+                                       (512, 64, 2, 64)])
 def test_kernels_hold_at_the_hinge_kinks(cuda, b, k, dz, dx, variant):
     """Draws kept with their near-kink pairs, every 8th condition with a
     pair put on its kink: the totals of ndiv_fwd and ndiv_joint against the
@@ -293,25 +332,33 @@ def test_kernels_hold_at_the_hinge_kinks(cuda, b, k, dz, dx, variant):
                                  z64, x64, G_CHECK * one)
 
 
-@pytest.mark.parametrize("k,want", [(8, 1), (32, 1), (33, 2)])
-def test_block_joint_call_is_one_kernel_launch_up_to_k_32(cuda, k, want):
-    """The warp kernel sums the loss in its last block: one launch per
-    block joint or fwd call; the tile kernel adds its one-block sum of the
-    partials."""
+def _ndiv_launches(fn):
+    """NDiv kernels the profiler sees in one call of ``fn``, after one
+    call unprofiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    z, x = _inputs(cuda, 64, k, 2, 16)
-    for call in (ndiv_cuda.ndiv_joint, ndiv_cuda.ndiv_fwd):
-        call(z, x, 0.8)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call(z, x, 0.8)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and ("ndiv" in e.key or "sum_partials" in e.key)]
-        assert sum(e.count for e in kernels) == want, call.__name__
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and ("ndiv" in e.key or "sum_partials" in e.key))
+
+
+@pytest.mark.parametrize("k,joint,fwd", [(8, 1, 1), (32, 1, 1), (33, 2, 1),
+                                         (64, 2, 1), (65, 2, 2)])
+def test_block_joint_call_is_one_kernel_launch_up_to_k_32(cuda, k, joint,
+                                                          fwd):
+    """The warp kernel sums the loss in its last block: one launch per
+    joint call up to k=32 and per fwd call up to k=64; the tile kernel
+    adds its one-block sum of the partials."""
+    z, x = _inputs(cuda, 64, k, 2, 16)
+    for call, want in ((ndiv_cuda.ndiv_joint, joint),
+                       (ndiv_cuda.ndiv_fwd, fwd)):
+        assert _ndiv_launches(lambda: call(z, x, 0.8)) == want, call.__name__
 
 
 def test_padded_conditions_get_zero_hinge_and_grads(cuda):
@@ -341,25 +388,33 @@ def test_padded_conditions_get_zero_hinge_and_grads(cuda):
 
 # (variant, JOINT) -> the launches one differentiated loss makes, as
 # _vjp_fwd routes it: the joint kernel for block and group with JOINT on,
-# else one forward and one backward.
-ROUTES = [("block", True, {"joint": 1}),
-          ("block", False, {"fwd": 1, "bwd": 1}),
-          ("group", True, {"joint_group": 1}),
-          ("group", False, {"fwd_group": 1, "bwd_group": 1}),
-          ("packed", True, {"fwd_packed": 1, "bwd_packed": 1}),
-          ("packed", False, {"fwd_packed": 1, "bwd_packed": 1})]
+# else one forward and one backward; and the NDiv kernels the profiler
+# counts (the warp kernel serves every layout at k=8, one kernel a launch).
+ROUTES = [("block", True, {"joint": 1}, 1),
+          ("block", False, {"fwd": 1, "bwd": 1}, 2),
+          ("group", True, {"joint_group": 1}, 1),
+          ("group", False, {"fwd_group": 1, "bwd_group": 1}, 2),
+          ("packed", True, {"fwd_packed": 1, "bwd_packed": 1}, 2),
+          ("packed", False, {"fwd_packed": 1, "bwd_packed": 1}, 2)]
 
 
-@pytest.mark.parametrize("variant,joint,want", ROUTES)
+@pytest.mark.parametrize("variant,joint,want,kernels", ROUTES)
 def test_autograd_routes_launch_their_kernels(cuda, monkeypatch, variant,
-                                              joint, want):
+                                              joint, want, kernels):
     monkeypatch.setattr(ndiv_cuda, "JOINT", joint)
     z = _spread_latents(cuda, 16, 8, 2).requires_grad_()
     x = torch.randn((16, 8, 32), generator=cuda, device="cuda",
                     requires_grad=True)
+
+    def step():
+        z.grad = x.grad = None
+        loss = ndiv_cuda.ndiv_loss_fused(z, x, 0.8, variant=variant)
+        (3.0 * loss).backward()
+        return loss
+
+    assert _ndiv_launches(step) == kernels
     before = dict(ndiv_cuda.LAUNCHES)
-    loss = ndiv_cuda.ndiv_loss_fused(z, x, 0.8, variant=variant)
-    (3.0 * loss).backward()
+    loss = step()
     launched = {key: n - before[key] for key, n in ndiv_cuda.LAUNCHES.items()
                 if n != before[key]}
     assert launched == want
@@ -497,6 +552,26 @@ def test_pod_dp_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
                                        atol=0.0)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shards", [dict(dp_shards=2), dict(div_shards=2)])
+def test_sharded_config_without_a_mesh_runs_the_fused_kernel(cuda, shards):
+    """dp_shards x div_shards > 1 and no mesh: the goalcond step's NDiv
+    over the global batch is one launch of the fused joint kernel on the
+    card, not the plain reference, and the loss it feeds is finite."""
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.train.step import train_step_fused
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    cfg = get_config("goalcond", batch_size=64, k=8, **shards)
+    state = create_train_state(cfg, seed=0)
+    before = dict(ndiv_cuda.LAUNCHES)
+    _, m = train_step_fused(cfg, state)
+    torch.cuda.synchronize()
+    launched = {key: n - before[key] for key, n in ndiv_cuda.LAUNCHES.items()
+                if n != before[key]}
+    assert launched == {"joint": 1}
+    assert math.isfinite(float(m["g_ndiv"])) and float(m["g_ndiv"]) > 0.0
 
 
 # The serving path on the vendored planning512 model: every score on the

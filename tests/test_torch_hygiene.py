@@ -150,3 +150,30 @@ def test_ndiv_kernels_use_no_float_atomics():
         assert types, f"no declaration of {name}"
         for t in types:
             assert not _FLOAT_TYPES.search(t), f"{name} is declared {t}*"
+
+
+def test_the_tile_reference_is_reached_only_on_purpose():
+    """``_launch(..., impl="tile")`` runs the tile kernel where the warp
+    kernel would: only the card tests, chip_smoke.py and ndiv_kernel_ab.py
+    ask for it.  No module of the port names it outside its definition in
+    ops/ndiv_cuda.py, and no environment variable selects it there (the
+    module reads NDIV_VARIANT and NDIV_JOINT, nothing else)."""
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py") and f != "ndiv_cuda.py":
+                with open(os.path.join(dirpath, f), encoding="utf-8") as fh:
+                    src = fh.read()
+                assert "impl=\"tile\"" not in src, f
+                assert "_IMPLS" not in src, f
+    with open(os.path.join(PKG, "ops", "ndiv_cuda.py"),
+              encoding="utf-8") as f:
+        src = f.read()
+    assert set(re.findall(r"os\.environ\.get\(\"(\w+)\"", src)) == {
+        "NDIV_VARIANT", "NDIV_JOINT"}
+    assert "os.getenv" not in src and "os.environ[" not in src
+    from ndivplanning_tpu_torch.ops import ndiv_cuda
+
+    assert ndiv_cuda._IMPLS == {"auto": 0, "tile": 1}
+    z, x = torch.zeros((2, 8, 2)), torch.zeros((2, 8, 4))
+    with pytest.raises(ValueError, match="unknown impl"):
+        ndiv_cuda._launch("fwd", "block", z, x, 0.8, impl="warp")

@@ -211,8 +211,25 @@ def test_pairwise_zero_safe_gradient():
 VARIANTS = ("block", "group", "packed")
 
 
+# The layouts' kernel shapes: k=8, k padding (k=5), and past k=32, where the
+# card's fwd and bwd run the warp kernel at kp = 64 (k=64, and k=40 padded).
+KERNEL_SHAPES = [(3, 8, 2, 16), (2, 5, 3, 7), (2, 64, 2, 16), (3, 40, 3, 7)]
+
+
 @pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("b,k,dz,dx", [(3, 8, 2, 16), (2, 5, 3, 7)])
+@pytest.mark.parametrize("b,k,dz,dx", KERNEL_SHAPES)
+def test_fwd_plain_matches_jax_fwd_kernel(b, k, dz, dx, variant):
+    """The hinge sum against the JAX ``_fwd_sum`` of each layout in
+    interpret mode (the packed ``_fwd_kernel`` under "packed")."""
+    z, x = _case(500 + b + k, b, k, dz, dx)
+    want = ndiv_pallas._fwd_sum(jnp.asarray(z), jnp.asarray(x), 0.8, variant)
+    got = ndiv_cuda.ndiv_fwd(torch.from_numpy(z), torch.from_numpy(x), 0.8,
+                             variant)
+    np.testing.assert_allclose(float(got), float(want), **VAL)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("b,k,dz,dx", KERNEL_SHAPES)
 def test_bwd_plain_matches_jax_bwd_kernel(b, k, dz, dx, variant):
     """The recompute backward at a cotangent g != 1, against the JAX
     ``_bwd_grads`` of each layout in interpret mode."""

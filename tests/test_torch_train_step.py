@@ -215,14 +215,25 @@ def test_fused_step_samples_on_device_and_learns_on_cpu():
                for a, b in zip(before, state.g.parameters()))
 
 
+@pytest.mark.parametrize("shards", [dict(dp_shards=2), dict(div_shards=2)])
+def test_sharded_config_without_a_mesh_matches_jax(shards):
+    """dp_shards x div_shards > 1 and no mesh: the step runs over the
+    global batch, as JAX's does; on the CPU both take the NDiv reference
+    (on the card the port's fused kernel serves it: test_torch_cuda.py)."""
+    jm, m, jstate, state = _run_both(1, **SMALL, **shards)
+    assert set(m[0]) == set(jm[0])
+    _assert_metrics_close(m[0], jm[0], m[0].keys())
+    assert m[0]["g_ndiv"] > 0.0
+    _assert_state_close(jstate, state, 1)
+
+
 def test_unported_step_knobs_raise_with_their_name():
     state = create_train_state(get_config("goalcond", **SMALL), device="cpu")
     for knob, value in (("r1_weight", 1.0), ("lecam_weight", 0.1),
                         ("diffaug", "shift"), ("instance_noise_sigma", 0.1),
                         ("topk_g_fraction", 0.5), ("div_floor", 0.1),
                         ("feature_matching_weight", 1.0),
-                        ("d_reset_every", 10), ("remat", True),
-                        ("dp_shards", 2)):
+                        ("d_reset_every", 10), ("remat", True)):
         cfg = get_config("goalcond", **SMALL, **{knob: value})
         with pytest.raises(NotImplementedError, match=knob):
             train_step_fused(cfg, state)
