@@ -18,7 +18,12 @@ pod_dp preset
 for virtual ranks, trains 10 steps through the data-parallel step on a 1x1
 mesh of one NCCL rank, takes one float32 step under the NDIV_JOINT=0 route
 (ndiv_fwd + ndiv_bwd) against the default one, and runs two gloo ranks on
-the card against one.  Last comes the serving path on the vendored
+the card against one.  Then the train loop on the recorded planning512
+recipe at full width (300 steps in one run against 200 and a resume to
+300: bitwise equal, one ndiv_joint launch a step and one ndiv_fwd launch
+an eval leg), the CLI's train and eval in subprocesses, and the frozen
+suite on the vendored planning512 model on the card against the CPU.
+Last comes the serving path on the vendored
 planning512 model (checkpoints_torch/, torch alone): its restore on the
 card against the CPU's, 16 scenes at 1000 candidates on the card against
 the CPU, two `cli serve --warmup` processes over pipes through the port's
@@ -170,6 +175,27 @@ SERVE_REPEATS = 5  # timed round trips per bucket through the CLI server
 # At bucket 16 a dispatch may launch at most this many times the kernels
 # of a bucket-1 dispatch: the scenes are a batch axis, never a loop.
 SERVE_LAUNCH_RATIO = 1.25
+
+# The train loop on the recorded planning512 recipe at full width: steps
+# stay 150000, so the cosine LR is the recipe's.  Run A goes 0 -> 300 in
+# one call; run B goes 0 -> 200, then a fresh state resumes from its
+# workdir to 300.
+LOOP_EVERY = dict(log_every=50, eval_every=100, checkpoint_every=100,
+                  eval_suite_scenes=512)
+LOOP_STEPS = 300
+LOOP_RESUME_AT = 200
+# The CLI's train on goalcond at full width, then its eval on that run.
+CLI_TRAIN_STEPS = 100
+CLI_EVERY = 50
+# The frozen suite on the card against the CPU, from one checkpoint: each
+# rate within 2 of the suite's 512 x 8 samples, every other metric at
+# EVAL_RTOL (float32 G and rollouts; cuBLAS and the CPU sum in other
+# orders).
+EVAL_RATE_SAMPLES = 2
+EVAL_RTOL = 1e-5
+EVAL_RATES = ("eval_success_rate", "eval_collision_rate")
+# The warp kernel's template argument for each mode (csrc/ndiv.cu, Mode).
+WARP_MODES = {"0": "fwd", "1": "joint", "2": "bwd"}
 
 
 def emit(obj) -> None:
@@ -1068,6 +1094,304 @@ def profile_serve(torch, ndiv_cuda, cfg, state):
             **{f"bucket_{b}": o for b, o in out.items()}}
 
 
+def _rows(workdir):
+    with open(os.path.join(workdir, "metrics.jsonl"), encoding="utf-8") as f:
+        return [json.loads(line) for line in f]
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a TrainState by name: G, D, EMA G, both Adam
+    chains' moments and the ADA state."""
+    out = {}
+    for name, module in (("g", state.g), ("d", state.d),
+                         ("g_ema", state.g_ema)):
+        out.update({f"{name}.{k}": v for k, v in module.state_dict().items()})
+    for name, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+        out.update({f"{name}.mu.{k}": v for k, v in opt.mu.items()})
+        out.update({f"{name}.nu.{k}": v for k, v in opt.nu.items()})
+    out.update({f"ada.{k}": v for k, v in state.ada.items()})
+    return out
+
+
+def check_states_bitwise(torch, a, b, label) -> int:
+    """Raise unless two states agree bitwise: every tensor, the step, the
+    Adam counts and the generator's state.  Returns the values compared."""
+    if (a.step, a.g_opt.count, a.d_opt.count) != (b.step, b.g_opt.count,
+                                                  b.d_opt.count):
+        raise AssertionError(f"{label}: steps or Adam counts differ")
+    ta, tb = state_tensors(a), state_tensors(b)
+    if ta.keys() != tb.keys():
+        raise AssertionError(f"{label}: tensor names differ")
+    for name, t in ta.items():
+        if not torch.equal(t, tb[name]):
+            raise AssertionError(f"{label}: {name} differs")
+    if not torch.equal(a.rng.get_state(), b.rng.get_state()):
+        raise AssertionError(f"{label}: the generators' states differ")
+    return sum(t.numel() for t in ta.values())
+
+
+def warp_launches_by_mode(torch, fn) -> dict:
+    """Run ``fn`` under torch.profiler (the card's activity only) and count
+    the NDiv kernels it launched: the warp kernel by mode, and the tile
+    kernel and its sum."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"ndiv_warp_kernel<\s*(\d+)\s*,", e.key)
+        if m:
+            key = WARP_MODES[m.group(1)]
+        elif any(name in e.key for name in NDIV_KERNELS):
+            key = "tile"
+        else:
+            continue
+        counts[key] = counts.get(key, 0) + e.count
+    return out, counts
+
+
+def clean_window_ms(rows, cfg):
+    """Per-step wall ms of the log windows with no checkpoint or eval inside
+    (a window ends at a log row and starts at the previous one, whose
+    boundary saves and evaluates after its row)."""
+    out = []
+    train_rows = [r for r in rows if "kind" not in r]
+    for prev, row in zip(train_rows, train_rows[1:]):
+        busy = any(every and prev["step"] % every == 0
+                   for every in (cfg.checkpoint_every, cfg.eval_every))
+        if not busy:
+            out.append(1e3 / row["steps_per_sec"])
+    return out
+
+
+def train_loop_phase(torch, ndiv_cuda):
+    """The port's train loop on the planning512 recipe at full width, runs
+    A (0 -> 300) and B (0 -> 200, resumed to 300): final states bitwise
+    equal, B's rows from step 200 on equal to A's but for their clocks, a
+    best checkpoint with a finite value, one ndiv_joint launch a step and
+    one ndiv_fwd launch an eval leg (counts and profiler).  Then one eval
+    point (both legs) timed and profiled, and the CLI's train and eval in
+    subprocesses.  Returns (phase, launches by run)."""
+    from ndivplanning_tpu_torch.train import loop
+    from ndivplanning_tpu_torch.train.evaluate import evaluate_fixed
+    from ndivplanning_tpu_torch.utils import checkpoint as ckpt
+    from ndivplanning_tpu_torch.utils.config import load_config
+    from ndivplanning_tpu_torch.utils.metrics import host_floats
+
+    cfg = load_config(PLANNING512).replace(**LOOP_EVERY)
+    if (cfg.steps, cfg.lr_schedule, cfg.batch_size, cfg.k) != (
+            150000, "cosine", 512, 8):
+        raise AssertionError(f"planning512 recipe changed: {cfg}")
+    legs = 2 if cfg.g_ema_decay > 0 else 1
+    points = {n: n // cfg.eval_every + (n % cfg.eval_every > 0)
+              for n in (LOOP_STEPS, LOOP_RESUME_AT)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    run_a, run_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    launches = {}
+
+    def run(key, workdir, steps, want):
+        reset(ndiv_cuda)
+        t0 = time.perf_counter()
+        state, history = loop.train(cfg, num_steps=steps, workdir=workdir,
+                                    echo=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches[key] = launched(ndiv_cuda)
+        if launches[key] != want:
+            raise AssertionError(f"train loop {key}: launches "
+                                 f"{launches[key]}, want {want}")
+        return state, history, wall_s
+
+    state_a, history_a, wall_a = run(
+        "run_a", run_a, LOOP_STEPS,
+        {"joint": LOOP_STEPS, "fwd": legs * points[LOOP_STEPS]})
+    run("run_b_first", run_b, LOOP_RESUME_AT,
+        {"joint": LOOP_RESUME_AT, "fwd": legs * points[LOOP_RESUME_AT]})
+    resumed = LOOP_STEPS - LOOP_RESUME_AT
+    resumed_points = points[LOOP_STEPS] - points[LOOP_RESUME_AT]
+    (state_b, history_b, wall_b), prof_counts = warp_launches_by_mode(
+        torch, lambda: run("run_b_resumed", run_b, LOOP_STEPS,
+                           {"joint": resumed, "fwd": legs * resumed_points}))
+    want_prof = {"joint": resumed, "fwd": legs * resumed_points}
+    if prof_counts != want_prof:
+        raise AssertionError(f"the profiler counted {prof_counts} NDiv "
+                             f"kernels in the resumed run, want {want_prof}")
+    values = check_states_bitwise(torch, state_a, state_b, "runs A and B")
+    check_states_bitwise(torch, ckpt.restore_latest(
+        run_a, loop.create_train_state(cfg)), state_b, "A's last checkpoint")
+    clocks = ("wall_s", "steps_per_sec")
+    rows_a, rows_b = _rows(run_a), _rows(run_b)
+
+    def tail(rows):
+        return [{k: v for k, v in r.items() if k not in clocks}
+                for r in rows if r["step"] >= LOOP_RESUME_AT]
+
+    if tail(rows_a) != tail(rows_b):
+        raise AssertionError("run B's metric rows from the resume on differ "
+                             "from run A's")
+    for r in rows_a:
+        bad = [k for k, v in r.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite {bad} at step {r['step']}")
+    best = {}
+    for name, workdir in (("a", run_a), ("b", run_b)):
+        with open(os.path.join(workdir, "best", "best_path.json"),
+                  encoding="utf-8") as f:
+            best[name] = json.load(f)
+        if (best[name].get("eval_path") not in ("ema", "raw")
+                or not math.isfinite(best[name]["value"])):
+            raise AssertionError(f"run {name} best: {best[name]}")
+    if best["a"] != best["b"]:
+        raise AssertionError(f"best markers differ: {best}")
+
+    # One eval point: both legs on run A's final state.
+    def eval_point():
+        return [host_floats(evaluate_fixed(cfg, state_a, cfg.eval_suite_scenes,
+                                           use_ema=use_ema))
+                for use_ema in (True, False)[:legs]]
+
+    eval_point()  # the frozen suite is cached by the loop already
+    reset(ndiv_cuda)
+    eval_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eval_point()
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    eval_launches = launched(ndiv_cuda)
+    if eval_launches != {"fwd": 3 * legs}:
+        raise AssertionError(f"3 eval points launched {eval_launches}")
+    eval_prof = profile(torch, eval_point, 3)
+    if eval_prof["ndiv_launches_per_call"] != legs:
+        raise AssertionError(f"an eval point made "
+                             f"{eval_prof['ndiv_launches_per_call']} NDiv "
+                             f"launches, want {legs}")
+    step_state = clone_state(torch, state_a)
+    step_prof = profile(torch, lambda: loop.train_step_fused(cfg, step_state),
+                        5)
+    shutil.rmtree(tmp)
+    return {
+        "phase": "train_loop", "workdir_config": PLANNING512,
+        "steps": LOOP_STEPS, "resumed_at": LOOP_RESUME_AT,
+        "batch_size": cfg.batch_size, "k": cfg.k,
+        "g_hidden": list(cfg.g_hidden), "d_hidden": list(cfg.d_hidden),
+        "lr_schedule": cfg.lr_schedule, "recipe_steps": cfg.steps,
+        **LOOP_EVERY, "eval_legs": legs,
+        "launches": launches, "profiler_resumed_run": prof_counts,
+        "bitwise_equal_values": values, "rows_equal_from_resume": True,
+        "best": best["a"],
+        "step_ms_median": statistics.median(clean_window_ms(rows_a, cfg)),
+        "step_ms_windows": clean_window_ms(rows_a, cfg),
+        "run_a_s": wall_a, "run_b_resumed_s_profiled": wall_b,
+        "eval_point_ms_median": statistics.median(eval_ms),
+        "eval_point_ms": eval_ms,
+        "eval_point_profile": {k: v for k, v in eval_prof.items()
+                               if k != "top_kernels"},
+        "eval_point_top_kernels": eval_prof["top_kernels"],
+        "step_profile": {k: v for k, v in step_prof.items()
+                         if k != "top_kernels"},
+        "eval_rows": [r for r in rows_a if r.get("kind") == "eval"],
+        "last_train_row": [r for r in rows_a if "kind" not in r][-1]}, (
+            launches)
+
+
+def cli_train_eval(torch):
+    """``cli train`` (goalcond, full width, 100 steps) and ``cli eval`` on
+    its run, each in a subprocess on the card: final_step 100 and finite
+    eval_* values."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    every = [f"--set={k}={CLI_EVERY}"
+             for k in ("log_every", "eval_every", "checkpoint_every")]
+    cmd = [sys.executable, "-m", "ndivplanning_tpu_torch.cli"]
+    t0 = time.perf_counter()
+    trained = subprocess.run(
+        [*cmd, "train", "--preset", "goalcond", "--steps",
+         str(CLI_TRAIN_STEPS), "--workdir", tmp, *every],
+        capture_output=True, text=True, timeout=600, check=True)
+    train_s = time.perf_counter() - t0
+    final = json.loads(trained.stdout.strip().splitlines()[-1])
+    if final["final_step"] != CLI_TRAIN_STEPS:
+        raise AssertionError(f"cli train: {final}")
+    t0 = time.perf_counter()
+    evaluated = subprocess.run([*cmd, "eval", "--workdir", tmp],
+                               capture_output=True, text=True, timeout=600,
+                               check=True)
+    eval_s = time.perf_counter() - t0
+    ev = json.loads(evaluated.stdout.strip().splitlines()[-1])
+    if not ev or not all(k.startswith("eval_") and math.isfinite(v)
+                         for k, v in ev.items()):
+        raise AssertionError(f"cli eval: {ev}")
+    shutil.rmtree(tmp)
+    return {"phase": "cli_train_eval", "preset": "goalcond",
+            "steps": CLI_TRAIN_STEPS, "every": CLI_EVERY,
+            "final": final, "eval": ev, "train_process_s": train_s,
+            "eval_process_s": eval_s}
+
+
+def eval_planning512_phase(torch, ndiv_cuda, cfg, state, cpu_state):
+    """evaluate_fixed on the restored planning512 on the card and on the
+    CPU over the same frozen suite and latents: rates within
+    EVAL_RATE_SAMPLES samples, every other metric at EVAL_RTOL; the card's
+    NDiv through ndiv_fwd once.  Then the one-shot planner ladder on the
+    card.  Returns (phase, launches)."""
+    from ndivplanning_tpu_torch.train.evaluate import (
+        evaluate_fixed,
+        evaluate_fixed_planner,
+    )
+    from ndivplanning_tpu_torch.utils.metrics import host_floats
+
+    n = cfg.eval_suite_scenes * cfg.k
+    evaluate_fixed(cfg, state)  # draws and caches the suite on the card
+    reset(ndiv_cuda)
+    t0 = time.perf_counter()
+    card = host_floats(evaluate_fixed(cfg, state))
+    card_ms = (time.perf_counter() - t0) * 1e3
+    launches = launched(ndiv_cuda)
+    if launches != {"fwd": 1}:
+        raise AssertionError(f"the card's eval launched {launches}")
+    t0 = time.perf_counter()
+    cpu = host_floats(evaluate_fixed(cfg, cpu_state))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if card.keys() != cpu.keys():
+        raise AssertionError(f"eval keys differ: {card.keys()} {cpu.keys()}")
+    rel = {}
+    for key, want in cpu.items():
+        got = card[key]
+        if key in EVAL_RATES:
+            if abs(got - want) > EVAL_RATE_SAMPLES / n + 1e-9:
+                raise AssertionError(f"{key}: card {got} vs cpu {want}")
+        elif abs(got - want) > EVAL_RTOL * abs(want):
+            raise AssertionError(f"{key}: card {got} vs cpu {want}")
+        rel[key] = abs(got - want) / max(abs(want), 1e-30)
+    t0 = time.perf_counter()
+    planner = evaluate_fixed_planner(cfg, state, "oneshot")
+    torch.cuda.synchronize()
+    planner_s = time.perf_counter() - t0
+    with open(os.path.join(PLANNING512, "best", "best_path.json"),
+              encoding="utf-8") as f:
+        recorded = json.load(f)
+    return {"phase": "eval_planning512", "n_scenes": cfg.eval_suite_scenes,
+            "samples": n, "card_metrics": card, "cpu_metrics": cpu,
+            "rel_err": rel,
+            "launches": launches, "card_eval_ms": card_ms,
+            "cpu_eval_ms": cpu_ms, "planner_oneshot": planner,
+            "planner_oneshot_s": planner_s,
+            "card_success_rate": card["eval_success_rate"],
+            "jax_recorded_success_rate": recorded["value"],
+            "jax_recorded_note": "measured by the JAX package on its own "
+                                 "frozen suite; for reference, not held"}, (
+                launches)
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -1597,6 +1921,20 @@ def main() -> int:
                           for kern in ("fwd", "bwd", "joint")},
               "card": smi})
 
+    # 8f. The train loop and its eval on the planning512 recipe at full
+    # width, the CLI's train and eval, and the frozen suite on the restored
+    # planning512 model on the card against the CPU.
+    phase, loop_launches = train_loop_phase(torch, ndiv_cuda)
+    emit({**phase, "card": smi})
+    for run, launches in loop_launches.items():
+        path_launches[f"train_loop_{run}"] = launches
+    emit({**cli_train_eval(torch), "card": smi})
+    p512_cfg, p512_state, p512_cpu_state, p512_phase = checkpoint_planning512(
+        torch)
+    phase, path_launches["eval_planning512"] = eval_planning512_phase(
+        torch, ndiv_cuda, p512_cfg, p512_state, p512_cpu_state)
+    emit({**phase, "card": smi})
+
     # 9. Kernel times on the first imagecond step's inputs, every route,
     # beside the tile kernel's (one tiling, the same in every layout).
     totals = {}
@@ -1696,13 +2034,13 @@ def main() -> int:
           "joint kernel under 'packed' (_vjp_fwd sends packed to fwd + "
           "bwd), so neither has the port"})
     # 10. The serving path on planning512: no NDiv kernel runs on it.
-    pcfg, pstate, cpu_pstate, phase = checkpoint_planning512(torch)
-    emit({**phase, "card": smi})
+    emit({**p512_phase, "card": smi})
     reset(ndiv_cuda)
-    emit({**serve_vs_cpu(torch, ndiv_cuda, pcfg, pstate, cpu_pstate),
-          "card": smi})
+    emit({**serve_vs_cpu(torch, ndiv_cuda, p512_cfg, p512_state,
+                         p512_cpu_state), "card": smi})
     emit({**serve_planning512(torch), "card": smi})
-    emit({**profile_serve(torch, ndiv_cuda, pcfg, pstate), "card": smi})
+    emit({**profile_serve(torch, ndiv_cuda, p512_cfg, p512_state),
+          "card": smi})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

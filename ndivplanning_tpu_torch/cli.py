@@ -1,12 +1,15 @@
 """Command line of the torch port; counterpart of ``ndivplanning_tpu/cli.py``.
 
+    python -m ndivplanning_tpu_torch.cli train --preset goalcond --workdir runs/goalcond
+    python -m ndivplanning_tpu_torch.cli eval  --workdir runs/goalcond
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/planning512
     python -m ndivplanning_tpu_torch.cli serve --workdir checkpoints_torch/planning512 --warmup
 
-Both run on the CUDA card unless ``--device cpu`` is given.  A ``--workdir``
-holding a recorded ``config.json`` is the base config, and its ``best/``
-checkpoint is preferred.  The JAX CLI's other subcommands and options
-exit with a message naming them: they are not ported yet.
+Every command runs on the CUDA card unless ``--device cpu`` is given.  A
+``--workdir`` holding a recorded ``config.json`` is the base config; eval,
+plan and serve prefer its ``best/`` checkpoint.  The JAX CLI's other
+subcommands and options exit with a message naming them: they are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -22,13 +25,14 @@ import torch
 
 from ndivplanning_tpu_torch.utils.device import resolve_device
 
-NOT_PORTED_COMMANDS = ("train", "eval", "viz", "record-data", "distill",
-                       "export", "doctor", "curves")
+NOT_PORTED_COMMANDS = ("viz", "record-data", "distill", "export", "doctor",
+                       "curves")
 
 
 def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to the torch CLI yet "
-                      "(ported: plan and serve, unsharded and unrefined)")
+    return SystemExit(f"{what} is not ported to the torch CLI yet (ported: "
+                      "train and eval on the on-device sampler, one-shot "
+                      "planning; plan and serve, unsharded and unrefined)")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -136,36 +140,67 @@ def _load_state(cfg, device, prefer_best: bool = True):
 
 def _check_ported(args) -> None:
     flags = {"--profile-dir": args.profile_dir is not None,
-             "--debug-nans": args.debug_nans,
-             "--refine": args.refine != "none"}
+             "--debug-nans": args.debug_nans}
+    if args.cmd in ("plan", "serve"):
+        flags["--refine"] = args.refine != "none"
     if args.cmd == "plan":
         flags.update({"--mpc": args.mpc, "--sharded": args.sharded})
-    else:
+    elif args.cmd == "serve":
         flags.update({"--tcp": args.tcp is not None,
                       "--cross-batch": args.cross_batch,
                       "--max-pending": bool(args.max_pending),
                       "--deadline-ms": bool(args.deadline_ms),
                       "--watch-best": args.watch_best,
                       "--warmup-mpc": args.warmup_mpc})
+    elif args.cmd == "train":
+        flags.update({"--dataset": args.dataset is not None,
+                      "--epochs": args.epochs is not None,
+                      "--eval-fraction": args.eval_fraction is not None})
+    else:
+        flags.update({"--dataset": args.dataset is not None,
+                      "--mpc": args.mpc,
+                      f"--planner {args.planner}":
+                          args.planner not in (None, "oneshot")})
     for flag, on in flags.items():
         if on:
             raise _not_ported(f"{args.cmd} {flag}")
 
 
 def _parser() -> argparse.ArgumentParser:
+    from ndivplanning_tpu_torch.train.evaluate import PLANNERS
+
     parser = argparse.ArgumentParser(prog="ndivplanning_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name in NOT_PORTED_COMMANDS:
         sub.add_parser(name, add_help=False, help="not ported yet")
-    for name in ("plan", "serve"):
-        p = sub.add_parser(name)
-        _add_common(p)
+    for name in ("train", "eval", "plan", "serve"):
+        _add_common(sub.add_parser(name))
+    train_p, eval_p, plan_p, serve_p = (
+        sub.choices[name] for name in ("train", "eval", "plan", "serve"))
+    train_p.add_argument("--dataset", default=None, help="not ported yet")
+    train_p.add_argument("--epochs", type=int, default=None,
+                         help="not ported yet")
+    train_p.add_argument("--eval-fraction", type=float, default=None,
+                         help="not ported yet")
+    eval_p.add_argument("--sampled", action="store_true",
+                        help="sample a fresh eval batch instead of the "
+                             "frozen suite")
+    eval_p.add_argument("--suite-size", type=int, default=512)
+    eval_p.add_argument("--planner", default=None, choices=PLANNERS,
+                        help="open-loop planner quality on the frozen "
+                             "suite: mean best score (lower is better) and "
+                             "reach rate; only 'oneshot' is ported")
+    eval_p.add_argument("--scene-chunk", type=int, default=None,
+                        help="scenes per dispatch for --planner "
+                             "(default 128)")
+    eval_p.add_argument("--dataset", default=None, help="not ported yet")
+    eval_p.add_argument("--mpc", action="store_true", help="not ported yet")
+    for p in (plan_p, serve_p):
         p.add_argument("--refine", default="none",
                        choices=("none", "cem", "grad", "trajopt", "ilqr",
                                 "cem+trajopt"),
                        help="latent or trajectory refinement: only 'none' "
                             "is ported")
-    plan_p, serve_p = sub.choices["plan"], sub.choices["serve"]
     plan_p.add_argument("--mpc", action="store_true", help="not ported yet")
     plan_p.add_argument("--sharded", action="store_true",
                         help="not ported yet")
@@ -200,6 +235,33 @@ def main(argv=None) -> int:
     _check_ported(args)
     cfg = _build_config(args)
     device = resolve_device(args.device)
+
+    if args.cmd == "train":
+        from ndivplanning_tpu_torch.train.loop import train
+
+        state, history = train(cfg, device=device)
+        print(json.dumps({"final_step": int(state.step),
+                          "last": history[-1] if history else None}))
+        return 0
+
+    if args.cmd == "eval":
+        from ndivplanning_tpu_torch.train import evaluate as ev
+        from ndivplanning_tpu_torch.utils.metrics import host_floats
+
+        state = _load_state(cfg, device)
+        if args.planner:
+            out = ev.evaluate_fixed_planner(
+                cfg, state, planner=args.planner, n_scenes=args.suite_size,
+                scene_chunk=args.scene_chunk)
+        elif args.sampled:
+            out = host_floats(ev.evaluate(
+                cfg, state, torch.Generator().manual_seed(cfg.seed + 2)))
+        else:
+            # Frozen protocol: numbers are comparable run to run.
+            out = host_floats(ev.evaluate_fixed(cfg, state,
+                                                 n_scenes=args.suite_size))
+        print(json.dumps(out))
+        return 0
 
     if args.cmd == "plan":
         from ndivplanning_tpu_torch.data.scenes import random_scene

@@ -37,6 +37,13 @@ class Batch:
     real_traj: torch.Tensor
     scenes: Scene
 
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Batch":
+        """The batch with ``fn`` applied to every tensor (a device move,
+        a slice of rows)."""
+        return Batch(conditions=fn(self.conditions),
+                     real_traj=fn(self.real_traj),
+                     scenes=self.scenes.map(fn))
+
 
 @dataclasses.dataclass(frozen=True)
 class Task:
@@ -140,6 +147,14 @@ def _sample_imagecond(gen: torch.Generator, batch: int, horizon: int,
     amp = side * _uniform(gen, (batch,), 0.1, 0.35)
     return imagecond_batch(scenes, amp, _normal(gen, (batch, horizon, 2)),
                            image_size)
+
+
+def task_fingerprint(cfg: Config) -> tuple:
+    """Every Config field :func:`make_task` and its samplers read: the
+    frozen eval suite's cache key (``train/evaluate.py``), the same fields
+    as the JAX package's."""
+    return (cfg.conditioning, cfg.horizon, cfg.image_size, cfg.env,
+            cfg.rollout_mode)
 
 
 def make_task(cfg: Config) -> Task:

@@ -63,6 +63,11 @@ class Scene:
         return cls(**{f.name: torch.stack([getattr(s, f.name) for s in scenes])
                       for f in dataclasses.fields(cls)})
 
+    def map(self, fn) -> "Scene":
+        """The scene with ``fn`` applied to every field."""
+        return Scene(**{f.name: fn(getattr(self, f.name))
+                        for f in dataclasses.fields(self)})
+
     @classmethod
     def create_batch(cls, start: torch.Tensor, goal: torch.Tensor) -> "Scene":
         """Obstacle-free scenes for ``start, goal [B, 2]``."""

@@ -179,3 +179,20 @@ def train_step_fused(cfg: Config, state: TrainState):
     """Sample a batch on the device from ``state.rng``, then one update."""
     batch = make_task(cfg).sample(state.rng, cfg.batch_size)
     return train_step_impl(cfg, state, batch)
+
+
+def train_chunk(cfg: Config, state: TrainState, n_steps: int):
+    """``n_steps`` steps of :func:`train_step_fused`; returns (state, the
+    metrics stacked ``[n_steps]`` as device tensors).
+
+    Nothing here reads a value on the host, so the host queues the chunk's
+    steps without waiting for the card; the caller reads the metrics once,
+    at a boundary.  The steps run one by one, so a chunk is bitwise the
+    same steps taken singly."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    rows = []
+    for _ in range(n_steps):
+        state, metrics = train_step_fused(cfg, state)
+        rows.append(metrics)
+    return state, {key: torch.stack([m[key] for m in rows]) for key in rows[0]}

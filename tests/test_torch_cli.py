@@ -17,7 +17,7 @@ from ndivplanning_tpu_torch.cli import main
 from ndivplanning_tpu_torch.planning.client import PlanningClient, ServerError
 from ndivplanning_tpu_torch.train.state import create_train_state
 from ndivplanning_tpu_torch.utils import checkpoint
-from ndivplanning_tpu_torch.utils.config import get_config
+from ndivplanning_tpu_torch.utils.config import get_config, load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLANNING512 = os.path.join(REPO, "checkpoints_torch", "planning512")
@@ -98,8 +98,8 @@ def test_cli_plan_on_planning512(capsys):
     assert out["best_reached"] in (0.0, 1.0) and out["best_score"] > 0
 
 
-@pytest.mark.parametrize("cmd", ["train", "eval", "viz", "record-data",
-                                 "distill", "export", "doctor", "curves"])
+@pytest.mark.parametrize("cmd", ["viz", "record-data", "distill", "export",
+                                 "doctor", "curves"])
 def test_unported_subcommands_exit_with_their_name(cmd):
     with pytest.raises(SystemExit, match=f"'{cmd}' subcommand is not ported"):
         main([cmd, "--preset", "goalcond"])
@@ -117,10 +117,78 @@ def test_unported_subcommands_exit_with_their_name(cmd):
     (["serve", "--deadline-ms", "50"], "--deadline-ms"),
     (["serve", "--watch-best"], "--watch-best"),
     (["serve", "--warmup-mpc"], "--warmup-mpc"),
+    (["train", "--dataset", "data.npz"], "--dataset"),
+    (["train", "--epochs", "2"], "--epochs"),
+    (["train", "--eval-fraction", "0.2"], "--eval-fraction"),
+    (["train", "--profile-dir", "prof"], "--profile-dir"),
+    (["eval", "--dataset", "data.npz"], "--dataset"),
+    (["eval", "--mpc"], "--mpc"),
+    (["eval", "--planner", "cem"], "--planner cem"),
+    (["eval", "--planner", "ilqr"], "--planner ilqr"),
+    (["eval", "--debug-nans"], "--debug-nans"),
 ])
 def test_unported_flags_exit_with_their_name(args, flag):
     with pytest.raises(SystemExit, match=f"{flag} is not ported"):
         main([*args, "--device", "cpu"])
+
+
+TRAIN_ARGS = ["--preset", "goalcond", "--batch-size", "8", "--k", "4",
+              "--set", "g_hidden=32", "--set", "d_hidden=32",
+              "--set", "cond_embed_dim=8", "--set", "log_every=5",
+              "--set", "eval_every=10", "--set", "checkpoint_every=10",
+              "--set", "eval_suite_scenes=16", "--set", "g_ema_decay=0.9",
+              "--device", "cpu"]
+
+
+def _cli_json(capsys, argv):
+    assert main(argv) == 0
+    return json.loads(capsys.readouterr().out)
+
+
+def test_cli_train_writes_its_run_and_resumes(tmp_path, capsys):
+    run = str(tmp_path / "run")
+    out = _cli_json(capsys, ["train", *TRAIN_ARGS, "--steps", "10",
+                             "--workdir", run])
+    assert out["final_step"] == 10 and out["last"]["step"] == 10
+    assert {"d_loss", "g_adv", "g_ndiv", "steps_per_sec"} <= set(out["last"])
+    assert checkpoint.all_steps(run) == [10]
+    assert checkpoint.latest_step(os.path.join(run, "best")) == 10
+    cfg = load_config(run)
+    assert (cfg.name, cfg.batch_size, cfg.k, cfg.g_hidden, cfg.steps) == (
+        "goalcond", 8, 4, (32,), 10)
+    with open(os.path.join(run, "metrics.jsonl"), encoding="utf-8") as f:
+        rows = [json.loads(line) for line in f]
+    assert [(r["step"], r.get("kind", "train")) for r in rows] == [
+        (5, "train"), (10, "train"), (10, "eval")]
+    # Resume from the run's own config and checkpoint to a larger --steps.
+    out = _cli_json(capsys, ["train", "--workdir", run, "--steps", "15",
+                             "--device", "cpu"])
+    assert out["final_step"] == 15
+    assert checkpoint.all_steps(run) == [10, 15]
+    assert load_config(run).steps == 15
+
+
+def test_cli_eval_prints_the_frozen_sampled_and_planner_metrics(tmp_path,
+                                                                 capsys):
+    run = str(tmp_path / "run")
+    _cli_json(capsys, ["train", *TRAIN_ARGS, "--steps", "5",
+                       "--workdir", run])
+    keys = {"eval_mean_pairwise_dist", "eval_ndiv", "eval_endpoint_err",
+            "eval_success_rate", "eval_collision_rate", "eval_mean_score"}
+    base = ["eval", "--workdir", run, "--device", "cpu"]
+    frozen = _cli_json(capsys, [*base, "--suite-size", "16"])
+    assert set(frozen) == keys
+    assert frozen == _cli_json(capsys, [*base, "--suite-size", "16"])
+    sampled = _cli_json(capsys, [*base, "--sampled"])
+    assert set(sampled) == keys and sampled != frozen
+    planner = _cli_json(capsys, [*base, "--planner", "oneshot",
+                                 "--suite-size", "6", "--scene-chunk", "4",
+                                 "--set", "n_candidates=16"])
+    assert set(planner) == {"eval_plan_best_score", "eval_plan_reach_rate",
+                            "eval_plan_n_scenes", "eval_planner"}
+    assert planner["eval_planner"] == "oneshot"
+    assert planner["eval_plan_n_scenes"] == 6.0
+    assert 0.0 <= planner["eval_plan_reach_rate"] <= 1.0
 
 
 def test_bad_preset_names_the_valid_presets(tmp_path):

@@ -652,3 +652,57 @@ def test_bucket_16_dispatch_launches_as_bucket_1(cuda):
         launches[bucket] = sum(e.count for e in prof.key_averages()
                                if e.device_type == DeviceType.CUDA)
     assert 0 < launches[16] <= 1.25 * launches[1], launches
+
+
+def test_train_loop_launches_one_joint_a_step_and_one_fwd_an_eval_leg(
+        cuda, tmp_path):
+    """The loop on the card: one ndiv_joint launch per step and one ndiv_fwd
+    launch per eval leg (EMA and raw), and a run resumed from its workdir
+    bitwise equal to an uninterrupted one."""
+    from ndivplanning_tpu_torch.train.loop import train
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    cfg = get_config("goalcond", batch_size=64, g_hidden=(64, 64),
+                     d_hidden=(64, 64), g_ema_decay=0.9, lr_schedule="cosine",
+                     steps=6, log_every=3, eval_every=3, checkpoint_every=3,
+                     eval_suite_scenes=64)
+    for key in ndiv_cuda.LAUNCHES:
+        ndiv_cuda.LAUNCHES[key] = 0
+    state_a, _ = train(cfg, workdir=str(tmp_path / "a"), echo=False)
+    assert {k: n for k, n in ndiv_cuda.LAUNCHES.items() if n} == {
+        "joint": 6, "fwd": 2 * 2}
+    train(cfg, num_steps=3, workdir=str(tmp_path / "b"), echo=False)
+    state_b, _ = train(cfg, workdir=str(tmp_path / "b"), echo=False)
+    assert state_a.step == state_b.step == 6
+    for name in ("g", "d", "g_ema"):
+        for (key, p), q in zip(getattr(state_a, name).state_dict().items(),
+                               getattr(state_b, name).state_dict().values()):
+            assert torch.equal(p, q), (name, key)
+    for opt in ("g_opt", "d_opt"):
+        for key, mu in getattr(state_a, opt).mu.items():
+            assert torch.equal(mu, getattr(state_b, opt).mu[key]), key
+            assert torch.equal(getattr(state_a, opt).nu[key],
+                               getattr(state_b, opt).nu[key]), key
+    assert torch.equal(state_a.rng.get_state(), state_b.rng.get_state())
+
+
+def test_card_eval_matches_the_cpu_on_planning512(cuda):
+    """The frozen suite (drawn on the CPU) through planning512 on the card
+    and on the CPU: each rate within 2 of the 4096 samples, every other
+    metric at rtol 1e-5, and the card's NDiv through one ndiv_fwd launch."""
+    from ndivplanning_tpu_torch.train.evaluate import evaluate_fixed
+    from ndivplanning_tpu_torch.utils.metrics import host_floats
+
+    cfg, state = _planning512("cuda")
+    _, cpu_state = _planning512("cpu")
+    for key in ndiv_cuda.LAUNCHES:
+        ndiv_cuda.LAUNCHES[key] = 0
+    card = host_floats(evaluate_fixed(cfg, state, 512))
+    assert {k: n for k, n in ndiv_cuda.LAUNCHES.items() if n} == {"fwd": 1}
+    cpu = host_floats(evaluate_fixed(cfg, cpu_state, 512))
+    assert card.keys() == cpu.keys()
+    for key, want in cpu.items():
+        if key in ("eval_success_rate", "eval_collision_rate"):
+            assert abs(card[key] - want) <= 2 / (512 * cfg.k) + 1e-9, key
+        else:
+            assert abs(card[key] - want) <= 1e-5 * abs(want), key

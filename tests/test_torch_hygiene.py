@@ -58,7 +58,10 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
             "ndivplanning_tpu_torch.__main__",
             "ndivplanning_tpu_torch.planning.server",
             "ndivplanning_tpu_torch.planning.client",
-            "ndivplanning_tpu_torch.utils.checkpoint"} <= set(mods)
+            "ndivplanning_tpu_torch.utils.checkpoint",
+            "ndivplanning_tpu_torch.utils.metrics",
+            "ndivplanning_tpu_torch.train.evaluate",
+            "ndivplanning_tpu_torch.train.loop"} <= set(mods)
     assert len(mods) >= 20
     new = _new_modules(mods)
     assert "torch" in new or "torch" in sys.modules
