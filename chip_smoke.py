@@ -27,7 +27,14 @@ Last comes the serving path on the vendored
 planning512 model (checkpoints_torch/, torch alone): its restore on the
 card against the CPU's, 16 scenes at 1000 candidates on the card against
 the CPU, two `cli serve --warmup` processes over pipes through the port's
-client, and a profile of a dispatch at buckets 1 and 16.
+client, and a profile of a dispatch at buckets 1 and 16.  The env
+families close it: the vendored unicycle150k, reacher150k and
+quadrotor150k models (checkpoints_torch/) restored, planned and evaluated
+on the card against the CPU, arm3 planned at random weights, every
+family's distilled actions replayed bitwise, the unicycle150k recipe
+trained 100 steps and arm3 in action mode 20 through the train loop, and
+`cli serve` on reacher150k and `cli eval` on quadrotor150k in
+subprocesses.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is the device summary.
 
@@ -70,11 +77,13 @@ TILE_JOINT_LAUNCHES_PER_STEP = {"goalcond": 263, "imagecond": 529,
 # k=32 with more conditions than blocks resident at once (132 SMs x 6), so
 # a block walks over a ragged number of them, and k=40 padded to kp = 64;
 # then imagecond's widths at k=64, and 8192 conditions of them (pod_dp's
-# per-rank batch).
+# per-rank batch); last the env families' loops: the 128-scene frozen
+# suite's eval legs, and arm3's action-mode step and eval (dx = 32 x 3).
 CHECK_SHAPES = [(256, 8, 2, 64), (512, 8, 2, 64), (256, 32, 2, 64),
                 (1024, 32, 2, 64), (3, 5, 3, 7), (1, 256, 4, 8),
                 (7, 2, 2, 64), (5, 31, 3, 7), (1001, 32, 2, 64),
-                (5, 40, 3, 7), (512, 64, 2, 64), (8192, 64, 2, 64)]
+                (5, 40, 3, 7), (512, 64, 2, 64), (8192, 64, 2, 64),
+                (128, 8, 2, 64), (256, 8, 2, 96), (128, 8, 2, 96)]
 GOALCOND_SHAPE = (256, 8, 2, 64)  # B=256, k=8, dz=2, dx=H*S=64
 IMAGECOND_SHAPE = (512, 8, 2, 64)
 K64_SHAPES = [(512, 64, 2, 64), (8192, 64, 2, 64)]  # imagecond's widths
@@ -196,6 +205,37 @@ EVAL_RTOL = 1e-5
 EVAL_RATES = ("eval_success_rate", "eval_collision_rate")
 # The warp kernel's template argument for each mode (csrc/ndiv.cu, Mode).
 WARP_MODES = {"0": "fwd", "1": "joint", "2": "bwd"}
+
+# The env families: the vendored family models, converted once by
+# convert_jax_checkpoint.py, each with its family and best step.
+FAMILY_MODELS = {"unicycle150k": ("unicycle", 120000),
+                 "reacher150k": ("reacher", 105000),
+                 "quadrotor150k": ("quadrotor", 30000)}
+FAMILY_SCENES = 16
+# The card against the CPU on one set of latents.  The card's G sums its
+# GEMMs in another order, its rollouts round sin, cos, atan2 and acos an
+# ulp apart, and a latch (done, collided) or the quadrotor's attitude loop
+# (x100 a step until its rotors clip) turns such a move into another
+# outcome for some candidates.  So every count of disagreements may be at
+# most twice the CPU's own count under those two moves (its rollout of
+# the card's G's candidates, and of its own with every waypoint one ulp
+# up), plus this slack: 16 of the 16,000 candidates' scores off
+# SERVE_RTOL/ATOL, 1 scene's best score, 2 scenes' picks (near-ties), 1
+# scene's reached flag; for the frozen suite's rates, 2 samples, and for
+# its mean score, EVAL_RTOL.
+FAMILY_SLACK = {"candidates_off": 16, "best_score_off": 1,
+                "picks_differ": 2, "reached_differ": 1}
+FAMILY_RATE_SAMPLES = 2
+# The loops: the unicycle150k recipe at full width, 100 steps, one eval
+# point; arm3 in action mode at the same widths, 20 steps, one eval point.
+FAMILY_LOOP_STEPS = 100
+FAMILY_LOOP_EVERY = dict(log_every=25, eval_every=100, checkpoint_every=100)
+ARM3_LOOP_STEPS = 20
+ARM3_LOOP_EVERY = dict(log_every=10, eval_every=20, checkpoint_every=20)
+ARM3_ACTIONS = dict(env="arm3", rollout_mode="actions", state_dim=3,
+                    generator_output="linear")
+SERVE_FAMILY = os.path.join("checkpoints_torch", "reacher150k")
+CLI_EVAL_FAMILY = os.path.join("checkpoints_torch", "quadrotor150k")
 
 
 def emit(obj) -> None:
@@ -883,22 +923,22 @@ def serve_requests(torch, n, seed):
             for i in range(n)]
 
 
-def checkpoint_planning512(torch, device="cuda"):
-    """planning512 restored by the CLI's loader on the card (``device``)
-    and on the CPU: step 55000 and every tensor bitwise equal."""
+def checkpoint_restore(torch, workdir, want_step, device="cuda"):
+    """A committed torch checkpoint restored by the CLI's loader on the card
+    (``device``) and on the CPU: its step and every tensor bitwise equal."""
     from ndivplanning_tpu_torch.cli import _load_state
     from ndivplanning_tpu_torch.utils import checkpoint
     from ndivplanning_tpu_torch.utils.config import load_config
 
-    cfg = load_config(PLANNING512).replace(workdir=PLANNING512)
+    cfg = load_config(workdir).replace(workdir=workdir)
     t0 = time.perf_counter()
     state = _load_state(cfg, device)
     next(state.g_ema.parameters()).sum().item()  # the copies are done
     load_s = time.perf_counter() - t0
     cpu_state = _load_state(cfg, "cpu")
-    if state.step != PLANNING512_STEP or cpu_state.step != PLANNING512_STEP:
-        raise AssertionError(f"planning512 restored at step {state.step} / "
-                             f"{cpu_state.step}, want {PLANNING512_STEP}")
+    if state.step != want_step or cpu_state.step != want_step:
+        raise AssertionError(f"{workdir} restored at step {state.step} / "
+                             f"{cpu_state.step}, want {want_step}")
     card, cpu = checkpoint.state_dict(state), checkpoint.state_dict(cpu_state)
     del card["rng"], cpu["rng"]
     tensors, values = [], 0
@@ -922,7 +962,8 @@ def checkpoint_planning512(torch, device="cuda"):
     if not all(p.device.type == device for p in state.g_ema.parameters()):
         raise AssertionError(f"the restore is not on {device}")
     return cfg, state, cpu_state, {
-        "phase": "checkpoint_planning512", "workdir": PLANNING512,
+        "phase": f"checkpoint_{os.path.basename(workdir)}",
+        "workdir": workdir,
         "step": state.step, "tensors": len(tensors), "values": values,
         "bitwise_equal_cpu": True, "load_s_card": load_s,
         "g_lr_at_step": state.g_opt.lr(state.g_opt.count)}
@@ -1390,6 +1431,390 @@ def eval_planning512_phase(torch, ndiv_cuda, cfg, state, cpu_state):
             "jax_recorded_note": "measured by the JAX package on its own "
                                  "frozen suite; for reference, not held"}, (
                 launches)
+
+
+def ulp_up(torch, t):
+    """``t`` with every element one float32 ulp up."""
+    return torch.nextafter(t, torch.full_like(t, math.inf))
+
+
+def plan_tally(scores, best_reached, ref) -> dict:
+    """How far candidate ``scores [B, N]``, and the reached flags of each
+    scene's pick ``best_reached [B]``, lie from the CPU's plan ``ref``:
+    candidates whose score is off SERVE_RTOL/ATOL, scenes whose best score
+    is off, whose pick or its reached flag differs."""
+    off = ((scores - ref.scores).abs()
+           > SERVE_RTOL * ref.scores.abs() + SERVE_ATOL)
+    best, pick = scores.min(dim=1)
+    best_off = ((best - ref.best_score).abs()
+                > SERVE_RTOL * ref.best_score.abs() + SERVE_ATOL)
+    return {"candidates_off": int(off.sum()),
+            "best_score_off": int(best_off.sum()),
+            "picks_differ": int((pick != ref.scores.argmin(dim=1)).sum()),
+            "reached_differ": int((best_reached != ref.best_reached).sum())}
+
+
+def cpu_spread(cfg, scenes, taus, card_taus):
+    """The CPU's rollouts of its own candidates ``taus`` moved as the card
+    moves them: the card's G's candidates ``card_taus`` (another GEMM
+    order), and every waypoint (or action) one ulp up (a rounding of the
+    dynamics every step).  Returns (its rollout of ``taus``, the two
+    moved ones)."""
+    import torch
+
+    from ndivplanning_tpu_torch.envs.registry import get_env
+    from ndivplanning_tpu_torch.envs.rollout import score_candidates
+
+    params = get_env(cfg.env).make_params()
+    return [score_candidates(params, scenes, t, cfg.rollout_mode,
+                             env=cfg.env)
+            for t in (taus, card_taus, ulp_up(torch, taus))]
+
+
+def family_plan_vs_cpu(torch, cfg, state, cpu_state, seed):
+    """plan_batch on FAMILY_SCENES random scenes at the config's candidates
+    on the card and on the CPU from one set of latents: G's candidates at
+    rtol/atol 1e-5, and each count of disagreements within twice the sum
+    of the CPU's own counts under the card's two kinds of move
+    (``cpu_spread``), plus FAMILY_SLACK."""
+    from ndivplanning_tpu_torch.envs.types import Scene
+    from ndivplanning_tpu_torch.planning import server as srv
+    from ndivplanning_tpu_torch.planning.planner import plan_batch
+
+    requests = serve_requests(torch, FAMILY_SCENES, seed)
+    scenes = Scene.stack([Scene.create(r["start"], r["goal"], r["obstacles"],
+                                       device="cpu") for r in requests])
+    conditions = srv._condition_for(cfg, scenes)
+    z = torch.randn((FAMILY_SCENES, cfg.n_candidates, cfg.latent_dim),
+                    generator=torch.Generator().manual_seed(seed))
+    card = plan_batch(cfg, state, srv._to_device(scenes, "cuda"),
+                      conditions.cuda(), z=z.cuda())
+    cpu = plan_batch(cfg, cpu_state, scenes, conditions, z=z)
+    taus_err = assert_close(torch, card.taus.cpu(), cpu.taus,
+                            f"{cfg.env} plan candidates", 1e-5, 1e-5)
+    _, by_g, by_ulp = cpu_spread(cfg, scenes, cpu.taus, card.taus.cpu())
+    got = plan_tally(card.scores.cpu(), card.best_reached.cpu(), cpu)
+    own = {name: plan_tally(r.score, r.reached.gather(
+        1, r.score.argmin(dim=1, keepdim=True))[:, 0], cpu)
+           for name, r in (("card_g_candidates", by_g),
+                           ("waypoints_ulp_up", by_ulp))}
+    for key, n in got.items():
+        allowed = 2 * sum(o[key] for o in own.values()) + FAMILY_SLACK[key]
+        if n > allowed:
+            raise AssertionError(f"{cfg.env} plan, card vs CPU: {key} {n}, "
+                                 f"allowed {allowed} (the CPU's own {own})")
+    if not (torch.isfinite(card.scores).all()
+            and tuple(card.taus.shape[1:]) == (cfg.n_candidates, cfg.horizon,
+                                               cfg.state_dim)):
+        raise AssertionError(f"{cfg.env} plan: shapes or non-finite scores")
+    return {"scenes": FAMILY_SCENES, "n_candidates": cfg.n_candidates,
+            "candidates_err_over_max": taus_err, "card_vs_cpu": got,
+            "cpu_vs_cpu_moved": own,
+            "best_score_card_mean": float(card.best_score.mean()),
+            "best_score_cpu_mean": float(cpu.best_score.mean()),
+            "reached_share_card": float(card.best_reached.mean()),
+            "reached_share_cpu": float(cpu.best_reached.mean())}
+
+
+ROLLOUT_METRICS = {"eval_success_rate": "reached",
+                   "eval_collision_rate": "collided",
+                   "eval_mean_score": "score"}
+
+
+def family_eval_vs_cpu(torch, ndiv_cuda, cfg, state, cpu_state):
+    """evaluate_fixed on the recipe's frozen suite on the card (one
+    ndiv_fwd) and on the CPU.  The rollout's metrics within twice the sum
+    of the CPU's own moves under the card's two kinds of move
+    (``cpu_spread``: a rate by its flipped samples, the mean score by its
+    change), plus FAMILY_RATE_SAMPLES samples or EVAL_RTOL; the others at
+    EVAL_RTOL.  Returns (the comparison, launches)."""
+    from ndivplanning_tpu_torch.train.evaluate import (
+        EVAL_SUITE_SEED,
+        evaluate_fixed,
+        make_eval_suite,
+    )
+    from ndivplanning_tpu_torch.train.state import gen_params
+    from ndivplanning_tpu_torch.utils.metrics import host_floats
+
+    n_scenes = cfg.eval_suite_scenes
+    n = n_scenes * cfg.k
+    evaluate_fixed(cfg, state, n_scenes)  # draws and caches the suite
+    reset(ndiv_cuda)
+    t0 = time.perf_counter()
+    card = host_floats(evaluate_fixed(cfg, state, n_scenes))
+    card_ms = (time.perf_counter() - t0) * 1e3
+    launches = launched(ndiv_cuda)
+    if launches != {"fwd": 1}:
+        raise AssertionError(f"{cfg.env} eval launched {launches}")
+    cpu = host_floats(evaluate_fixed(cfg, cpu_state, n_scenes))
+    suite = make_eval_suite(cfg, n_scenes, device="cpu")
+    z = torch.randn((n_scenes, cfg.k, cfg.latent_dim),
+                    generator=torch.Generator().manual_seed(
+                        EVAL_SUITE_SEED + 1))
+    with torch.no_grad():
+        taus = gen_params(cfg, cpu_state)(suite.conditions, z)
+        card_taus = gen_params(cfg, state)(suite.conditions.cuda(),
+                                           z.cuda()).cpu()
+    base, *moved = cpu_spread(cfg, suite.scenes, taus, card_taus)
+    own = {}
+    for key, field in ROLLOUT_METRICS.items():
+        if field == "score":
+            own[key] = sum(float((r.score.mean() - base.score.mean()).abs())
+                           for r in moved)
+        else:
+            own[key] = sum(int((getattr(r, field) != getattr(base, field))
+                               .sum()) for r in moved) / n
+    for key, want in cpu.items():
+        if key in EVAL_RATES:
+            allowed = 2 * own[key] + FAMILY_RATE_SAMPLES / n
+        else:
+            allowed = EVAL_RTOL * abs(want) + 2 * own.get(key, 0.0)
+        if abs(card[key] - want) > allowed + 1e-9:
+            raise AssertionError(f"{cfg.env} eval {key}: card {card[key]} vs "
+                                 f"cpu {want}, allowed {allowed}")
+    return {"n_scenes": n_scenes, "samples": n, "card_metrics": card,
+            "cpu_metrics": cpu, "cpu_own_moves": own,
+            "card_eval_ms": card_ms, "launches": launches}, launches
+
+
+def replay_bitwise_on_card(torch):
+    """Every family's distilled actions, replayed in "actions" mode on the
+    card, give its waypoint rollout bitwise: 16 random scenes x 64 noisy
+    straight paths."""
+    from ndivplanning_tpu_torch.data.scenes import random_scene_batch
+    from ndivplanning_tpu_torch.envs.registry import FAMILIES, get_env
+    from ndivplanning_tpu_torch.envs.rollout import (
+        distill_actions,
+        score_candidates,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    scenes = random_scene_batch(gen, FAMILY_SCENES)
+    t = (torch.arange(32, device="cuda") + 1.0) / 32
+    paths = (scenes.start[:, None, None, :] + t[None, None, :, None]
+             * (scenes.goal - scenes.start)[:, None, None, :]
+             + 0.03 * torch.randn((FAMILY_SCENES, 64, 32, 2), generator=gen,
+                                  device="cuda"))
+    out = {}
+    for env in FAMILIES:
+        params = get_env(env).make_params()
+        actions = distill_actions(params, scenes, paths, env)
+        a = score_candidates(params, scenes, paths, "waypoints", env=env)
+        b = score_candidates(params, scenes, actions, "actions", env=env)
+        for key in ("positions", "score", "collided", "reached"):
+            if not torch.equal(getattr(a, key), getattr(b, key)):
+                raise AssertionError(f"{env}: replayed actions' {key} differ "
+                                     f"from the waypoint rollout's")
+        out[env] = {"action_shape": list(actions.shape),
+                    "reached_share": float(a.reached.mean())}
+    return out
+
+
+def family_plan_profile(torch, plan, cfg, state):
+    """One scene at the config's candidates: the plan's wall ms (median of
+    6, the first apart) and its profile (3 plans)."""
+    from ndivplanning_tpu_torch.envs.types import Scene
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+
+    scene = Scene.create([0.1, 0.1], [0.9, 0.9], [[0.5, 0.5, 0.1]],
+                         device="cuda")
+    condition = _condition_for(cfg, scene)
+    _, plan_ms, gen = plan_times(torch, plan, cfg, state, scene, condition)
+    prof = profile(torch, lambda: plan(cfg, state, scene, condition, gen), 3)
+    if prof["ndiv_launches_per_call"]:
+        raise AssertionError(f"{cfg.env} plan launched NDiv kernels")
+    return {"plan_ms_median": statistics.median(plan_ms),
+            "plan_ms_first": plan_ms[0],
+            "profile_plan": {k: v for k, v in prof.items()
+                             if k != "top_kernels"},
+            "profile_plan_top_kernels": prof["top_kernels"][:3]}
+
+
+def env_families_phase(torch, ndiv_cuda):
+    """The vendored family models on the card: restore (bitwise the CPU's),
+    plan_batch and the frozen suite against the CPU, one profiled plan;
+    arm3 at random weights; every family's replay.  Returns (phase,
+    launches by model)."""
+    from ndivplanning_tpu_torch.planning.planner import plan
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    out, launches = {}, {}
+    for i, (name, (env, step)) in enumerate(FAMILY_MODELS.items()):
+        workdir = os.path.join("checkpoints_torch", name)
+        cfg, state, cpu_state, restored = checkpoint_restore(torch, workdir,
+                                                             step)
+        if cfg.env != env:
+            raise AssertionError(f"{name}: env {cfg.env}, want {env}")
+        reset(ndiv_cuda)
+        planned = family_plan_vs_cpu(torch, cfg, state, cpu_state, 30 + i)
+        if launched(ndiv_cuda):
+            raise AssertionError(f"{name} plan launched {launched(ndiv_cuda)}")
+        evaluated, launches[name] = family_eval_vs_cpu(torch, ndiv_cuda, cfg,
+                                                       state, cpu_state)
+        with open(os.path.join(workdir, "best", "best_path.json"),
+                  encoding="utf-8") as f:
+            recorded = json.load(f)
+        out[name] = {
+            "env": env, "restore": {k: v for k, v in restored.items()
+                                    if k != "phase"},
+            "plan_vs_cpu": planned, "eval_vs_cpu": evaluated,
+            "card_success_rate": evaluated["card_metrics"]["eval_success_rate"],
+            "jax_recorded_success_rate": recorded["value"],
+            "jax_recorded_note": "best-of-both on the JAX package's own "
+                                 "suite; for reference, not held",
+            **family_plan_profile(torch, plan, cfg, state)}
+    acfg = get_config("goalcond", env="arm3")
+    astate = create_train_state(acfg, seed=0)
+    reset(ndiv_cuda)
+    out["arm3_random_weights"] = {
+        "plan_vs_cpu": family_plan_vs_cpu(
+            torch, acfg, astate, create_train_state(acfg, seed=0,
+                                                    device="cpu"), 40),
+        **family_plan_profile(torch, plan, acfg, astate)}
+    if launched(ndiv_cuda):
+        raise AssertionError(f"arm3 plan launched {launched(ndiv_cuda)}")
+    out["replay_bitwise"] = replay_bitwise_on_card(torch)
+    return {"phase": "env_families", **out}, launches
+
+
+def family_loop(torch, ndiv_cuda, cfg, steps, label):
+    """``steps`` steps of the train loop from the config's seed in a fresh
+    workdir, twice: unprofiled (the launch counts, ms a step from the log
+    windows with no eval or checkpoint inside) and under the profiler (the
+    NDiv kernels by mode); the two final states bitwise equal.  First the
+    first step's NDiv inputs against the kernel's plain version."""
+    from ndivplanning_tpu_torch.data.tasks import make_task
+    from ndivplanning_tpu_torch.train import loop
+    from ndivplanning_tpu_torch.train.evaluate import evaluate_fixed
+
+    legs = 2 if cfg.g_ema_decay > 0 else 1
+    points = steps // cfg.eval_every + (steps % cfg.eval_every > 0)
+    want = {"joint": steps, "fwd": legs * points}
+    start = loop.create_train_state(cfg)
+    _, z0, x0 = first_step_inputs(torch, cfg, start, make_task)
+    input_loss = check_step_inputs(torch, ndiv_cuda, z0, x0, label)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_family_")
+    reset(ndiv_cuda)
+    t0 = time.perf_counter()
+    state, _ = loop.train(cfg, num_steps=steps,
+                          workdir=os.path.join(tmp, "a"), echo=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launched(ndiv_cuda)
+    if launches != want:
+        raise AssertionError(f"{label} loop: launches {launches}, want {want}")
+    (again, _), prof_counts = warp_launches_by_mode(torch, lambda: loop.train(
+        cfg, num_steps=steps, workdir=os.path.join(tmp, "b"), echo=False))
+    if prof_counts != want:
+        raise AssertionError(f"{label} loop: the profiler counted "
+                             f"{prof_counts} NDiv kernels, want {want}")
+    values = check_states_bitwise(torch, state, again, f"{label} loops")
+    rows = _rows(os.path.join(tmp, "a"))
+    for r in rows:
+        bad = [k for k, v in r.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{label}: non-finite {bad} at {r['step']}")
+    step_ms = clean_window_ms(rows, cfg)
+    step_state = clone_state(torch, state)
+    step_prof = profile(torch, lambda: loop.train_step_fused(cfg, step_state),
+                        5)
+    if step_prof["ndiv_launches_per_call"] != 1:
+        raise AssertionError(f"{label}: {step_prof['ndiv_launches_per_call']}"
+                             f" NDiv kernels a step")
+    eval_prof = profile(torch, lambda: [
+        evaluate_fixed(cfg, state, cfg.eval_suite_scenes, use_ema=use_ema)
+        for use_ema in (True, False)[:legs]], 3)
+    shutil.rmtree(tmp)
+    return {
+        "steps": steps, "env": cfg.env, "rollout_mode": cfg.rollout_mode,
+        "state_dim": cfg.state_dim, "batch_size": cfg.batch_size, "k": cfg.k,
+        "g_hidden": list(cfg.g_hidden), "d_hidden": list(cfg.d_hidden),
+        "lr_schedule": cfg.lr_schedule, "recipe_steps": cfg.steps,
+        "log_every": cfg.log_every, "eval_every": cfg.eval_every,
+        "eval_suite_scenes": cfg.eval_suite_scenes, "eval_legs": legs,
+        "launches": launches, "profiler_ndiv_by_mode": prof_counts,
+        "first_g_ndiv_of_checked_inputs": input_loss,
+        "profiled_run_bitwise_equal_values": values,
+        "step_ms_median": statistics.median(step_ms),
+        "step_ms_windows": step_ms, "run_s": wall_s,
+        "step_profile": {k: v for k, v in step_prof.items()
+                         if k != "top_kernels"},
+        "eval_point_profile": {k: v for k, v in eval_prof.items()
+                               if k != "top_kernels"},
+        "eval_rows": [r for r in rows if r.get("kind") == "eval"],
+        "last_train_row": [r for r in rows if "kind" not in r][-1]}, launches
+
+
+def train_env_families_phase(torch, ndiv_cuda):
+    """The unicycle150k recipe at full width (cosine LR over its 150000
+    steps) 100 steps with one eval point, then arm3 in action mode at the
+    same widths 20 steps with one.  Returns (phase, launches by run)."""
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    ucfg = load_config(os.path.join("checkpoints_torch", "unicycle150k"))
+    if (ucfg.env, ucfg.batch_size, ucfg.k, ucfg.g_hidden, ucfg.lr_schedule,
+            ucfg.steps) != ("unicycle", 256, 8, (256, 256), "cosine", 150000):
+        raise AssertionError(f"unicycle150k recipe changed: {ucfg}")
+    unicycle, ulaunch = family_loop(torch, ndiv_cuda, ucfg.replace(
+        **FAMILY_LOOP_EVERY), FAMILY_LOOP_STEPS, "unicycle150k")
+    acfg = ucfg.replace(**ARM3_ACTIONS, **ARM3_LOOP_EVERY)
+    arm3_actions, alaunch = family_loop(torch, ndiv_cuda, acfg,
+                                        ARM3_LOOP_STEPS, "arm3_actions")
+    return {"phase": "train_env_families", "unicycle150k": unicycle,
+            "arm3_actions": arm3_actions}, {"unicycle150k": ulaunch,
+                                            "arm3_actions": alaunch}
+
+
+def serve_families_phase(torch):
+    """``cli serve --warmup`` on reacher150k over pipes answering a burst of
+    4 requests, then ``cli eval --planner oneshot`` on quadrotor150k, each
+    in a subprocess: exit codes 0 and every field of the answers."""
+    cmd = [sys.executable, "-m", "ndivplanning_tpu_torch.cli"]
+    reqs = serve_requests(torch, 4, 17)
+    t0 = time.perf_counter()
+    served = subprocess.run(
+        [*cmd, "serve", "--workdir", SERVE_FAMILY, "--warmup"],
+        input="".join(json.dumps(r) + "\n" for r in reqs) + "quit\n",
+        capture_output=True, text=True, timeout=600)
+    serve_s = time.perf_counter() - t0
+    if served.returncode:
+        raise AssertionError(f"cli serve exited {served.returncode}: "
+                             f"{served.stderr[-2000:]}")
+    lines = [json.loads(line) for line in served.stdout.splitlines()
+             if line.strip()]
+    answers, tail = lines[:len(reqs)], lines[len(reqs):]
+    for r in answers:
+        if (set(r) != {"best_traj", "best_score", "best_reached",
+                       "diverse_trajs", "latency_ms", "batch_size"}
+                or len(r["best_traj"]) != 32 or len(r["best_traj"][0]) != 2
+                or not math.isfinite(r["best_score"])
+                or r["best_reached"] not in (0.0, 1.0)
+                or not r["diverse_trajs"]):
+            raise AssertionError(f"cli serve answer: {str(r)[:300]}")
+    if tail != [{"served": len(reqs)}]:
+        raise AssertionError(f"cli serve: after the answers {tail}")
+    t0 = time.perf_counter()
+    evaluated = subprocess.run(
+        [*cmd, "eval", "--workdir", CLI_EVAL_FAMILY, "--planner", "oneshot"],
+        capture_output=True, text=True, timeout=600)
+    eval_s = time.perf_counter() - t0
+    if evaluated.returncode:
+        raise AssertionError(f"cli eval exited {evaluated.returncode}: "
+                             f"{evaluated.stderr[-2000:]}")
+    ev = json.loads(evaluated.stdout.strip().splitlines()[-1])
+    if (ev.get("eval_planner") != "oneshot"
+            or ev.get("eval_plan_n_scenes") != 512.0
+            or not 0.0 <= ev.get("eval_plan_reach_rate", -1.0) <= 1.0
+            or not math.isfinite(ev.get("eval_plan_best_score", math.nan))):
+        raise AssertionError(f"cli eval: {ev}")
+    return {"phase": "serve_families", "serve_workdir": SERVE_FAMILY,
+            "answers": [{k: r[k] for k in ("best_score", "best_reached",
+                                           "latency_ms", "batch_size")}
+                        for r in answers],
+            "serve_process_s": serve_s, "eval_workdir": CLI_EVAL_FAMILY,
+            "eval": ev, "eval_process_s": eval_s}
 
 
 def main() -> int:
@@ -1929,11 +2354,22 @@ def main() -> int:
     for run, launches in loop_launches.items():
         path_launches[f"train_loop_{run}"] = launches
     emit({**cli_train_eval(torch), "card": smi})
-    p512_cfg, p512_state, p512_cpu_state, p512_phase = checkpoint_planning512(
-        torch)
+    p512_cfg, p512_state, p512_cpu_state, p512_phase = checkpoint_restore(
+        torch, PLANNING512, PLANNING512_STEP)
     phase, path_launches["eval_planning512"] = eval_planning512_phase(
         torch, ndiv_cuda, p512_cfg, p512_state, p512_cpu_state)
     emit({**phase, "card": smi})
+
+    # 8g. The env families: the vendored models planned and evaluated on
+    # the card against the CPU, arm3, the replays, then the two loops.
+    phase, launches = env_families_phase(torch, ndiv_cuda)
+    emit({**phase, "card": smi})
+    for name, n in launches.items():
+        path_launches[f"eval_{name}"] = n
+    phase, launches = train_env_families_phase(torch, ndiv_cuda)
+    emit({**phase, "card": smi})
+    for name, n in launches.items():
+        path_launches[f"train_loop_{name}"] = n
 
     # 9. Kernel times on the first imagecond step's inputs, every route,
     # beside the tile kernel's (one tiling, the same in every layout).
@@ -2041,6 +2477,7 @@ def main() -> int:
     emit({**serve_planning512(torch), "card": smi})
     emit({**profile_serve(torch, ndiv_cuda, p512_cfg, p512_state),
           "card": smi})
+    emit({**serve_families_phase(torch), "card": smi})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,6 +8,9 @@ never crosses from the host.
 - ``imagecond`` / ``planning``: random obstacle scenes as images; expert
   paths are quadratic Beziers whose control point detours perpendicular on
   a random side.
+
+Under ``rollout_mode="actions"`` each expert path becomes the env family's
+expert action sequence (``+actions`` in the task's name).
 """
 
 from __future__ import annotations
@@ -157,21 +160,53 @@ def task_fingerprint(cfg: Config) -> tuple:
             cfg.rollout_mode)
 
 
+def _actionize(fn: Callable[[torch.Generator, int], Batch],
+               env: str) -> Callable[[torch.Generator, int], Batch]:
+    """A waypoint-expert sampler made an action-space one: each expert path
+    distilled into the family's expert actions by its own controller
+    (``envs/rollout.py::distill_actions``), on the batch's device."""
+    from ndivplanning_tpu_torch.envs.registry import get_env
+    from ndivplanning_tpu_torch.envs.rollout import distill_actions
+
+    def sample(gen: torch.Generator, batch: int) -> Batch:
+        b = fn(gen, batch)
+        acts = distill_actions(get_env(env).make_params(), b.scenes,
+                               b.real_traj[:, None], env)[:, 0]
+        return Batch(conditions=b.conditions, real_traj=acts,
+                     scenes=b.scenes)
+
+    return sample
+
+
 def make_task(cfg: Config) -> Task:
-    """The task sampler for a config."""
-    if cfg.rollout_mode != "waypoints":
-        raise NotImplementedError(
-            f"rollout_mode={cfg.rollout_mode!r} training data is not ported "
-            "yet (only 'waypoints')")
+    """The task sampler for a config; it reads only the fields of
+    :func:`task_fingerprint`."""
     if cfg.conditioning == "none":
-        return Task("pointmass2d", "none",
-                    functools.partial(_sample_pointmass2d,
-                                      horizon=cfg.horizon))
-    if cfg.conditioning == "startgoal":
-        return Task("goalcond", "startgoal",
-                    functools.partial(_sample_goalcond, horizon=cfg.horizon))
-    if cfg.conditioning == "image":
-        return Task("imagecond", "image",
-                    functools.partial(_sample_imagecond, horizon=cfg.horizon,
-                                      image_size=cfg.image_size))
-    raise ValueError(f"unknown conditioning {cfg.conditioning!r}")
+        fn = functools.partial(_sample_pointmass2d, horizon=cfg.horizon)
+        name, conditioning = "pointmass2d", "none"
+    elif cfg.conditioning == "startgoal":
+        fn = functools.partial(_sample_goalcond, horizon=cfg.horizon)
+        name, conditioning = "goalcond", "startgoal"
+    elif cfg.conditioning == "image":
+        fn = functools.partial(_sample_imagecond, horizon=cfg.horizon,
+                               image_size=cfg.image_size)
+        name, conditioning = "imagecond", "image"
+    else:
+        raise ValueError(f"unknown conditioning {cfg.conditioning!r}")
+    if cfg.rollout_mode == "actions":
+        # The trajectory entries are actions, so G's output width is the
+        # family's action width (3 for arm3): a mismatch would otherwise
+        # surface as a shape error inside the train step.
+        from ndivplanning_tpu_torch.envs.registry import action_dim
+
+        du = action_dim(cfg.env)
+        if cfg.state_dim != du:
+            raise ValueError(
+                f"rollout_mode='actions' with env {cfg.env!r} needs "
+                f"state_dim == action_dim == {du} (trajectory entries "
+                f"are actions), got state_dim={cfg.state_dim}")
+        fn = _actionize(fn, cfg.env)
+        name += "+actions"
+    elif cfg.rollout_mode != "waypoints":
+        raise ValueError(f"unknown rollout_mode {cfg.rollout_mode!r}")
+    return Task(name=name, conditioning=conditioning, sample=fn)

@@ -13,7 +13,13 @@ from __future__ import annotations
 
 import torch
 
-from ndivplanning_tpu_torch.envs.types import EnvParams, EnvState, Scene, StepInfo
+from ndivplanning_tpu_torch.envs.types import (
+    EnvParams,
+    EnvState,
+    Scene,
+    StepInfo,
+    latch_step,
+)
 
 
 def reset(params: EnvParams, scene: Scene, n: int) -> EnvState:
@@ -39,7 +45,8 @@ def _clip_speed(vel: torch.Tensor, max_speed: float) -> torch.Tensor:
 def _collision(prev_pos: torch.Tensor, pos: torch.Tensor,
                scene: Scene) -> torch.Tensor:
     """``[..., N]`` 1.0 where the segment prev_pos -> pos meets a live
-    obstacle of its scene.
+    obstacle of its scene.  ``prev_pos`` may also be a ``[2]`` point shared
+    by every candidate (an arm's base).
 
     Swept, not a point check: one step moves up to max_speed * dt = 0.2,
     more than the smallest obstacle diameter."""
@@ -72,23 +79,5 @@ def step(params: EnvParams, scene: Scene, state: EnvState,
     raw_pos = state.pos + vel * params.dt
     pos = torch.clamp(raw_pos, params.bounds_lo, params.bounds_hi)
     vel = torch.where(pos == raw_pos, vel, torch.zeros_like(vel))  # absorbing walls
-
-    collided_now = _collision(state.pos, pos, scene)
-    dist_to_goal = torch.sqrt(torch.sum(
-        torch.square(pos - scene.goal[..., None, :]), dim=-1))
-    reached_now = (dist_to_goal < params.goal_radius).float()
-
-    # Freeze the state once done; `where` keeps live steps bitwise exact.
-    alive = state.done < 0.5
-    live = alive.float()
-    new_state = EnvState(
-        pos=torch.where(alive[..., None], pos, state.pos),
-        vel=torch.where(alive[..., None], vel, state.vel),
-        t=state.t + alive.int(),
-        done=torch.maximum(state.done, live * reached_now),
-        collided=torch.maximum(state.collided, live * collided_now),
-    )
-    info = StepInfo(dist_to_goal=dist_to_goal,
-                    collided_now=live * collided_now,
-                    reached_now=live * reached_now)
-    return new_state, info
+    return latch_step(state, {"pos": pos, "vel": vel}, scene,
+                      params.goal_radius, _collision(state.pos, pos, scene))

@@ -1,10 +1,11 @@
 """Candidate rollouts and scoring; counterpart of ``ndivplanning_tpu/envs/rollout.py``.
 
 Scenes and candidates are batch axes and the horizon is a Python loop, so
-one pass scores every candidate of every scene.  ``tau[t]``
-is either the acceleration at step t ("actions") or a PD-tracked position
-target ("waypoints").  Score (lower is better): final goal distance +
-collision penalty + control-effort cost.
+one pass scores every candidate of every scene.  ``tau[t]`` is either the
+family's action at step t ("actions", ``[du]``: 3 joint accelerations for
+arm3, 2 elsewhere) or a position target ``[2]`` tracked by the family's
+waypoint controller ("waypoints").  Score (lower is better): final goal
+distance + collision penalty + control-effort cost.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ class RolloutResult(NamedTuple):
     """Outcome of rolling N trajectories per scene through the env; the
     scene's axes ``[...]`` lead every field."""
 
-    final_state: EnvState
+    final_state: EnvState  # the family's state
     positions: torch.Tensor  # [..., N, H, 2] visited positions
     score: torch.Tensor  # [..., N] cost, lower is better
     goal_dist: torch.Tensor  # [..., N] final distance to goal
@@ -42,8 +43,9 @@ def score_candidates(params: EnvParams, scene: Scene, taus: torch.Tensor,
                      mode: str = "waypoints",
                      weights: ScoreWeights = ScoreWeights(),
                      env: str = "pointmass") -> RolloutResult:
-    """Score N candidate trajectories per scene, ``taus [..., N, H, 2]``,
-    from the start of their scene (whose axes are ``[...]``)."""
+    """Score N candidate trajectories per scene, ``taus [..., N, H, 2]``
+    (waypoints) or ``[..., N, H, du]`` (actions), from the start of their
+    scene (whose axes are ``[...]``)."""
     if mode not in ("actions", "waypoints"):
         raise ValueError(f"unknown rollout mode {mode!r}")
     api = get_env(env)
@@ -67,3 +69,20 @@ def score_candidates(params: EnvParams, scene: Scene, taus: torch.Tensor,
                          score=score, goal_dist=goal_dist,
                          collided=state.collided, reached=state.done,
                          control_cost=control_cost)
+
+
+def distill_actions(params, scene: Scene, waypoints: torch.Tensor,
+                    env: str = "pointmass") -> torch.Tensor:
+    """The actions ``[..., N, H, du]`` that the family's waypoint controller
+    takes along waypoint paths ``[..., N, H, 2]`` from the start of their
+    scene: expert actions for action-space training.  Rolled back in
+    "actions" mode they reproduce the waypoint rollout bitwise (the same
+    controller output, the same dynamics)."""
+    api = get_env(env)
+    state = api.reset(params, scene, waypoints.shape[-3])
+    actions = []
+    for t in range(waypoints.shape[-2]):
+        a = api.waypoint_control(params, state, waypoints[..., t, :])
+        state, _ = api.step(params, scene, state, a)
+        actions.append(a)
+    return torch.stack(actions, dim=-2)

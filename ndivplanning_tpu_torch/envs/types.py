@@ -1,10 +1,13 @@
 """Scene, state and dynamics parameters; counterpart of ``ndivplanning_tpu/envs/types.py``.
 
 Dataclasses of tensors.  A :class:`Scene` may carry leading scene axes (a
-training batch's or a served chunk's scenes); an :class:`EnvState` carries
-the scene's axes and then a candidate axis ``[..., N]``, since the rollout
-batches scenes and candidates instead of ``vmap``-ing.  Obstacles live in a
-fixed ``[MAX_OBSTACLES, 3]`` buffer with a mask.
+training batch's or a served chunk's scenes); an :class:`EnvState`, and
+every family's state, carries the scene's axes and then a candidate axis
+``[..., N]``, since the rollout batches scenes and candidates instead of
+``vmap``-ing.  Obstacles live in a fixed ``[MAX_OBSTACLES, 3]`` buffer with
+a mask.  Every family's state has the fields ``pos [..., N, 2]``, ``t``,
+``done`` and ``collided``, so scoring, the planner and eval read any of
+them alike; :func:`latch_step` ends every family's ``step``.
 """
 
 from __future__ import annotations
@@ -98,6 +101,34 @@ class StepInfo:
     dist_to_goal: torch.Tensor
     collided_now: torch.Tensor
     reached_now: torch.Tensor
+
+
+def latch_step(state, moved: dict, scene: Scene, goal_radius: float,
+               collided_now: torch.Tensor):
+    """The end of every family's step: the goal test on ``moved["pos"]``,
+    then the new state, frozen where it was already done, with its ``t``,
+    ``done`` and ``collided`` latches, and the step's :class:`StepInfo`.
+
+    ``moved`` holds the new value of every evolving field, ``[..., N]`` or
+    ``[..., N, d]``.  ``where`` (not arithmetic) keeps live steps bitwise
+    the moved values."""
+    dist_to_goal = torch.sqrt(torch.sum(
+        torch.square(moved["pos"] - scene.goal[..., None, :]), dim=-1))
+    reached_now = (dist_to_goal < goal_radius).float()
+    alive = state.done < 0.5
+    live = alive.float()
+    frozen = {name: torch.where(alive.view(*alive.shape,
+                                           *(1,) * (v.dim() - alive.dim())),
+                                v, getattr(state, name))
+              for name, v in moved.items()}
+    new_state = dataclasses.replace(
+        state, **frozen, t=state.t + alive.int(),
+        done=torch.maximum(state.done, live * reached_now),
+        collided=torch.maximum(state.collided, live * collided_now))
+    info = StepInfo(dist_to_goal=dist_to_goal,
+                    collided_now=live * collided_now,
+                    reached_now=live * reached_now)
+    return new_state, info
 
 
 @dataclasses.dataclass(frozen=True)

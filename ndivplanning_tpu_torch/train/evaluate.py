@@ -177,10 +177,6 @@ def plan_batch_result(result):
 @torch.no_grad()
 def _evaluate_impl(cfg: Config, state: TrainState, z: torch.Tensor,
                    batch: Batch, use_ema: bool = True) -> dict:
-    if cfg.rollout_mode != "waypoints":
-        raise NotImplementedError(
-            f"evaluation under rollout_mode={cfg.rollout_mode!r} is not "
-            "ported yet (only 'waypoints')")
     b, k = batch.real_traj.shape[0], cfg.k
     gen = gen_params(cfg, state) if use_ema else state.g
     taus = gen(batch.conditions, z)  # [B, k, H, S]
@@ -192,16 +188,20 @@ def _evaluate_impl(cfg: Config, state: TrainState, z: torch.Tensor,
     mean_pairwise = torch.sum(torch.where(off, pd, 0.0)) / (b * k * (k - 1))
     ndiv = ndiv_loss(z, flat, cfg.ndiv_alpha, impl=cfg.ndiv_impl)
 
-    # Quality: the last waypoint against the scene's goal.
-    endpoints = taus[:, :, -1, :]  # [B, k, S]
-    goal = batch.scenes.goal[:, None, :]
-    endpoint_err = torch.mean(torch.sqrt(torch.sum(
-        torch.square(endpoints - goal), dim=-1)))
-
     # Sim-in-the-loop: the B scenes, each with its k samples as candidates.
     per_cond = score_candidates(get_env(cfg.env).make_params(), batch.scenes,
                                 taus, cfg.rollout_mode, ScoreWeights(),
                                 env=cfg.env)
+    # Quality: the endpoint against the scene's goal.  Waypoint mode takes
+    # the last waypoint; in action mode the entries are actions, so the
+    # rollout's final positions and goal distances stand in.
+    if cfg.rollout_mode == "waypoints":
+        endpoints = taus[:, :, -1, :]  # [B, k, S]
+        endpoint_err = torch.mean(torch.sqrt(torch.sum(
+            torch.square(endpoints - batch.scenes.goal[:, None, :]), dim=-1)))
+    else:
+        endpoints = per_cond.positions[:, :, -1, :]  # [B, k, 2]
+        endpoint_err = torch.mean(per_cond.goal_dist)
     out = {
         "eval_mean_pairwise_dist": mean_pairwise,
         "eval_ndiv": ndiv,

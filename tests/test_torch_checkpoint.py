@@ -5,7 +5,9 @@ of the JAX package's ``checkpoints/planning512`` (the deployable
 image-conditioned planning model, trained under a cosine LR schedule).
 Re-converting the JAX checkpoint here must give it bitwise; the port
 restores it with torch alone (``cli._load_state``), and its EMA G's
-outputs and a 64-candidate plan are held against the JAX package's.
+outputs and a 64-candidate plan are held against the JAX package's.  The
+same holds for the env families' ``unicycle150k``, ``reacher150k`` and
+``quadrotor150k`` (their frozen suites: ``tests/test_torch_evaluate.py``).
 """
 
 import dataclasses
@@ -132,17 +134,45 @@ def _assert_same(got: dict, want: dict):
             assert got[key] == value, key
 
 
-def test_committed_artifact_is_the_reconversion_bitwise(tmp_path):
-    step = convert(WORKDIR, str(tmp_path))
-    assert step == STEP
+def _assert_reconversion_bitwise(tmp_path, src, committed, step):
+    """``convert_jax_checkpoint.py`` of ``src`` again: the same step, the
+    same config.json and best_path.json bytes, and a state.pt that
+    ``torch.load(weights_only=True)`` alone reads as the committed one."""
+    assert convert(src, str(tmp_path)) == step
     for sub in ("config.json", os.path.join("best", "best_path.json")):
         with open(tmp_path / sub, "rb") as f, \
-                open(os.path.join(TORCH_WORKDIR, sub), "rb") as g:
+                open(os.path.join(committed, sub), "rb") as g:
             assert f.read() == g.read(), sub
     load = functools.partial(torch.load, weights_only=True)
-    rel = os.path.join("best", "checkpoints", str(STEP), checkpoint.FILENAME)
+    rel = os.path.join("best", "checkpoints", str(step), checkpoint.FILENAME)
     _assert_same(_flat(load(tmp_path / rel)),
-                 _flat(load(os.path.join(TORCH_WORKDIR, rel))))
+                 _flat(load(os.path.join(committed, rel))))
+
+
+def test_committed_artifact_is_the_reconversion_bitwise(tmp_path):
+    _assert_reconversion_bitwise(tmp_path, WORKDIR, TORCH_WORKDIR, STEP)
+
+
+# The vendored env-family models (tests/test_vendored_checkpoint.py): the
+# best step of each, and its family.
+FAMILY_STEPS = {"unicycle150k": (120000, "unicycle"),
+                "reacher150k": (105000, "reacher"),
+                "quadrotor150k": (30000, "quadrotor")}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_STEPS))
+def test_family_artifact_is_the_reconversion_bitwise(tmp_path, name):
+    step, env = FAMILY_STEPS[name]
+    committed = os.path.join(REPO, "checkpoints_torch", name)
+    _assert_reconversion_bitwise(tmp_path, os.path.join(REPO, "checkpoints",
+                                                        name), committed, step)
+    cfg = load_config(committed).replace(workdir=committed)
+    assert (cfg.env, cfg.conditioning, cfg.rollout_mode) == (
+        env, "startgoal", "waypoints")
+    assert (cfg.g_hidden, cfg.d_hidden, cfg.cond_embed_dim) == (
+        (256, 256), (256, 256), 64)
+    state = _load_state(cfg, "cpu")
+    assert state.step == state.g_opt.count == step
 
 
 def test_artifact_carries_the_whole_jax_state(planning512):

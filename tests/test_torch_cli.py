@@ -1,8 +1,9 @@
 """The torch port's CLI and client on the CPU (``--device cpu``).
 
 The client spawns ``python -m ndivplanning_tpu_torch.cli serve`` over
-pipes, as a deployment would; ``plan`` runs the committed planning512
-model at full width (1000 candidates).  Every subcommand and option of
+pipes, as a deployment would; ``plan`` runs the committed planning512 and
+env-family models at full width (1000 candidates), and arm3 goes from
+``train`` to ``serve`` in action mode.  Every subcommand and option of
 the JAX CLI that the port lacks exits with a message naming it.
 """
 
@@ -189,6 +190,46 @@ def test_cli_eval_prints_the_frozen_sampled_and_planner_metrics(tmp_path,
     assert planner["eval_planner"] == "oneshot"
     assert planner["eval_plan_n_scenes"] == 6.0
     assert 0.0 <= planner["eval_plan_reach_rate"] <= 1.0
+
+
+@pytest.mark.parametrize("name", ["unicycle150k", "reacher150k",
+                                  "quadrotor150k"])
+def test_cli_plan_on_the_family_models(name, capsys):
+    """``--workdir checkpoints_torch/<family>``: the recorded config names
+    the env, and the model plans its random scene at 1000 candidates."""
+    workdir = os.path.join(REPO, "checkpoints_torch", name)
+    out = _cli_json(capsys, ["plan", "--workdir", workdir, "--device", "cpu"])
+    assert out["n_candidates"] == 1000 and out["best_reached"] == 1.0
+    assert load_config(workdir).env == name.removesuffix("150k")
+
+
+def test_cli_trains_evaluates_plans_and_serves_arm3_in_action_mode(
+        tmp_path, capsys):
+    """``--set env=arm3 --set rollout_mode=actions --set state_dim=3``:
+    G emits 3-D joint accelerations, from train to the served answer."""
+    run = str(tmp_path / "run")
+    args = [*TRAIN_ARGS, "--set", "env=arm3", "--set",
+            "rollout_mode=actions", "--set", "state_dim=3", "--set",
+            "generator_output=linear", "--set", "n_candidates=32"]
+    assert _cli_json(capsys, ["train", *args, "--steps", "10",
+                              "--workdir", run])["final_step"] == 10
+    cfg = load_config(run)
+    assert (cfg.env, cfg.rollout_mode, cfg.state_dim) == ("arm3", "actions",
+                                                          3)
+    frozen = _cli_json(capsys, ["eval", "--workdir", run, "--device", "cpu",
+                                "--suite-size", "16"])
+    assert 0.0 <= frozen["eval_success_rate"] <= 1.0
+    assert _cli_json(capsys, ["plan", "--workdir", run, "--device",
+                              "cpu"])["n_candidates"] == 32
+    out = subprocess.run(
+        [sys.executable, "-m", "ndivplanning_tpu_torch.cli", "serve",
+         "--workdir", run, "--device", "cpu"],
+        input=json.dumps({"start": [0.2, 0.2], "goal": [0.8, 0.7]})
+        + "\nquit\n", capture_output=True, text=True, cwd=REPO,
+        timeout=300, check=True)
+    reply = json.loads(out.stdout.splitlines()[0])
+    assert len(reply["best_traj"]) == cfg.horizon
+    assert {len(row) for row in reply["best_traj"]} == {3}
 
 
 def test_bad_preset_names_the_valid_presets(tmp_path):

@@ -90,11 +90,62 @@ def test_scene_create_validates_like_jax():
                      device="cpu")
 
 
-def test_only_pointmass_is_ported():
-    assert get_env("pointmass").make_params().dt == 0.1
-    for name in ("unicycle", "reacher", "quadrotor", "arm3"):
-        with pytest.raises(NotImplementedError, match=name):
-            get_env(name)
+@pytest.mark.parametrize("env", ["unicycle", "reacher", "arm3"])
+def test_plan_matches_jax_in_the_other_families(env):
+    """The goalcond EMA generator's 64 candidates planned in another env
+    family with the JAX plan's own latents: scores at the families'
+    rollout tolerance (tests/test_torch_envs.py: the arms' DLS gains scale
+    an ulp of their 2x2 solve), the same best and diverse picks.  The
+    quadrotor's 32-step rollouts agree only in aggregate (its attitude
+    loop magnifies ulps), so it is held there and in its frozen suite."""
+    overrides = dict(horizon=32, g_hidden=(32, 32), d_hidden=(32, 32),
+                     env=env)
+    jcfg = jax_get_config("goalcond", **overrides)
+    cfg = get_config("goalcond", **overrides)
+    jstate = jax_create(jcfg, seed=4)
+    state = create_train_state(cfg, device="cpu")
+    state.g_ema.load_state_dict(params_from_flax(
+        jax.tree.map(np.asarray, jstate.g_ema_params)))
+    jscene, scene = _scenes()
+    condition = np.asarray(START + GOAL, np.float32)
+    key = jax.random.PRNGKey(12)
+    want = jax_plan(jcfg, jstate, jscene, jnp.asarray(condition), key,
+                    n_candidates=64)
+    z = np.asarray(jax.random.normal(key, (1, 64, cfg.latent_dim)))
+    got = plan(cfg, state, scene, torch.from_numpy(condition),
+               n_candidates=64, z=torch.tensor(z))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               rtol=5e-5, atol=1e-4)
+    assert int(torch.argmin(got.scores)) == int(np.argmin(want.scores))
+    assert float(got.best_reached) == float(want.best_reached)
+    np.testing.assert_array_equal(got.diverse_idx.numpy(),
+                                  np.asarray(want.diverse_idx))
+
+
+@pytest.mark.parametrize("env", ["unicycle", "reacher", "quadrotor", "arm3"])
+def test_stacked_scenes_roll_out_as_each_scene_alone_in_every_family(env):
+    """The families' states and the arms' shared base broadcast over a
+    leading scene axis: every row of a stacked 12-step rollout is the
+    one-scene rollout, its latches equal and the rest within 1e-5.  Not
+    bitwise on the CPU: torch's CPU kernels take SLEEF's vectorised sin,
+    cos and atan2 on full vector blocks and the scalar libm ones on a
+    shorter tensor, an ulp apart."""
+    rng = np.random.default_rng(6)
+    t = np.linspace(0.0, 1.0, 12, dtype=np.float32)[None, None, :, None]
+    taus = (0.1 + 0.8 * t + 0.2 * rng.normal(size=(4, 16, 1, 2))
+            * np.sin(np.pi * t)).astype(np.float32)
+    params = get_env(env).make_params()
+    got = score_candidates(params, _stacked(BATCH_SCENES),
+                           torch.from_numpy(taus), env=env)
+    for i, (st, go, ob) in enumerate(BATCH_SCENES):
+        one = score_candidates(params, Scene.create(st, go, ob, device="cpu"),
+                               torch.from_numpy(taus[i]), env=env)
+        for key in ("collided", "reached"):
+            assert torch.equal(getattr(got, key)[i], getattr(one, key)), key
+        for key in ("score", "positions"):
+            torch.testing.assert_close(getattr(got, key)[i],
+                                       getattr(one, key), rtol=1e-5,
+                                       atol=1e-5)
 
 
 def test_diverse_top_m_matches_jax_with_ties_and_nan_safe_scores():
