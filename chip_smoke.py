@@ -34,7 +34,12 @@ on the card against the CPU, arm3 planned at random weights, every
 family's distilled actions replayed bitwise, the unicycle150k recipe
 trained 100 steps and arm3 in action mode 20 through the train loop, and
 `cli serve` on reacher150k and `cli eval` on quadrotor150k in
-subprocesses.
+subprocesses.  Closed loop and CEM: the three family models' frozen
+suites as MPC episodes on the card, and 128 of them against the CPU,
+with dispatch times and profiles; `cli serve --warmup-mpc` answering
+"mpc": true requests; a CEM plan against the CPU and `cli eval
+--planner cem` beside oneshot; and the three distilled models' frozen
+suites on the card against the CPU.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is the device summary.
 
@@ -236,6 +241,49 @@ ARM3_ACTIONS = dict(env="arm3", rollout_mode="actions", state_dim=3,
                     generator_output="linear")
 SERVE_FAMILY = os.path.join("checkpoints_torch", "reacher150k")
 CLI_EVAL_FAMILY = os.path.join("checkpoints_torch", "quadrotor150k")
+
+# Closed-loop MPC on the family models: the frozen 512-scene suite on the
+# card (eval --mpc's defaults: 64 steps, a replan every 8 from 256
+# candidates), the card against the CPU on its first MPC_CPU_SCENES scenes
+# with the same CPU-drawn latents.  The quadrotor's attitude loop turns
+# an ulp into another path, and closed loop compounds it over 8 replans,
+# so the episodes whose outcome (reached, collided) differs may number at
+# most twice those the CPU itself changes when its latents move one ulp,
+# and at least 1.  JAX recorded eval --mpc success 1.000 for each
+# (checkpoints/README.md, on its own suite).
+MPC_CPU_SCENES = 128
+MPC_EPISODE = dict(total_steps=64, replan_every=8, n_candidates=256)
+MPC_JAX_RECORDED = {"unicycle150k": 1.0, "reacher150k": 1.0,
+                    "quadrotor150k": 1.0}
+MPC_DISPATCH_SCENES = (1, 128)  # mpc_rollout_batch timed at these B
+# ... and profiled at these (the served quadrotor at both).
+MPC_PROFILED = {"unicycle150k": (128,), "reacher150k": (128,),
+                "quadrotor150k": (1, 128)}
+# Closed-loop serving: `cli serve --warmup-mpc` on quadrotor150k, a burst
+# of 16 "mpc": true lines, a mixed array of 4 closed-loop and 4 plain
+# requests, and single closed-loop round trips.
+MPC_SERVE_WORKDIR = os.path.join("checkpoints_torch", "quadrotor150k")
+MPC_SERVE_REPEATS = 3
+# CEM on unicycle150k at the default budget (1000 candidates: 5
+# iterations and a final population of 166).  Its best score, card
+# against CPU on the same noise, within twice the CPU's own move with the
+# noise one ulp up plus SERVE_RTOL/ATOL; the planner ladder on 128 scenes.
+CEM_WORKDIR = os.path.join("checkpoints_torch", "unicycle150k")
+CEM_LADDER_SCENES = 128
+# The distilled models (expert iteration on the quadrotor; a unicycle
+# run), one-shot on the frozen suite; quadrotor_distilled_ilqr's success
+# as JAX recorded it (checkpoints/README.md: best-of-both on the TPU, and
+# a CPU re-eval on 512 scenes).
+DISTILLED_MODELS = {"quadrotor_distilled": ("quadrotor", 504),
+                    "quadrotor_distilled_ilqr": ("quadrotor", 1512),
+                    "unicycle_distilled": ("unicycle", 4536)}
+DISTILLED_ILQR_JAX = {"tpu_best_of_both": 0.5361, "cpu_512_scenes": 0.5144}
+# Their eval_ndiv, card against CPU: fine-tuning left the hinge nearly
+# inactive (quadrotor_distilled's total ~9e-5 on an NVIDIA H100), so the
+# card's 1e-7 moves of G's samples move the small total by 3.3e-4 of
+# itself; held at the tests' rtol for such a loss
+# (tests/test_torch_evaluate.py, NDIV_RTOL_UNTRAINED).
+DISTILLED_NDIV_RTOL = 1e-2
 
 
 def emit(obj) -> None:
@@ -1521,13 +1569,15 @@ ROLLOUT_METRICS = {"eval_success_rate": "reached",
                    "eval_mean_score": "score"}
 
 
-def family_eval_vs_cpu(torch, ndiv_cuda, cfg, state, cpu_state):
+def family_eval_vs_cpu(torch, ndiv_cuda, cfg, state, cpu_state,
+                       ndiv_rtol=EVAL_RTOL):
     """evaluate_fixed on the recipe's frozen suite on the card (one
     ndiv_fwd) and on the CPU.  The rollout's metrics within twice the sum
     of the CPU's own moves under the card's two kinds of move
     (``cpu_spread``: a rate by its flipped samples, the mean score by its
     change), plus FAMILY_RATE_SAMPLES samples or EVAL_RTOL; the others at
-    EVAL_RTOL.  Returns (the comparison, launches)."""
+    EVAL_RTOL (eval_ndiv at ``ndiv_rtol``).  Returns (the comparison,
+    launches)."""
     from ndivplanning_tpu_torch.train.evaluate import (
         EVAL_SUITE_SEED,
         evaluate_fixed,
@@ -1567,6 +1617,8 @@ def family_eval_vs_cpu(torch, ndiv_cuda, cfg, state, cpu_state):
     for key, want in cpu.items():
         if key in EVAL_RATES:
             allowed = 2 * own[key] + FAMILY_RATE_SAMPLES / n
+        elif key == "eval_ndiv":
+            allowed = ndiv_rtol * abs(want)
         else:
             allowed = EVAL_RTOL * abs(want) + 2 * own.get(key, 0.0)
         if abs(card[key] - want) > allowed + 1e-9:
@@ -1815,6 +1867,289 @@ def serve_families_phase(torch):
                         for r in answers],
             "serve_process_s": serve_s, "eval_workdir": CLI_EVAL_FAMILY,
             "eval": ev, "eval_process_s": eval_s}
+
+
+def outcome_differs(a, b) -> int:
+    """Episodes whose (reached, collided) differ between two MPCResults."""
+    return int(((a.reached != b.reached) | (a.collided != b.collided)).sum())
+
+
+def mpc_dispatch_times(torch, cfg, state, suite, profiled):
+    """mpc_rollout_batch at B = 1 and 128 of the suite's scenes: wall ms a
+    dispatch (median of 3 after one warm call) and, at the B in
+    ``profiled``, its profile (one dispatch: the profiler's bookkeeping of
+    25k-50k launches takes seconds a call)."""
+    from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
+
+    out = {}
+    for b in MPC_DISPATCH_SCENES:
+        gen = torch.Generator(device="cuda").manual_seed(b)
+        part = suite.map(lambda t: t[:b])
+
+        def dispatch():
+            return mpc_rollout_batch(cfg, state, part.scenes, part.conditions,
+                                     gen, **MPC_EPISODE).reached.cpu()
+
+        dispatch()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dispatch()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[b] = {"ms_median": statistics.median(ms), "ms": ms}
+        if b not in profiled:
+            continue
+        prof = profile(torch, dispatch, 1)
+        if prof["ndiv_launches_per_call"]:
+            raise AssertionError("an MPC dispatch launched NDiv kernels")
+        out[b].update(profile={k: v for k, v in prof.items()
+                               if k != "top_kernels"},
+                      top_kernels=prof["top_kernels"][:3])
+    return out
+
+
+def mpc_phase(torch, ndiv_cuda):
+    """Closed-loop MPC on the three family models: evaluate_fixed_mpc on the
+    card over the 512-scene suite beside JAX's recorded success; the card
+    against the CPU on the first MPC_CPU_SCENES scenes with the suite's
+    own CPU-drawn latents, within twice the CPU's own outcome changes
+    under a one-ulp move of its latents (at least 1); dispatch times,
+    launches and busy share at B = 1 and 128."""
+    from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
+    from ndivplanning_tpu_torch.train.evaluate import (
+        EVAL_SUITE_SEED,
+        EVAL_SUITE_SIZE,
+        evaluate_fixed_mpc,
+        make_eval_suite,
+    )
+
+    out = {}
+    for name, (env, step) in FAMILY_MODELS.items():
+        workdir = os.path.join("checkpoints_torch", name)
+        cfg, state, cpu_state, _ = checkpoint_restore(torch, workdir, step)
+        reset(ndiv_cuda)
+        t0 = time.perf_counter()
+        card_eval = evaluate_fixed_mpc(cfg, state, **MPC_EPISODE)
+        eval_s = time.perf_counter() - t0
+        if launched(ndiv_cuda):
+            raise AssertionError(f"{name} MPC launched {launched(ndiv_cuda)}")
+        # The suite's latents as evaluate_fixed_mpc draws them.
+        z = torch.randn((EVAL_SUITE_SIZE, MPC_EPISODE["total_steps"]
+                         // MPC_EPISODE["replan_every"],
+                         MPC_EPISODE["n_candidates"], cfg.latent_dim),
+                        generator=torch.Generator().manual_seed(
+                            EVAL_SUITE_SEED + 2))[:MPC_CPU_SCENES]
+        suite = make_eval_suite(cfg, device="cpu").map(
+            lambda t: t[:MPC_CPU_SCENES])
+        card_suite = suite.map(lambda t: t.cuda())
+        card = mpc_rollout_batch(cfg, state, card_suite.scenes,
+                                 card_suite.conditions, z=z.cuda(),
+                                 **MPC_EPISODE)
+        card = card._replace(reached=card.reached.cpu(),
+                             collided=card.collided.cpu())
+        t0 = time.perf_counter()
+        cpu = mpc_rollout_batch(cfg, cpu_state, suite.scenes,
+                                suite.conditions, z=z, **MPC_EPISODE)
+        cpu_s = time.perf_counter() - t0
+        moved = mpc_rollout_batch(cfg, cpu_state, suite.scenes,
+                                  suite.conditions, z=ulp_up(torch, z),
+                                  **MPC_EPISODE)
+        own = outcome_differs(cpu, moved)
+        got = outcome_differs(card, cpu)
+        allowed = max(2 * own, 1)
+        if got > allowed:
+            raise AssertionError(f"{name} MPC, card vs CPU: {got} of "
+                                 f"{MPC_CPU_SCENES} episodes differ, allowed "
+                                 f"{allowed} (the CPU's own {own})")
+        if not torch.isfinite(card.positions).all():
+            raise AssertionError(f"{name} MPC: non-finite positions")
+        times = mpc_dispatch_times(torch, cfg, state, card_suite,
+                                   MPC_PROFILED.get(name, ()))
+        out[name] = {
+            "env": env, "card_eval": card_eval, "card_eval_s": eval_s,
+            "jax_recorded_success_rate": MPC_JAX_RECORDED[name],
+            "jax_recorded_note": "eval --mpc on the JAX package's own suite "
+                                 "(checkpoints/README.md); not held",
+            "cpu_scenes": MPC_CPU_SCENES,
+            "episodes_differ_card_vs_cpu": got,
+            "episodes_differ_cpu_ulp": own, "allowed": allowed,
+            "success_card": float(card.reached.float().mean()),
+            "success_cpu": float(cpu.reached.float().mean()),
+            "collision_card": float(card.collided.float().mean()),
+            "collision_cpu": float(cpu.collided.float().mean()),
+            "cpu_run_s": cpu_s, "dispatch": times}
+    return {"phase": "mpc", **MPC_EPISODE, **out}
+
+
+def mpc_serve_phase(torch):
+    """`cli serve --warmup-mpc` on quadrotor150k over pipes: single
+    closed-loop round trips, a burst of 16 "mpc": true lines (one bucket-16
+    dispatch), a mixed array of 4 closed-loop and 4 plain requests; the
+    answers' fields, latency per bucket and the stats' mpc_requests.  An
+    array is one protocol line, written when its last answer is ready, so
+    its plain answers carry the episodes' latency."""
+    from ndivplanning_tpu_torch.planning.client import PlanningClient
+
+    reqs = serve_requests(torch, SERVE_SCENES, 19)
+    mpc_keys = {"path", "reached", "collided", "n_replans", "latency_ms",
+                "batch_size"}
+    latency = {}
+    t0 = time.perf_counter()
+    with PlanningClient.spawn(["--workdir", MPC_SERVE_WORKDIR,
+                               "--warmup-mpc"]) as c:
+        before = c.stats()  # answered once the warm-up is done
+        start_s = time.perf_counter() - t0
+        singles = [c.mpc(**reqs[i]) for i in range(MPC_SERVE_REPEATS)]
+        burst = c.send_lines([json.dumps(dict(r, mpc=True)) for r in reqs])
+        mixed = c.plan_batch([dict(r, mpc=True) for r in reqs[:4]]
+                             + reqs[4:8])
+        after = c.stats()
+        served = c.close()
+    episodes = singles + burst + mixed[:4]
+    for r in episodes:
+        if (set(r) != mpc_keys or len(r["path"]) != 64
+                or r["n_replans"] != 8 or r["reached"] not in (0.0, 1.0)
+                or not all(math.isfinite(v) for p in r["path"] for v in p)):
+            raise AssertionError(f"closed-loop answer: {str(r)[:300]}")
+        latency.setdefault(f"mpc_{r['batch_size']}", []).append(
+            r["latency_ms"])
+    for r in mixed[4:]:
+        if "best_traj" not in r or r["batch_size"] != 4:
+            raise AssertionError(f"plain answer in a mixed array: "
+                                 f"{str(r)[:300]}")
+        latency.setdefault("plain_4_mixed", []).append(r["latency_ms"])
+    if ([r["batch_size"] for r in burst] != [SERVE_SCENES] * SERVE_SCENES
+            or [r["batch_size"] for r in singles] != [1] * MPC_SERVE_REPEATS):
+        raise AssertionError("closed-loop buckets are off")
+    n_mpc = MPC_SERVE_REPEATS + SERVE_SCENES + 4
+    if after["mpc_requests"] - before["mpc_requests"] != n_mpc:
+        raise AssertionError(f"stats mpc_requests {before} -> {after}, want "
+                             f"+{n_mpc}")
+    n_lines = MPC_SERVE_REPEATS + SERVE_SCENES + 3
+    if served != [{"served": n_lines}]:
+        raise AssertionError(f"served report {served}, want {n_lines}")
+    return {"phase": "mpc_serve", "workdir": MPC_SERVE_WORKDIR,
+            "transport": "pipes, PlanningClient.spawn, --warmup-mpc",
+            "spawn_to_first_answer_s": start_s, "stats": after,
+            "latency_ms_median_by_bucket": {
+                k: statistics.median(v) for k, v in latency.items()},
+            "latency_ms_by_bucket": latency,
+            "reached_share": sum(r["reached"] for r in episodes)
+            / len(episodes)}
+
+
+def cem_phase(torch, ndiv_cuda):
+    """plan_cem on unicycle150k at the default budget, the card against the
+    CPU on the same CPU-drawn noise; its ms, launches and busy share; the
+    planner ladder (cli eval --planner cem and oneshot) on 128 scenes."""
+    from ndivplanning_tpu_torch.envs.types import Scene
+    from ndivplanning_tpu_torch.planning.cem import cem_population, plan_cem
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+
+    cfg, state, cpu_state, _ = checkpoint_restore(torch, CEM_WORKDIR,
+                                                  FAMILY_MODELS[
+                                                      "unicycle150k"][1])
+    n, elite, iters = cem_population(cfg)
+    scene = Scene.create([0.1, 0.1], [0.9, 0.9],
+                         [[0.5, 0.5, 0.12], [0.3, 0.7, 0.08]], device="cpu")
+    cond = _condition_for(cfg, scene)
+    eps = torch.randn((iters + 1, n, cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(23))
+    card_scene = scene.map(lambda t: t.cuda())
+    reset(ndiv_cuda)
+    card, card_curve = plan_cem(cfg, state, card_scene, cond.cuda(),
+                                eps=eps.cuda())
+    again, again_curve = plan_cem(cfg, state, card_scene, cond.cuda(),
+                                  eps=eps.cuda())
+    if launched(ndiv_cuda):
+        raise AssertionError(f"CEM launched {launched(ndiv_cuda)}")
+    if not (torch.equal(card.taus, again.taus)
+            and torch.equal(card_curve, again_curve)):
+        raise AssertionError("CEM on the card is not bitwise run to run")
+    cpu, cpu_curve = plan_cem(cfg, cpu_state, scene, cond, eps=eps)
+    moved, _ = plan_cem(cfg, cpu_state, scene, cond, eps=ulp_up(torch, eps))
+    best, cpu_best = float(card.best_score), float(cpu.best_score)
+    own = abs(float(moved.best_score) - cpu_best)
+    allowed = 2 * own + SERVE_RTOL * abs(cpu_best) + SERVE_ATOL
+    if abs(best - cpu_best) > allowed:
+        raise AssertionError(f"CEM best score card {best} vs CPU {cpu_best}, "
+                             f"allowed {allowed}")
+    curve = card_curve.cpu()
+    if not bool((curve[1:] <= curve[:-1]).all()) or best > float(curve[-1]):
+        raise AssertionError(f"CEM best curve {curve.tolist()}, best {best}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    call = lambda: plan_cem(cfg, state, card_scene, cond.cuda(),
+                            gen)[0].best_score.item()
+    call()
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    prof = profile(torch, call, 3)
+    ladder = {}
+    for planner in ("cem", "oneshot"):
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "ndivplanning_tpu_torch.cli", "eval",
+             "--workdir", CEM_WORKDIR, "--planner", planner, "--suite-size",
+             str(CEM_LADDER_SCENES)], capture_output=True, text=True,
+            timeout=600)
+        if done.returncode:
+            raise AssertionError(f"cli eval --planner {planner} exited "
+                                 f"{done.returncode}: {done.stderr[-2000:]}")
+        ladder[planner] = json.loads(done.stdout.strip().splitlines()[-1])
+        ladder[planner]["process_s"] = time.perf_counter() - t0
+        if (ladder[planner]["eval_planner"] != planner
+                or ladder[planner]["eval_plan_n_scenes"] != CEM_LADDER_SCENES):
+            raise AssertionError(f"cli eval --planner {planner}: "
+                                 f"{ladder[planner]}")
+    return {"phase": "cem", "workdir": CEM_WORKDIR, "population": n,
+            "elite": elite, "iters": iters,
+            "best_score_card": best, "best_score_cpu": cpu_best,
+            "best_score_cpu_ulp_move": own, "allowed": allowed,
+            "best_curve_card": curve.tolist(),
+            "best_curve_cpu": cpu_curve.tolist(),
+            "best_reached_card": float(card.best_reached),
+            "repeat_bitwise": True, "plan_ms_median": statistics.median(ms),
+            "plan_ms": ms,
+            "profile": {k: v for k, v in prof.items() if k != "top_kernels"},
+            "top_kernels": prof["top_kernels"][:3], "ladder": ladder}
+
+
+def distilled_phase(torch, ndiv_cuda):
+    """The three distilled models: the restore bitwise the CPU's, one-shot
+    evaluate_fixed on the card over the 512-scene suite, and the recipe's
+    128-scene suite on the card against the CPU (family_eval_vs_cpu).
+    Returns (phase, launches by model)."""
+    from ndivplanning_tpu_torch.train.evaluate import evaluate_fixed
+    from ndivplanning_tpu_torch.utils.metrics import host_floats
+
+    out, launches = {}, {}
+    for name, (env, step) in DISTILLED_MODELS.items():
+        workdir = os.path.join("checkpoints_torch", name)
+        cfg, state, cpu_state, restored = checkpoint_restore(torch, workdir,
+                                                             step)
+        if cfg.env != env:
+            raise AssertionError(f"{name}: env {cfg.env}, want {env}")
+        evaluated, launches[name] = family_eval_vs_cpu(
+            torch, ndiv_cuda, cfg, state, cpu_state, DISTILLED_NDIV_RTOL)
+        reset(ndiv_cuda)
+        suite512 = host_floats(evaluate_fixed(cfg, state))
+        launches[name] = {k: v + launched(ndiv_cuda).get(k, 0)
+                          for k, v in launches[name].items()}
+        with open(os.path.join(workdir, "best", "best_path.json"),
+                  encoding="utf-8") as f:
+            recorded = json.load(f)
+        out[name] = {"env": env, "step": step,
+                     "restore_values": restored["values"],
+                     "eval_vs_cpu_128": evaluated,
+                     "card_success_rate_512": suite512["eval_success_rate"],
+                     "card_metrics_512": suite512,
+                     "jax_recorded_best_path": recorded}
+    out["quadrotor_distilled_ilqr"]["jax_recorded_success"] = (
+        DISTILLED_ILQR_JAX)
+    return {"phase": "distilled", **out}, launches
 
 
 def main() -> int:
@@ -2370,6 +2705,16 @@ def main() -> int:
     emit({**phase, "card": smi})
     for name, n in launches.items():
         path_launches[f"train_loop_{name}"] = n
+
+    # 8h. Closed-loop MPC and CEM on the family models (no NDiv kernel on
+    # either path), MPC serving, and the distilled models' frozen suites.
+    emit({**mpc_phase(torch, ndiv_cuda), "card": smi})
+    emit({**mpc_serve_phase(torch), "card": smi})
+    emit({**cem_phase(torch, ndiv_cuda), "card": smi})
+    phase, launches = distilled_phase(torch, ndiv_cuda)
+    emit({**phase, "card": smi})
+    for name, n in launches.items():
+        path_launches[f"eval_{name}"] = n
 
     # 9. Kernel times on the first imagecond step's inputs, every route,
     # beside the tile kernel's (one tiling, the same in every layout).

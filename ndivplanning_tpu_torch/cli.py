@@ -4,6 +4,8 @@
     python -m ndivplanning_tpu_torch.cli eval  --workdir runs/goalcond
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/planning512
     python -m ndivplanning_tpu_torch.cli serve --workdir checkpoints_torch/planning512 --warmup
+    python -m ndivplanning_tpu_torch.cli eval  --workdir checkpoints_torch/quadrotor150k --mpc
+    python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/unicycle150k --refine cem
 
 Every command runs on the CUDA card unless ``--device cpu`` is given.  A
 ``--workdir`` holding a recorded ``config.json`` is the base config; eval,
@@ -32,7 +34,8 @@ NOT_PORTED_COMMANDS = ("viz", "record-data", "distill", "export", "doctor",
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to the torch CLI yet (ported: "
                       "train and eval on the on-device sampler, one-shot "
-                      "planning; plan and serve, unsharded and unrefined)")
+                      "and CEM planning, closed-loop MPC; plan and serve, "
+                      "unsharded)")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -139,31 +142,76 @@ def _load_state(cfg, device, prefer_best: bool = True):
 
 
 def _check_ported(args) -> None:
+    from ndivplanning_tpu_torch.planning.server import REFINES
+    from ndivplanning_tpu_torch.train.evaluate import PORTED_PLANNERS
+
     flags = {"--profile-dir": args.profile_dir is not None,
              "--debug-nans": args.debug_nans}
     if args.cmd in ("plan", "serve"):
-        flags["--refine"] = args.refine != "none"
+        flags[f"--refine {args.refine}"] = args.refine not in REFINES
     if args.cmd == "plan":
-        flags.update({"--mpc": args.mpc, "--sharded": args.sharded})
+        flags["--sharded"] = args.sharded
     elif args.cmd == "serve":
         flags.update({"--tcp": args.tcp is not None,
                       "--cross-batch": args.cross_batch,
                       "--max-pending": bool(args.max_pending),
                       "--deadline-ms": bool(args.deadline_ms),
-                      "--watch-best": args.watch_best,
-                      "--warmup-mpc": args.warmup_mpc})
+                      "--watch-best": args.watch_best})
     elif args.cmd == "train":
         flags.update({"--dataset": args.dataset is not None,
                       "--epochs": args.epochs is not None,
                       "--eval-fraction": args.eval_fraction is not None})
     else:
         flags.update({"--dataset": args.dataset is not None,
-                      "--mpc": args.mpc,
                       f"--planner {args.planner}":
-                          args.planner not in (None, "oneshot")})
+                          args.planner not in (None, *PORTED_PLANNERS)})
     for flag, on in flags.items():
         if on:
             raise _not_ported(f"{args.cmd} {flag}")
+
+
+def _plan_mpc(cfg, state, device, args) -> dict:
+    """``plan --mpc``: ``--mpc-episodes`` random scenes (from ``seed + 3``)
+    as closed-loop episodes in one batch, latents from ``seed + 5``;
+    twice, the second call timed for ``episodes_per_sec``."""
+    import time
+
+    from ndivplanning_tpu_torch.data.scenes import random_scene_batch
+    from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+
+    n_ep = args.mpc_episodes
+    scenes = random_scene_batch(
+        torch.Generator(device=device).manual_seed(cfg.seed + 3), n_ep)
+    conditions = _condition_for(cfg, scenes)
+
+    def episodes():
+        return mpc_rollout_batch(
+            cfg, state, scenes, conditions,
+            torch.Generator(device=device).manual_seed(cfg.seed + 5),
+            total_steps=args.mpc_steps, replan_every=args.mpc_replan,
+            n_candidates=args.mpc_candidates)
+
+    t0 = time.perf_counter()
+    result = episodes()
+    reached, collided = result.reached.cpu(), result.collided.cpu()
+    first_call_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    episodes().reached.cpu()
+    episodes_per_sec = n_ep / max(time.perf_counter() - t0, 1e-9)
+    out = {
+        "episodes": n_ep,
+        "success_rate": float(reached.mean()),
+        "collision_rate": float(collided.mean()),
+        "n_replans": result.n_replans,
+        "total_steps": args.mpc_steps,
+        "replan_every": args.mpc_replan,
+        "episodes_per_sec": round(episodes_per_sec, 2),
+        "first_call_s": round(first_call_s, 2),
+    }
+    if n_ep == 1:
+        out["final_pos"] = result.positions[0, -1].tolist()
+    return out
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -189,19 +237,36 @@ def _parser() -> argparse.ArgumentParser:
     eval_p.add_argument("--planner", default=None, choices=PLANNERS,
                         help="open-loop planner quality on the frozen "
                              "suite: mean best score (lower is better) and "
-                             "reach rate; only 'oneshot' is ported")
+                             "reach rate; 'oneshot' and 'cem' are ported")
     eval_p.add_argument("--scene-chunk", type=int, default=None,
                         help="scenes per dispatch for --planner "
-                             "(default 128)")
+                             "(default 128 oneshot, 16 cem)")
     eval_p.add_argument("--dataset", default=None, help="not ported yet")
-    eval_p.add_argument("--mpc", action="store_true", help="not ported yet")
+    eval_p.add_argument("--mpc", action="store_true",
+                        help="closed-loop quality: every frozen-suite scene "
+                             "as a receding-horizon MPC episode (fixed "
+                             "latents, comparable run to run)")
+    for p in (eval_p, plan_p):
+        p.add_argument("--mpc-steps", type=int, default=64,
+                       help="closed-loop episode length")
+        p.add_argument("--mpc-replan", type=int, default=8,
+                       help="control steps executed per replanning cycle "
+                            "(must divide --mpc-steps)")
+        p.add_argument("--mpc-candidates", type=int, default=256,
+                       help="candidate trajectories per replan")
     for p in (plan_p, serve_p):
         p.add_argument("--refine", default="none",
                        choices=("none", "cem", "grad", "trajopt", "ilqr",
                                 "cem+trajopt"),
-                       help="latent or trajectory refinement: only 'none' "
-                            "is ported")
-    plan_p.add_argument("--mpc", action="store_true", help="not ported yet")
+                       help="refinement: 'cem' runs cross-entropy-method "
+                            "iterations in G's latent space at the one-shot "
+                            "planner's rollout budget; 'none' and 'cem' are "
+                            "ported")
+    plan_p.add_argument("--mpc", action="store_true",
+                        help="closed-loop receding-horizon planning: replan "
+                             "every --mpc-replan steps from the live state")
+    plan_p.add_argument("--mpc-episodes", type=int, default=1,
+                        help="episodes to run, as one batch")
     plan_p.add_argument("--sharded", action="store_true",
                         help="not ported yet")
     serve_p.add_argument("--warmup", action="store_true",
@@ -221,7 +286,9 @@ def _parser() -> argparse.ArgumentParser:
     serve_p.add_argument("--watch-best", action="store_true",
                          help="not ported yet")
     serve_p.add_argument("--warmup-mpc", action="store_true",
-                         help="not ported yet")
+                         help="also dispatch a closed-loop batch of every "
+                              "bucket before reading stdin (implies "
+                              "--warmup)")
     return parser
 
 
@@ -253,6 +320,11 @@ def main(argv=None) -> int:
             out = ev.evaluate_fixed_planner(
                 cfg, state, planner=args.planner, n_scenes=args.suite_size,
                 scene_chunk=args.scene_chunk)
+        elif args.mpc:
+            out = ev.evaluate_fixed_mpc(
+                cfg, state, n_scenes=args.suite_size,
+                total_steps=args.mpc_steps, replan_every=args.mpc_replan,
+                n_candidates=args.mpc_candidates)
         elif args.sampled:
             out = host_floats(ev.evaluate(
                 cfg, state, torch.Generator().manual_seed(cfg.seed + 2)))
@@ -263,20 +335,34 @@ def main(argv=None) -> int:
         print(json.dumps(out))
         return 0
 
+    if args.cmd == "plan" and args.mpc:
+        print(json.dumps(_plan_mpc(cfg, _load_state(cfg, device), device,
+                                   args)))
+        return 0
+
     if args.cmd == "plan":
         from ndivplanning_tpu_torch.data.scenes import random_scene
+        from ndivplanning_tpu_torch.planning.cem import plan_cem
         from ndivplanning_tpu_torch.planning.planner import plan
         from ndivplanning_tpu_torch.planning.server import _condition_for
 
         state = _load_state(cfg, device)
         scene = random_scene(
             torch.Generator(device=device).manual_seed(cfg.seed + 3))
-        result = plan(cfg, state, scene, _condition_for(cfg, scene),
-                      torch.Generator(device=device).manual_seed(cfg.seed + 4))
+        condition = _condition_for(cfg, scene)
+        generator = torch.Generator(device=device).manual_seed(cfg.seed + 4)
+        out = {}
+        if args.refine == "cem":
+            result, best_curve = plan_cem(cfg, state, scene, condition,
+                                          generator)
+            out["best_curve"] = best_curve.tolist()
+        else:
+            result = plan(cfg, state, scene, condition, generator)
         print(json.dumps({
             "best_score": float(result.best_score),
             "best_reached": float(result.best_reached),
             "n_candidates": int(result.scores.shape[0]),
+            **out,
         }))
         return 0
 
@@ -285,12 +371,12 @@ def main(argv=None) -> int:
     state = _load_state(cfg, device)
     # `reload` line: load the workdir's (possibly newer) best checkpoint.
     reload_fn = (lambda: _load_state(cfg, device)) if cfg.workdir else None
-    if args.warmup:
-        secs = warmup(cfg, state)
+    if args.warmup or args.warmup_mpc:  # --warmup-mpc implies --warmup
+        secs = warmup(cfg, state, refine=args.refine, mpc=args.warmup_mpc)
         print(f"[serve] warmup: every request bucket dispatched in "
               f"{secs:.1f} s", file=sys.stderr, flush=True)
-    served = serve(cfg, state, overlap=not args.no_overlap,
-                   reload_fn=reload_fn)
+    served = serve(cfg, state, refine=args.refine,
+                   overlap=not args.no_overlap, reload_fn=reload_fn)
     print(json.dumps({"served": served}))
     return 0
 

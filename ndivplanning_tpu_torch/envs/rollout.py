@@ -15,7 +15,12 @@ from typing import NamedTuple
 import torch
 
 from ndivplanning_tpu_torch.envs.registry import get_env
-from ndivplanning_tpu_torch.envs.types import EnvParams, EnvState, Scene
+from ndivplanning_tpu_torch.envs.types import (
+    EnvParams,
+    EnvState,
+    Scene,
+    broadcast_candidates,
+)
 
 
 class RolloutResult(NamedTuple):
@@ -42,15 +47,23 @@ class ScoreWeights(NamedTuple):
 def score_candidates(params: EnvParams, scene: Scene, taus: torch.Tensor,
                      mode: str = "waypoints",
                      weights: ScoreWeights = ScoreWeights(),
-                     env: str = "pointmass") -> RolloutResult:
+                     env: str = "pointmass",
+                     state0=None) -> RolloutResult:
     """Score N candidate trajectories per scene, ``taus [..., N, H, 2]``
     (waypoints) or ``[..., N, H, du]`` (actions), from the start of their
-    scene (whose axes are ``[...]``)."""
+    scene (whose axes are ``[...]``).
+
+    ``state0``, a family state of one candidate per scene (``[..., 1]``),
+    replaces the reset: every candidate starts from it, with its ``t``,
+    ``done`` and ``collided`` (receding-horizon replanning scores from the
+    live state, ``planning/mpc.py``).  A candidate that starts done costs
+    no control."""
     if mode not in ("actions", "waypoints"):
         raise ValueError(f"unknown rollout mode {mode!r}")
     api = get_env(env)
     n, horizon = taus.shape[-3:-1]
-    state = api.reset(params, scene, n)
+    state = (api.reset(params, scene, n) if state0 is None
+             else broadcast_candidates(state0, n))
     positions, ctrl = [], []
     for t in range(horizon):
         tau_t = taus[..., t, :]

@@ -103,6 +103,26 @@ class StepInfo:
     reached_now: torch.Tensor
 
 
+def broadcast_candidates(state, n: int):
+    """A family's state of ONE candidate per scene (``[..., 1]`` fields,
+    vectors ``[..., 1, d]``) as ``n`` equal candidates, field by field.
+    Each field is a fresh contiguous copy: no candidate aliases another or
+    the caller's state."""
+    axis = state.t.dim() - 1  # the candidate axis
+    if state.t.shape[axis] != 1:
+        raise ValueError(f"state0 must hold one candidate per scene, got "
+                         f"t of shape {tuple(state.t.shape)}")
+
+    def spread(v: torch.Tensor) -> torch.Tensor:
+        shape = list(v.shape)
+        shape[axis] = n
+        return v.expand(shape).contiguous()
+
+    return dataclasses.replace(state, **{
+        f.name: spread(getattr(state, f.name))
+        for f in dataclasses.fields(state)})
+
+
 def latch_step(state, moved: dict, scene: Scene, goal_radius: float,
                collided_now: torch.Tensor):
     """The end of every family's step: the goal test on ``moved["pos"]``,

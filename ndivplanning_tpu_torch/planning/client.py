@@ -7,6 +7,7 @@ that transport, frames the protocol and maps error replies to exceptions:
     with PlanningClient.spawn(["--workdir", "checkpoints_torch/planning512"]) as c:
         resp = c.plan(start=[0.1, 0.1], goal=[0.9, 0.9])
         paths = c.plan_batch(requests)          # one server dispatch
+        episode = c.mpc(start=[0.1, 0.1], goal=[0.9, 0.9])   # closed loop
 
 It needs the standard library only.  The TCP transport and the client's
 retries of shed requests come with the torch server's ``serve_tcp`` and
@@ -93,9 +94,10 @@ class PlanningClient:
     def plan(self, start, goal, obstacles=None, *, mpc: bool = False,
              retries: int = 0, **extra) -> dict:
         """Plan one scene; returns the response dict (``best_traj``,
-        ``best_score``, ...).  Raises :class:`ServerError` on an error
-        reply (the torch server answers ``mpc=True`` with one).  Retrying
-        shed requests (``retries > 0``) comes with ``serve_tcp``."""
+        ``best_score``, ..., or with ``mpc=True`` a closed-loop episode's
+        ``path``, ``reached``, ``collided``, ``n_replans``, ...).  Raises
+        :class:`ServerError` on an error reply.  Retrying shed requests
+        (``retries > 0``) comes with ``serve_tcp``."""
         if retries:
             raise NotImplementedError(
                 "PlanningClient.plan(retries=...): the overload path comes "

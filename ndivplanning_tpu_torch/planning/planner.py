@@ -49,13 +49,13 @@ def _diverse_top_m(flat: torch.Tensor, scores: torch.Tensor,
     pool = order[:, :half]  # [B, half]
     dist = pairwise_l2(torch.gather(
         flat, 1, pool[..., None].expand(-1, -1, dim)))  # [B, half, half]
-    selected = torch.zeros(pool.shape, dtype=torch.bool, device=flat.device)
-    selected[:, 0] = True
+    selected = (torch.arange(half, device=flat.device) == 0).expand(
+        pool.shape)  # the best is picked first
     min_dist = torch.full(pool.shape, float("inf"), device=flat.device)
     last = torch.zeros((pool.shape[0], 1), dtype=torch.long,
                        device=flat.device)
     picked = [last]
-    neg_inf = torch.tensor(float("-inf"), device=flat.device)
+    neg_inf = torch.full((), float("-inf"), device=flat.device)
     for _ in range(m - 1):
         row = torch.gather(dist, 1, last[..., None].expand(-1, 1, half))
         min_dist = torch.minimum(min_dist, row[:, 0])
@@ -66,13 +66,21 @@ def _diverse_top_m(flat: torch.Tensor, scores: torch.Tensor,
     return torch.gather(pool, 1, torch.cat(picked, dim=1)).reshape(*lead, m)
 
 
+def nan_safe(scores: torch.Tensor) -> torch.Tensor:
+    """Scores with every non-finite one made ``+inf``: an argmin or a
+    top-k over a NaN would pick it."""
+    return torch.where(torch.isfinite(scores), scores,
+                       torch.full_like(scores, float("inf")))
+
+
 def score_rollouts(cfg: Config, scenes: Scene, taus: torch.Tensor,
-                   weights: ScoreWeights):
+                   weights: ScoreWeights, state0=None):
     """Sim-in-the-loop scoring of candidates ``taus [..., N, H, S]`` of
-    scenes ``[...]`` in the config's env family."""
+    scenes ``[...]`` in the config's env family, from their reset or from
+    ``state0`` (one candidate per scene, ``[..., 1]``: the MPC case)."""
     params = get_env(cfg.env).make_params()
     return score_candidates(params, scenes, taus, cfg.rollout_mode, weights,
-                            env=cfg.env)
+                            env=cfg.env, state0=state0)
 
 
 @torch.no_grad()
@@ -97,10 +105,14 @@ def plan_batch(cfg: Config, state: TrainState, scenes: Scene,
                         device=conditions.device)
     # EMA weights when tracked: planning sees the smoothed generator.
     taus = gen_params(cfg, state)(conditions, z)  # [B, N, H, S]
-    results = score_rollouts(cfg, scenes, taus, weights)
-    # NaN-safe selection: +inf drops non-finite scores from both picks.
-    sel_scores = torch.where(torch.isfinite(results.score), results.score,
-                             torch.full_like(results.score, float("inf")))
+    return select_plan(taus, score_rollouts(cfg, scenes, taus, weights),
+                       n_diverse)
+
+
+def select_plan(taus: torch.Tensor, results, n_diverse: int) -> PlanResult:
+    """The plan of scored candidates ``taus [B, N, H, S]``: a NaN-safe best
+    pick and the diverse top-m of every scene."""
+    sel_scores = nan_safe(results.score)  # +inf: out of both picks
     best = torch.argmin(sel_scores, dim=1, keepdim=True)  # [B, 1]
     diverse_idx = _diverse_top_m(taus.flatten(2), sel_scores, n_diverse)
     return PlanResult(

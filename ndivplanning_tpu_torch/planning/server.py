@@ -4,10 +4,13 @@ One process holds the model and answers scene requests on stdin/stdout,
 one JSON object per line, with the JAX server's protocol:
 
 Request:  {"start": [x, y], "goal": [x, y],
-           "obstacles": [[cx, cy, r], ...]}        (obstacles optional)
+           "obstacles": [[cx, cy, r], ...],        (obstacles optional)
+           "mpc": true}                             (optional: closed loop)
 Response: {"best_traj": [[x, y] * horizon], "best_score": s,
            "best_reached": 0|1, "diverse_trajs": [...],
            "latency_ms": t, "batch_size": n}
+MPC resp: {"path": [[x, y] * 64], "reached": 0|1, "collided": 0|1,
+           "n_replans": 8, "latency_ms": t, "batch_size": n}
 
 A line holding a JSON array of requests is answered with an array,
 planned together; a burst of separate lines is drained without blocking
@@ -17,14 +20,17 @@ malformed request is answered with ``{"error": ...}`` at its own
 position and the rest of its batch still plans.
 
 Each dispatch plans a chunk of up to ``BUCKETS[-1]`` scenes with one
-:func:`plan_batch` call, padded to the next bucket size with copies of its
-first scene.  Requests are parsed and validated on the host; a chunk goes
-to the device as one stacked copy and its answers come back as one.
+:func:`plan_batch` call (``refine="cem"``: ``plan_cem_batch``), padded to
+the next bucket size with copies of its first scene.  Closed-loop
+requests are split from plain ones at parse time and run, after the plain
+ones, as bucketed ``mpc_rollout_batch`` episodes at the fixed
+``MPC_TOTAL_STEPS`` / ``MPC_REPLAN_EVERY`` / ``MPC_CANDIDATES``.  Requests
+are parsed and validated on the host; a chunk goes to the device as one
+stacked copy and its answers come back as one.
 
-Not ported yet, each raising ``NotImplementedError`` with its name:
-refined plans (``refine``), closed-loop (``"mpc": true``) requests,
-``serve_tcp``, the cross-connection batcher and the best-checkpoint
-watcher.
+Not ported yet, each raising ``NotImplementedError`` with its name: the
+refiners other than CEM (``refine``), ``serve_tcp``, the cross-connection
+batcher and the best-checkpoint watcher.
 """
 
 from __future__ import annotations
@@ -43,11 +49,21 @@ import torch
 
 from ndivplanning_tpu_torch.data.scenes import rasterize_batch
 from ndivplanning_tpu_torch.envs.types import MAX_OBSTACLES, Scene
+from ndivplanning_tpu_torch.planning.cem import cem_population, plan_cem_batch
+from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
 from ndivplanning_tpu_torch.planning.planner import plan_batch
 from ndivplanning_tpu_torch.train.state import TrainState
 from ndivplanning_tpu_torch.utils.config import Config
 
 BUCKETS = (1, 2, 4, 8, 16)
+# Closed-loop serving parameters are fixed, not per request (the JAX
+# server's); other settings run ``plan --mpc`` with flags.
+MPC_TOTAL_STEPS = 64
+MPC_REPLAN_EVERY = 8
+MPC_CANDIDATES = 256
+# The refinements a server plans with (the JAX server's other refiners
+# are not ported).
+REFINES = ("none", "cem")
 
 # Process-level serving counters, answered on a ``stats`` line.  The keys
 # are the JAX server's; the ones of unported paths stay 0.
@@ -57,18 +73,20 @@ SERVING_STATS = {"dispatches": 0, "requests": 0, "mpc_requests": 0,
                  "shed_requests": 0, "expired_requests": 0}
 
 
-def _record_dispatch(n_real: int, bucket: int) -> None:
+def _record_dispatch(n_real: int, bucket: int, mpc: bool) -> None:
     with _STATS_LOCK:
         SERVING_STATS["dispatches"] += 1
         SERVING_STATS["requests"] += n_real
+        if mpc:
+            SERVING_STATS["mpc_requests"] += n_real
         SERVING_STATS["padded_slots"] += bucket - n_real
         if SERVING_STATS["started_at"] is None:
             SERVING_STATS["started_at"] = time.time()
 
 
 def serving_stats() -> dict:
-    """Snapshot of the serving counters: dispatches and requests, mean
-    dispatch batch, pad overhead and uptime."""
+    """Snapshot of the serving counters: dispatches and requests, the
+    closed-loop share, mean dispatch batch, pad overhead and uptime."""
     with _STATS_LOCK:
         s = dict(SERVING_STATS)
     d = max(s["dispatches"], 1)
@@ -94,7 +112,7 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def check_refine(refine: str) -> None:
-    if refine != "none":
+    if refine not in REFINES:
         raise _not_ported(f"refine={refine!r}")
 
 
@@ -123,10 +141,25 @@ def _condition_for(cfg: Config, scenes: Scene) -> torch.Tensor:
 
 
 def _serve_plan_program(cfg: Config, state: TrainState, scenes: Scene,
-                        z: torch.Tensor, n_diverse: int):
-    """One dispatch: the chunk's conditions, then :func:`plan_batch`."""
-    return plan_batch(cfg, state, scenes, _condition_for(cfg, scenes),
-                      n_diverse=n_diverse, z=z)
+                        z: torch.Tensor, n_diverse: int, refine: str = "none"):
+    """One dispatch: the chunk's conditions, then :func:`plan_batch`, or
+    with ``refine="cem"`` ``plan_cem_batch`` (``z`` its noise)."""
+    conditions = _condition_for(cfg, scenes)
+    if refine == "cem":
+        return plan_cem_batch(cfg, state, scenes, conditions,
+                              n_diverse=n_diverse, eps=z)[0]
+    return plan_batch(cfg, state, scenes, conditions, n_diverse=n_diverse,
+                      z=z)
+
+
+def _serve_mpc_program(cfg: Config, state: TrainState, scenes: Scene,
+                       z: torch.Tensor):
+    """One closed-loop dispatch: the chunk's conditions, then
+    ``mpc_rollout_batch`` at the serving parameters."""
+    return mpc_rollout_batch(cfg, state, scenes, _condition_for(cfg, scenes),
+                             total_steps=MPC_TOTAL_STEPS,
+                             replan_every=MPC_REPLAN_EVERY,
+                             n_candidates=MPC_CANDIDATES, z=z)
 
 
 def _bucket_for(n: int) -> int:
@@ -162,12 +195,26 @@ def _fetch(result) -> tuple:
             reached[:, 0].numpy(), diverse.reshape(b, m, h, s).numpy())
 
 
-def _draw_latents(cfg: Config, generator: torch.Generator):
-    """The default latent source: ``[bucket, N, zdim]`` normal draws from
+def _latent_shape(cfg: Config, refine: str = "none",
+                 mpc: bool = False) -> tuple[int, ...]:
+    """The latents of one scene of a dispatch: ``[N, zdim]`` for a plan,
+    ``[iters + 1, n, zdim]`` for a CEM plan's noise, ``[n_cycles,
+    MPC_CANDIDATES, zdim]`` for a closed-loop episode."""
+    if mpc:
+        return (MPC_TOTAL_STEPS // MPC_REPLAN_EVERY, MPC_CANDIDATES,
+                cfg.latent_dim)
+    if refine == "cem":
+        n, _, iters = cem_population(cfg)
+        return (iters + 1, n, cfg.latent_dim)
+    return (cfg.n_candidates, cfg.latent_dim)
+
+
+def _draw_latents(generator: torch.Generator, shape: tuple[int, ...]):
+    """The default latent source: ``[bucket, *shape]`` normal draws from
     ``generator``, on its device."""
     def latents(bucket: int) -> torch.Tensor:
-        return torch.randn((bucket, cfg.n_candidates, cfg.latent_dim),
-                           generator=generator, device=generator.device)
+        return torch.randn((bucket, *shape), generator=generator,
+                           device=generator.device)
     return latents
 
 
@@ -175,13 +222,19 @@ def handle_batch(cfg: Config, state: TrainState, requests: list,
                  generator: torch.Generator, n_diverse: int = 4,
                  refine: str = "none", arrivals: list[float] | None = None,
                  on_progress=None, out: list | None = None,
-                 latents: Callable[[int], torch.Tensor] | None = None
+                 latents: Callable[[int], torch.Tensor] | None = None,
+                 mpc_latents: Callable[[int], torch.Tensor] | None = None
                  ) -> list[dict]:
-    """Plan for a list of scene requests in bucketed :func:`plan_batch`
-    dispatches; returns one JSON-serialisable response per request.
+    """Plan for a list of scene requests in bucketed dispatches; returns one
+    JSON-serialisable response per request.
 
-    Latents come from ``latents(bucket)``, called once per dispatch in
-    order, or else are drawn from ``generator``.  ``arrivals`` (one
+    Plain requests go first, in :func:`plan_batch` dispatches (``refine=
+    "cem"``: ``plan_cem_batch``), then the closed-loop (``"mpc": true``)
+    ones in ``mpc_rollout_batch`` dispatches, so that an episode adds
+    nothing to a plain request's latency.  A dispatch's latents come from
+    ``latents(bucket)`` (plans) or ``mpc_latents(bucket)`` (episodes),
+    called once per dispatch in order, ``[bucket, *_latent_shape(...)]``,
+    or else are drawn from ``generator``.  ``arrivals`` (one
     ``time.perf_counter()`` per request) makes ``latency_ms`` each
     request's queue and service time.  ``on_progress`` is called after
     the parse pass and after every dispatch has filled its responses,
@@ -196,44 +249,77 @@ def handle_batch(cfg: Config, state: TrainState, requests: list,
         out = [None] * len(requests)
     assert len(out) == len(requests)
     responses: list[dict | None] = out
-    scenes: list[Scene] = []
-    idx: list[int] = []
+    plain: tuple[list[Scene], list[int]] = ([], [])
+    closed: tuple[list[Scene], list[int]] = ([], [])
     for i, req in enumerate(requests):
         try:
-            if req.get("mpc"):
-                raise _not_ported('a closed-loop ("mpc": true) request')
-            scenes.append(Scene.create(req["start"], req["goal"],
-                                       req.get("obstacles"), device="cpu"))
-            idx.append(i)
+            scene = Scene.create(req["start"], req["goal"],
+                                 req.get("obstacles"), device="cpu")
+            group = closed if req.get("mpc") else plain
+            group[0].append(scene)
+            group[1].append(i)
         except Exception as e:  # noqa: BLE001 — isolated per request
             responses[i] = {"error": f"{type(e).__name__}: {e}"}
     if on_progress is not None:
         on_progress()
     if latents is None:
-        latents = _draw_latents(cfg, generator)
+        latents = _draw_latents(generator, _latent_shape(cfg, refine))
+    if mpc_latents is None:
+        mpc_latents = _draw_latents(generator, _latent_shape(cfg, mpc=True))
     device = state.rng.device
 
-    def dispatch(scene_b: Scene, bucket: int, chunk_idx: list[int]) -> None:
-        _record_dispatch(len(chunk_idx), bucket)
-        z = latents(bucket).to(device)
-        result = _serve_plan_program(cfg, state, _to_device(scene_b, device),
-                                     z, n_diverse)
-        best_traj, best_score, best_reached, diverse = _fetch(result)
+    def answer(chunk_idx: list[int], bucket: int, fields) -> None:
+        """Each request's response: ``fields(j)`` of its chunk slot, then
+        its latency and bucket."""
         t_done = time.perf_counter()
         for j, i in enumerate(chunk_idx):
             responses[i] = {
-                "best_traj": best_traj[j].tolist(),
-                "best_score": float(best_score[j]),
-                "best_reached": float(best_reached[j]),
-                "diverse_trajs": diverse[j].tolist(),
+                **fields(j),
                 "latency_ms": round((t_done - arrivals[i]) * 1e3, 2),
                 "batch_size": bucket,
             }
         if on_progress is not None:
             on_progress()
 
-    _dispatch_buckets(scenes, idx, dispatch)
+    def dispatch_plan(scene_b: Scene, bucket: int,
+                      chunk_idx: list[int]) -> None:
+        _record_dispatch(len(chunk_idx), bucket, mpc=False)
+        z = latents(bucket).to(device)
+        result = _serve_plan_program(cfg, state, _to_device(scene_b, device),
+                                     z, n_diverse, refine)
+        best_traj, best_score, best_reached, diverse = _fetch(result)
+        answer(chunk_idx, bucket, lambda j: {
+            "best_traj": best_traj[j].tolist(),
+            "best_score": float(best_score[j]),
+            "best_reached": float(best_reached[j]),
+            "diverse_trajs": diverse[j].tolist()})
+
+    def dispatch_mpc(scene_b: Scene, bucket: int,
+                     chunk_idx: list[int]) -> None:
+        _record_dispatch(len(chunk_idx), bucket, mpc=True)
+        z = mpc_latents(bucket).to(device)
+        result = _serve_mpc_program(cfg, state, _to_device(scene_b, device),
+                                    z)
+        path, reached, collided = _fetch_mpc(result)
+        answer(chunk_idx, bucket, lambda j: {
+            "path": path[j].tolist(), "reached": float(reached[j]),
+            "collided": float(collided[j]), "n_replans": result.n_replans})
+
+    _dispatch_buckets(*plain, dispatch_plan)
+    _dispatch_buckets(*closed, dispatch_mpc)
     return responses
+
+
+def _fetch_mpc(result) -> tuple:
+    """A closed-loop dispatch's answers on the host in one copy: the paths
+    ``[B, T, 2]`` and the reached and collided flags ``[B]``."""
+    b, t, _ = result.positions.shape
+    flat = torch.cat([result.positions.reshape(b, -1),
+                      result.reached[:, None], result.collided[:, None]],
+                     dim=1).cpu()
+    path, reached, collided = flat.split([2 * t, 1, 1], 1)
+    return (path.reshape(b, t, 2).numpy(), reached[:, 0].numpy(),
+            collided[:, 0].numpy())
 
 
 def _dispatch_buckets(scenes: list[Scene], idx: list[int], dispatch) -> None:
@@ -338,10 +424,9 @@ def warmup(cfg: Config, state: TrainState, n_diverse: int = 4,
            refine: str = "none", buckets=BUCKETS, mpc: bool = False) -> float:
     """One dispatch of every bucket size before traffic arrives (the CUDA
     context, cuBLAS and cuDNN handles, kernel loads and the allocator's
-    blocks of each shape); returns the seconds it took.  Its latents come
-    from a generator of its own, so the served stream is unchanged."""
-    if mpc:
-        raise _not_ported("warmup of closed-loop buckets (--warmup-mpc)")
+    blocks of each shape), and with ``mpc`` one closed-loop dispatch of
+    each too; returns the seconds it took.  Its latents come from a
+    generator of its own, so the served stream is unchanged."""
     generator = torch.Generator(device=state.rng.device).manual_seed(0)
     dummy = {"start": [0.1, 0.1], "goal": [0.9, 0.9],
              "obstacles": [[0.5, 0.5, 0.1]]}
@@ -349,6 +434,10 @@ def warmup(cfg: Config, state: TrainState, n_diverse: int = 4,
     for b in buckets:
         handle_batch(cfg, state, [dict(dummy) for _ in range(b)], generator,
                      n_diverse=n_diverse, refine=refine)
+        if mpc:
+            handle_batch(cfg, state, [dict(dummy, mpc=True)
+                                      for _ in range(b)], generator,
+                         n_diverse=n_diverse, refine=refine)
     return time.perf_counter() - t0
 
 
@@ -442,7 +531,8 @@ def serve(cfg: Config, state: TrainState, stdin: IO[str] = sys.stdin,
     source = _LineSource(stdin)
     writer = _ResponseWriter(stdout, overlap)
     try:
-        n = _serve_loop(cfg, state, source, writer, generator, reload_fn)
+        n = _serve_loop(cfg, state, source, writer, generator, reload_fn,
+                        refine)
     except BaseException:
         # Stop the writer without letting a second write error hide the
         # loop's own, and without hanging on a wedged pipe.
@@ -457,7 +547,7 @@ def serve(cfg: Config, state: TrainState, stdin: IO[str] = sys.stdin,
 
 def _serve_loop(cfg: Config, state: TrainState, source: _LineSource,
                 writer: _ResponseWriter, generator: torch.Generator,
-                reload_fn=None) -> int:
+                reload_fn=None, refine: str = "none") -> int:
     n = 0
     stop = False
 
@@ -518,7 +608,7 @@ def _serve_loop(cfg: Config, state: TrainState, source: _LineSource,
                 next_unit += 1
 
         if flat:
-            handle_batch(cfg, state, flat, generator,
+            handle_batch(cfg, state, flat, generator, refine=refine,
                          arrivals=[t_arrive] * len(flat),
                          on_progress=flush_ready, out=answers)
         flush_ready()

@@ -39,8 +39,10 @@ from ndivplanning_tpu_torch.utils.config import Config
 EVAL_SUITE_SEED = 0xE7A1
 EVAL_SUITE_SIZE = 512
 
-# The JAX package's planner families; only the one-shot planner is ported.
+# The JAX package's planner families; the one-shot planner and CEM are
+# ported.
 PLANNERS = ("oneshot", "cem", "grad", "trajopt", "ilqr", "cem+trajopt")
+PORTED_PLANNERS = ("oneshot", "cem")
 
 # Keyed on task_fingerprint (the fields make_task consumes), not the whole
 # Config: configs differing only in workdir, steps or LR share one suite.
@@ -119,6 +121,49 @@ def evaluate_fixed(cfg: Config, state: TrainState,
         seed + 1), suite, use_ema=use_ema)
 
 
+def evaluate_fixed_mpc(cfg: Config, state: TrainState,
+                       n_scenes: int = EVAL_SUITE_SIZE,
+                       seed: int = EVAL_SUITE_SEED, total_steps: int = 64,
+                       replan_every: int = 8, n_candidates: int = 256,
+                       scene_chunk: int = 128) -> dict:
+    """Closed-loop quality on the frozen suite: every suite scene runs as a
+    receding-horizon episode (``planning/mpc.py::mpc_rollout_batch``,
+    replanning from the live state every ``replan_every`` steps).
+
+    The latents of every scene and cycle are drawn at once on the CPU from
+    ``seed + 2``, so the result depends neither on ``scene_chunk`` (scenes
+    per dispatch) nor on the device.  Returns ``eval_mpc_success_rate``,
+    ``eval_mpc_collision_rate`` and the episode's parameters."""
+    from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
+
+    if scene_chunk < 1:
+        raise ValueError(f"scene_chunk must be >= 1, got {scene_chunk}")
+    n_cycles = total_steps // replan_every
+    device = _device(state)
+    suite = make_eval_suite(cfg, n_scenes, seed, device)
+    z = torch.randn((n_scenes, n_cycles, n_candidates, cfg.latent_dim),
+                    generator=torch.Generator().manual_seed(seed + 2))
+    reached, collided = [], []
+    for lo in range(0, n_scenes, scene_chunk):
+        rows = slice(lo, min(lo + scene_chunk, n_scenes))
+        part = suite.map(lambda t: t[rows])
+        result = mpc_rollout_batch(
+            cfg, state, part.scenes, part.conditions,
+            total_steps=total_steps, replan_every=replan_every,
+            n_candidates=n_candidates, z=z[rows].to(device))
+        reached.append(result.reached)
+        collided.append(result.collided)
+    reached = torch.cat(reached).cpu().numpy()
+    collided = torch.cat(collided).cpu().numpy()
+    return {
+        "eval_mpc_success_rate": float(np.mean(reached)),
+        "eval_mpc_collision_rate": float(np.mean(collided)),
+        "eval_mpc_total_steps": float(total_steps),
+        "eval_mpc_replan_every": float(replan_every),
+        "eval_mpc_candidates": float(n_candidates),
+    }
+
+
 def evaluate_fixed_planner(cfg: Config, state: TrainState,
                            planner: str = "oneshot",
                            n_scenes: int = EVAL_SUITE_SIZE,
@@ -127,36 +172,53 @@ def evaluate_fixed_planner(cfg: Config, state: TrainState,
     """Open-loop planner quality on the frozen suite: every suite scene is
     planned once and the best candidate's score and reach are recorded.
 
-    Only ``planner="oneshot"`` (``planning/planner.py::plan_batch``) is
-    ported.  The latents of every scene are drawn at once on the CPU from
-    ``seed + 3``, so the result does not depend on ``scene_chunk`` (scenes
-    per dispatch, default 128) or on the device.  Returns
+    ``planner`` is ``"oneshot"`` (``planning/planner.py::plan_batch``,
+    default chunk 128) or ``"cem"`` (``planning/cem.py::plan_cem_batch``,
+    default chunk 16); the other planners of the JAX package are not
+    ported.  The latents (CEM: its noise) of every scene are drawn at once
+    on the CPU from ``seed + 3``, so the result does not depend on
+    ``scene_chunk`` (scenes per dispatch) or on the device.  Returns
     ``eval_plan_best_score`` (suite mean of the best scores, LOWER is
     better), ``eval_plan_reach_rate``, ``eval_plan_n_scenes`` and the
     planner's name."""
+    from ndivplanning_tpu_torch.planning.cem import (
+        cem_population,
+        plan_cem_batch,
+    )
     from ndivplanning_tpu_torch.planning.planner import plan_batch
 
-    if planner != "oneshot":
+    if planner not in PORTED_PLANNERS:
         if planner in PLANNERS:
             raise NotImplementedError(
                 f"evaluate_fixed_planner: planner {planner!r} is not ported "
-                "yet (only 'oneshot')")
+                f"yet (ported: {', '.join(PORTED_PLANNERS)})")
         raise ValueError(f"unknown planner {planner!r}; choose from "
                          f"{list(PLANNERS)}")
-    chunk = 128 if scene_chunk is None else scene_chunk
+    if planner == "oneshot":
+        shape = (cfg.n_candidates, cfg.latent_dim)
+        chunk = 128 if scene_chunk is None else scene_chunk
+    else:
+        n, _, iters = cem_population(cfg)
+        shape = (iters + 1, n, cfg.latent_dim)
+        chunk = 16 if scene_chunk is None else scene_chunk
     if chunk < 1:
         raise ValueError(f"scene_chunk must be >= 1, got {chunk}")
     device = _device(state)
     suite = make_eval_suite(cfg, n_scenes, seed, device)
-    z = torch.randn((n_scenes, cfg.n_candidates, cfg.latent_dim),
+    z = torch.randn((n_scenes, *shape),
                     generator=torch.Generator().manual_seed(seed + 3))
     scores, reached = [], []
     for lo in range(0, n_scenes, chunk):
         rows = slice(lo, min(lo + chunk, n_scenes))
         part = suite.map(lambda t: t[rows])
-        s, r = plan_batch_result(plan_batch(cfg, state, part.scenes,
-                                            part.conditions,
-                                            z=z[rows].to(device)))
+        zc = z[rows].to(device)
+        if planner == "oneshot":
+            result = plan_batch(cfg, state, part.scenes, part.conditions,
+                                z=zc)
+        else:
+            result, _ = plan_cem_batch(cfg, state, part.scenes,
+                                       part.conditions, eps=zc)
+        s, r = plan_batch_result(result)
         scores.append(s)
         reached.append(r)
     scores = torch.cat(scores).cpu().numpy()

@@ -175,6 +175,67 @@ def test_family_artifact_is_the_reconversion_bitwise(tmp_path, name):
     assert state.step == state.g_opt.count == step
 
 
+# The three distilled models (expert iteration on quadrotor150k and a
+# unicycle run): their best step and family.  Their configs set no knob
+# the port lacks (g_arch mlp, ada_target 0, d_reset_every 0).
+DISTILLED_STEPS = {"quadrotor_distilled": (504, "quadrotor"),
+                   "quadrotor_distilled_ilqr": (1512, "quadrotor"),
+                   "unicycle_distilled": (4536, "unicycle")}
+
+
+@pytest.mark.parametrize("name", sorted(DISTILLED_STEPS))
+def test_distilled_artifact_is_the_reconversion_bitwise(tmp_path, name):
+    step, env = DISTILLED_STEPS[name]
+    committed = os.path.join(REPO, "checkpoints_torch", name)
+    _assert_reconversion_bitwise(tmp_path, os.path.join(REPO, "checkpoints",
+                                                        name), committed, step)
+    cfg = load_config(committed).replace(workdir=committed)
+    assert (cfg.env, cfg.conditioning, cfg.rollout_mode, cfg.g_arch) == (
+        env, "startgoal", "waypoints", "mlp")
+    assert (cfg.ada_target, cfg.d_reset_every, cfg.g_ema_decay) == (
+        0.0, 0, 0.999)
+    state = _load_state(cfg, "cpu")
+    assert state.step == state.g_opt.count == step
+
+
+@pytest.mark.parametrize("name", sorted(DISTILLED_STEPS))
+def test_distilled_generator_plans_as_jax(name):
+    """The restored EMA G on JAX's 64 latents of a three-obstacle scene:
+    candidates within 1e-5 of the JAX checkpoint's.  The unicycle's plan
+    scores at rtol/atol 1e-4 with the same best pick; the quadrotor's
+    32-step rollouts agree in aggregate (tests/test_torch_envs.py): 80%
+    of the scores within 1e-4, the mean within 1%."""
+    step, env = DISTILLED_STEPS[name]
+    src = os.path.join(REPO, "checkpoints", name)
+    jcfg = jax_load_config(src)
+    jstate = ckpt.restore_latest(os.path.join(src, "best"), jax_create(jcfg))
+    assert int(jstate.step) == step
+    committed = os.path.join(REPO, "checkpoints_torch", name)
+    cfg = load_config(committed).replace(workdir=committed)
+    state = _load_state(cfg, "cpu")
+    obstacles = [[0.5, 0.5, 0.12], [0.35, 0.65, 0.08], [0.65, 0.35, 0.1]]
+    jscene = JaxScene.create(jnp.asarray([0.1, 0.1]), jnp.asarray([0.9, 0.9]),
+                             jnp.asarray(obstacles))
+    scene = Scene.create([0.1, 0.1], [0.9, 0.9], obstacles, device="cpu")
+    condition = np.asarray([0.1, 0.1, 0.9, 0.9], np.float32)
+    key = jax.random.PRNGKey(5)
+    want = jax_plan(jcfg, jstate, jscene, jnp.asarray(condition), key,
+                    n_candidates=64)
+    z = np.asarray(jax.random.normal(key, (1, 64, cfg.latent_dim)))
+    got = plan(cfg, state, scene, torch.from_numpy(condition),
+               n_candidates=64, z=torch.tensor(z))
+    np.testing.assert_allclose(got.taus.numpy(), np.asarray(want.taus),
+                               rtol=1e-5, atol=1e-5)
+    scores, wscores = got.scores.numpy(), np.asarray(want.scores)
+    if env == "unicycle":
+        np.testing.assert_allclose(scores, wscores, rtol=1e-4, atol=1e-4)
+        assert int(np.argmin(scores)) == int(np.argmin(wscores))
+    else:
+        close = np.abs(scores - wscores) <= 1e-4 + 1e-4 * np.abs(wscores)
+        assert close.mean() >= 0.8
+        np.testing.assert_allclose(scores.mean(), wscores.mean(), rtol=1e-2)
+
+
 def test_artifact_carries_the_whole_jax_state(planning512):
     """G, D, EMA G, both Adam chains (count, mu, nu) and the step."""
     jcfg, best, cfg, state = planning512

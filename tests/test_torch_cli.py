@@ -9,6 +9,7 @@ the JAX CLI that the port lacks exits with a message naming it.
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -56,8 +57,10 @@ def test_client_drives_cli_serve_over_pipes(tmp_path):
         assert "best_score" in raw[0] and "error" in raw[1]
         with pytest.raises(ServerError):
             c.plan(start=[0.1], goal=[0.9, 0.9])
-        with pytest.raises(ServerError, match="mpc"):
-            c.mpc(start=[0.1, 0.1], goal=[0.9, 0.9])
+        episode = c.mpc(start=[0.1, 0.1], goal=[0.9, 0.9])
+        assert set(episode) == {"path", "reached", "collided", "n_replans",
+                                "latency_ms", "batch_size"}
+        assert len(episode["path"]) == 64 and episode["n_replans"] == 8
         state = create_train_state(cfg, device="cpu")
         state.step = 9
         checkpoint.save_checkpoint(str(tmp_path / "best"), state)
@@ -107,29 +110,29 @@ def test_unported_subcommands_exit_with_their_name(cmd):
 
 
 @pytest.mark.parametrize("args,flag", [
-    (["plan", "--mpc"], "--mpc"),
+    (["plan", "--refine", "trajopt"], "--refine trajopt"),
     (["plan", "--sharded"], "--sharded"),
-    (["plan", "--refine", "cem"], "--refine"),
-    (["serve", "--refine", "grad"], "--refine"),
+    (["plan", "--refine", "ilqr"], "--refine ilqr"),
+    (["serve", "--refine", "grad"], "--refine grad"),
     (["plan", "--profile-dir", "prof"], "--profile-dir"),
     (["serve", "--tcp", "0"], "--tcp"),
     (["serve", "--cross-batch"], "--cross-batch"),
     (["serve", "--max-pending", "4"], "--max-pending"),
     (["serve", "--deadline-ms", "50"], "--deadline-ms"),
     (["serve", "--watch-best"], "--watch-best"),
-    (["serve", "--warmup-mpc"], "--warmup-mpc"),
+    (["serve", "--refine", "cem+trajopt"], "--refine cem+trajopt"),
     (["train", "--dataset", "data.npz"], "--dataset"),
     (["train", "--epochs", "2"], "--epochs"),
     (["train", "--eval-fraction", "0.2"], "--eval-fraction"),
     (["train", "--profile-dir", "prof"], "--profile-dir"),
     (["eval", "--dataset", "data.npz"], "--dataset"),
-    (["eval", "--mpc"], "--mpc"),
-    (["eval", "--planner", "cem"], "--planner cem"),
+    (["eval", "--planner", "grad"], "--planner grad"),
+    (["eval", "--planner", "trajopt"], "--planner trajopt"),
     (["eval", "--planner", "ilqr"], "--planner ilqr"),
     (["eval", "--debug-nans"], "--debug-nans"),
 ])
 def test_unported_flags_exit_with_their_name(args, flag):
-    with pytest.raises(SystemExit, match=f"{flag} is not ported"):
+    with pytest.raises(SystemExit, match=re.escape(f"{flag} is not ported")):
         main([*args, "--device", "cpu"])
 
 
@@ -246,3 +249,71 @@ def test_client_tcp_and_retries_are_not_ported_yet():
     c = PlanningClient(None, None)
     with pytest.raises(NotImplementedError, match="serve_tcp"):
         c.plan(start=[0.1, 0.1], goal=[0.9, 0.9], retries=2)
+
+
+MPC_KEYS = {"eval_mpc_success_rate", "eval_mpc_collision_rate",
+            "eval_mpc_total_steps", "eval_mpc_replan_every",
+            "eval_mpc_candidates"}
+PLAN_MPC_KEYS = {"episodes", "success_rate", "collision_rate", "n_replans",
+                 "total_steps", "replan_every", "episodes_per_sec",
+                 "first_call_s"}
+
+
+def test_cli_mpc_eval_and_plan_print_jax_keys(capsys):
+    """``eval --mpc`` and ``plan --mpc`` on quadrotor150k (its published
+    result is closed-loop) with JAX's flags and JSON keys, at a small
+    suite and candidate count."""
+    workdir = os.path.join(REPO, "checkpoints_torch", "quadrotor150k")
+    out = _cli_json(capsys, ["eval", "--workdir", workdir, "--mpc",
+                             "--suite-size", "6", "--mpc-steps", "32",
+                             "--mpc-replan", "8", "--mpc-candidates", "32",
+                             "--device", "cpu"])
+    assert set(out) == MPC_KEYS
+    assert (out["eval_mpc_total_steps"], out["eval_mpc_replan_every"],
+            out["eval_mpc_candidates"]) == (32.0, 8.0, 32.0)
+    assert 0.0 <= out["eval_mpc_success_rate"] <= 1.0
+    plan = _cli_json(capsys, ["plan", "--workdir", workdir, "--mpc",
+                              "--mpc-episodes", "3", "--mpc-candidates",
+                              "32", "--device", "cpu"])
+    assert set(plan) == PLAN_MPC_KEYS
+    assert (plan["episodes"], plan["n_replans"], plan["total_steps"]) == (
+        3, 8, 64)
+    one = _cli_json(capsys, ["plan", "--workdir", workdir, "--mpc",
+                             "--mpc-candidates", "32", "--device", "cpu"])
+    assert set(one) == PLAN_MPC_KEYS | {"final_pos"}
+    with pytest.raises(ValueError, match="64 % 7"):
+        main(["plan", "--workdir", workdir, "--mpc", "--mpc-replan", "7",
+              "--device", "cpu"])
+
+
+def test_cli_plans_and_evaluates_with_cem(capsys):
+    """``plan --refine cem`` adds the best-so-far curve (non-increasing)
+    to one-shot's keys; ``eval --planner cem`` the planner ladder's keys."""
+    workdir = os.path.join(REPO, "checkpoints_torch", "unicycle150k")
+    out = _cli_json(capsys, ["plan", "--workdir", workdir, "--refine", "cem",
+                             "--device", "cpu"])
+    assert set(out) == {"best_score", "best_reached", "n_candidates",
+                        "best_curve"}
+    assert out["n_candidates"] == 1000 // 6 and len(out["best_curve"]) == 5
+    curve = out["best_curve"]
+    assert all(b <= a for a, b in zip(curve, curve[1:]))
+    assert out["best_score"] <= curve[-1] + 1e-6
+    ev = _cli_json(capsys, ["eval", "--workdir", workdir, "--planner", "cem",
+                            "--suite-size", "4", "--device", "cpu"])
+    assert ev["eval_planner"] == "cem" and ev["eval_plan_n_scenes"] == 4.0
+
+
+def test_cli_serve_warms_up_mpc_and_refines_with_cem(tmp_path):
+    """``serve --warmup-mpc --refine cem`` over pipes: closed-loop lines
+    and CEM plans, and ``stats`` counts the closed-loop requests (the
+    warm-up's too)."""
+    with PlanningClient.spawn([*_serve_args(tmp_path), "--warmup-mpc",
+                               "--refine", "cem"]) as c:
+        resp = c.plan(start=[0.1, 0.1], goal=[0.9, 0.9])
+        assert len(resp["best_traj"]) == 32 and "best_score" in resp
+        out = c.plan_batch([{"start": [0.2, 0.2], "goal": [0.8, 0.8],
+                             "mpc": True},
+                            {"start": [0.3, 0.1], "goal": [0.7, 0.9]}])
+        assert len(out[0]["path"]) == 64 and "best_traj" in out[1]
+        stats = c.stats()
+        assert stats["mpc_requests"] == sum((1, 2, 4, 8, 16)) + 1

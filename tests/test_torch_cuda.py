@@ -12,6 +12,7 @@ import math
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ndivplanning_tpu_torch.ops import ndiv_cuda
 from ndivplanning_tpu_torch.ops.ndiv import (
@@ -706,3 +707,72 @@ def test_card_eval_matches_the_cpu_on_planning512(cuda):
             assert abs(card[key] - want) <= 2 / (512 * cfg.k) + 1e-9, key
         else:
             assert abs(card[key] - want) <= 1e-5 * abs(want), key
+
+
+class _CpuResults(TorchDispatchMode):
+    """Records every op whose result is a tensor on the CPU."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        leaves = out if isinstance(out, (tuple, list)) else (out,)
+        if any(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+               for t in leaves):
+            self.ops.append(str(func))
+        return out
+
+
+def _unicycle150k_on_the_card(n):
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.data.scenes import random_scene_batch
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    workdir = "checkpoints_torch/unicycle150k"
+    cfg = load_config(workdir).replace(workdir=workdir)
+    state = _load_state(cfg, "cuda")
+    scenes = random_scene_batch(torch.Generator(device="cuda").manual_seed(3),
+                                n)
+    return cfg, state, scenes, _condition_for(cfg, scenes)
+
+
+def test_mpc_batch_on_the_card_stays_there_and_repeats_bitwise(cuda):
+    """8 closed-loop episodes of unicycle150k (64 steps, a replan every 8
+    from 256 candidates): no op yields a CPU tensor, and the same seed
+    gives the same paths bitwise."""
+    from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
+
+    cfg, state, scenes, conds = _unicycle150k_on_the_card(8)
+    run = lambda: mpc_rollout_batch(
+        cfg, state, scenes, conds,
+        torch.Generator(device="cuda").manual_seed(5))
+    log = _CpuResults()
+    with log:
+        a = run()
+    assert log.ops == []
+    b = run()
+    assert torch.equal(a.positions, b.positions)
+    assert torch.equal(a.reached, b.reached)
+    assert a.positions.shape == (8, 64, 2) and a.positions.is_cuda
+
+
+def test_cem_plan_on_the_card_stays_there_and_repeats_bitwise(cuda):
+    """A CEM plan of 8 unicycle150k scenes at the default budget: no op
+    yields a CPU tensor, and the same seed gives the same plan bitwise."""
+    from ndivplanning_tpu_torch.planning.cem import plan_cem_batch
+
+    cfg, state, scenes, conds = _unicycle150k_on_the_card(8)
+    run = lambda: plan_cem_batch(
+        cfg, state, scenes, conds,
+        torch.Generator(device="cuda").manual_seed(5))
+    log = _CpuResults()
+    with log:
+        a, curve_a = run()
+    assert log.ops == []
+    b, curve_b = run()
+    assert torch.equal(a.taus, b.taus) and torch.equal(curve_a, curve_b)
+    assert torch.equal(a.diverse_idx, b.diverse_idx)
+    assert (curve_a[:, 1:] <= curve_a[:, :-1]).all()

@@ -241,7 +241,7 @@ def test_oneshot_planner_ladder_does_not_depend_on_the_chunk():
         "eval_plan_n_scenes": 10.0, "eval_planner": "oneshot"}
 
 
-@pytest.mark.parametrize("planner", ["cem", "grad", "trajopt", "ilqr",
+@pytest.mark.parametrize("planner", ["grad", "trajopt", "ilqr",
                                      "cem+trajopt"])
 def test_refining_planners_are_not_ported_yet(planner):
     cfg = _small()
@@ -250,6 +250,119 @@ def test_refining_planners_are_not_ported_yet(planner):
         ev.evaluate_fixed_planner(cfg, state, planner=planner, n_scenes=2)
     with pytest.raises(ValueError, match="unknown planner 'bogus'"):
         ev.evaluate_fixed_planner(cfg, state, planner="bogus", n_scenes=2)
+
+
+def test_cem_planner_ladder_does_not_depend_on_the_chunk():
+    """evaluate_fixed_planner("cem") is plan_cem_batch over the whole
+    suite with the noise of seed + 3, whatever the scenes per dispatch."""
+    from ndivplanning_tpu_torch.planning.cem import (
+        cem_population,
+        plan_cem_batch,
+    )
+
+    cfg = _small("goalcond", n_candidates=48)
+    state = create_train_state(cfg, device="cpu")
+    outs = [ev.evaluate_fixed_planner(cfg, state, "cem", n_scenes=10,
+                                      seed=3, scene_chunk=chunk)
+            for chunk in (None, 4, 10)]
+    assert outs[0] == outs[1] == outs[2]
+    n, _, iters = cem_population(cfg)
+    suite = ev.make_eval_suite(cfg, 10, 3, device="cpu")
+    eps = torch.randn((10, iters + 1, n, cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(6))
+    result, _ = plan_cem_batch(cfg, state, suite.scenes, suite.conditions,
+                               eps=eps)
+    score, reached = ev.plan_batch_result(result)
+    assert outs[0] == {
+        "eval_plan_best_score": float(np.mean(score.numpy())),
+        "eval_plan_reach_rate": float(np.mean(reached.numpy())),
+        "eval_plan_n_scenes": 10.0, "eval_planner": "cem"}
+
+
+MPC_EPISODE = dict(total_steps=16, replan_every=4, n_candidates=16)
+UNICYCLE_EPISODE = dict(total_steps=32, replan_every=8, n_candidates=16)
+
+
+def test_mpc_suite_does_not_depend_on_the_chunk():
+    """evaluate_fixed_mpc is mpc_rollout_batch over the whole suite with
+    the latents of seed + 2 drawn at once, whatever the chunk; the keys
+    are JAX's."""
+    from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
+
+    cfg = _small("goalcond")
+    state = create_train_state(cfg, device="cpu")
+    outs = [ev.evaluate_fixed_mpc(cfg, state, n_scenes=10, seed=3,
+                                  scene_chunk=chunk, **MPC_EPISODE)
+            for chunk in (128, 3, 10)]
+    assert outs[0] == outs[1] == outs[2]
+    assert set(outs[0]) == {"eval_mpc_success_rate",
+                            "eval_mpc_collision_rate", "eval_mpc_total_steps",
+                            "eval_mpc_replan_every", "eval_mpc_candidates"}
+    suite = ev.make_eval_suite(cfg, 10, 3, device="cpu")
+    z = torch.randn((10, 4, 16, cfg.latent_dim),
+                    generator=torch.Generator().manual_seed(5))
+    result = mpc_rollout_batch(cfg, state, suite.scenes, suite.conditions,
+                               z=z, **MPC_EPISODE)
+    assert outs[0]["eval_mpc_success_rate"] == float(np.mean(
+        result.reached.numpy()))
+    assert outs[0]["eval_mpc_collision_rate"] == float(np.mean(
+        result.collided.numpy()))
+    assert (outs[0]["eval_mpc_total_steps"], outs[0]["eval_mpc_replan_every"],
+            outs[0]["eval_mpc_candidates"]) == (16.0, 4.0, 16.0)
+    with pytest.raises(ValueError, match="scene_chunk"):
+        ev.evaluate_fixed_mpc(cfg, state, n_scenes=2, scene_chunk=0)
+
+
+def test_mpc_suite_matches_jax_on_unicycle150k():
+    """JAX's frozen suite (8 scenes) and its per-scene MPC keys through the
+    committed unicycle150k, 32-step episodes replanning every 8 from 16
+    candidates: every episode's reached and collided flags
+    equal JAX's evaluate_fixed_mpc episodes (mpc_rollout_batch), paths
+    within 1e-5, and so its rates."""
+    import os
+
+    from ndivplanning_tpu.planning.mpc import (
+        mpc_rollout_batch as jax_mpc_batch,
+    )
+    from ndivplanning_tpu.utils import checkpoint as jax_ckpt
+    from ndivplanning_tpu.utils.config import load_config as jax_load_config
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
+    from ndivplanning_tpu_torch.utils.config import load_config
+    from test_torch_mpc import jax_cycle_latents
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    name, n_scenes = "unicycle150k", 8
+    jcfg = jax_load_config(os.path.join(root, "checkpoints", name))
+    jstate = jax_ckpt.restore_latest(
+        os.path.join(root, "checkpoints", name, "best"), jax_create(jcfg))
+    workdir = os.path.join(root, "checkpoints_torch", name)
+    state = _load_state(load_config(workdir).replace(workdir=workdir), "cpu")
+    cfg = load_config(workdir)
+    want_rates = jax_ev.evaluate_fixed_mpc(jcfg, jstate, n_scenes=n_scenes,
+                                           **UNICYCLE_EPISODE)
+    suite = jax_ev.make_eval_suite(jcfg, n_scenes)
+    keys = jax.random.split(jax.random.PRNGKey(jax_ev.EVAL_SUITE_SEED + 2),
+                            n_scenes)
+    want = jax_mpc_batch(jcfg, jstate, suite.scenes, suite.conditions, keys,
+                         **UNICYCLE_EPISODE)
+    z = np.stack([jax_cycle_latents(k, 4, 16, cfg.latent_dim)
+                  for k in keys])
+    batch = _to_torch_batch(suite)
+    got = mpc_rollout_batch(cfg, state, batch.scenes, batch.conditions,
+                            z=torch.from_numpy(z), **UNICYCLE_EPISODE)
+    np.testing.assert_allclose(got.positions.numpy(),
+                               np.asarray(want.positions), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got.reached.numpy(),
+                                  np.asarray(want.reached))
+    np.testing.assert_array_equal(got.collided.numpy(),
+                                  np.asarray(want.collided))
+    assert float(np.mean(got.reached.numpy())) == want_rates[
+        "eval_mpc_success_rate"]
+    assert float(np.mean(got.collided.numpy())) == want_rates[
+        "eval_mpc_collision_rate"]
+    assert want_rates["eval_mpc_success_rate"] > 0.0
 
 
 @pytest.mark.parametrize("env", ["quadrotor", "arm3"])

@@ -58,6 +58,8 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
             "ndivplanning_tpu_torch.__main__",
             "ndivplanning_tpu_torch.planning.server",
             "ndivplanning_tpu_torch.planning.client",
+            "ndivplanning_tpu_torch.planning.mpc",
+            "ndivplanning_tpu_torch.planning.cem",
             "ndivplanning_tpu_torch.utils.checkpoint",
             "ndivplanning_tpu_torch.utils.metrics",
             "ndivplanning_tpu_torch.train.evaluate",

@@ -12,6 +12,7 @@ the port has, on a small random model.
 import io
 import json
 import os
+import re
 import threading
 import time
 
@@ -410,17 +411,196 @@ def test_two_servers_with_one_seed_answer_alike():
 def test_unported_paths_raise_with_their_name():
     cfg = _cfg()
     state = _state(cfg)
-    with pytest.raises(NotImplementedError, match="refine='cem'"):
-        handle_batch(cfg, state, [_req()], _gen(), refine="cem")
+    for refine in ("grad", "trajopt", "ilqr", "cem+trajopt"):
+        with pytest.raises(NotImplementedError,
+                           match=re.escape(f"refine={refine!r}")):
+            handle_batch(cfg, state, [_req()], _gen(), refine=refine)
+        with pytest.raises(NotImplementedError, match=re.escape(refine)):
+            serve(cfg, state, stdin=io.StringIO("quit\n"),
+                  stdout=io.StringIO(), refine=refine)
     with pytest.raises(NotImplementedError, match="serve_tcp"):
         srv.serve_tcp(cfg, state)
     with pytest.raises(NotImplementedError, match="--cross-batch"):
         srv._CrossBatcher(cfg, state)
     with pytest.raises(NotImplementedError, match="--watch-best"):
         srv.BestWatcher(lambda: None, "best_path.json")
-    with pytest.raises(NotImplementedError, match="--warmup-mpc"):
-        warmup(cfg, state, mpc=True)
-    # A closed-loop request is answered with its own error; the rest plan.
-    out = handle_batch(cfg, state, [dict(_req(), mpc=True), _req()], _gen())
-    assert out[0]["error"].startswith("NotImplementedError")
-    assert "mpc" in out[0]["error"] and "best_score" in out[1]
+
+
+# Closed-loop serving in the parity tests at a smaller episode (both
+# servers read these module constants at dispatch time).
+SMALL_MPC = {"MPC_TOTAL_STEPS": 32, "MPC_REPLAN_EVERY": 8,
+             "MPC_CANDIDATES": 16}
+
+
+def _small_mpc(monkeypatch, *modules):
+    for module in modules:
+        for name, value in SMALL_MPC.items():
+            monkeypatch.setattr(module, name, value)
+
+
+def jax_mpc_latents(key, n_cycles, n, zdim):
+    """The latent source that reproduces JAX handle_batch's closed-loop
+    draws: ``split(key, 3)`` gives the MPC key, each dispatch chunk splits
+    it once more and then into one episode key per bucket slot."""
+    from test_torch_mpc import jax_cycle_latents
+
+    _, _, chain = jax.random.split(key, 3)
+    chain = [chain]
+
+    def latents(bucket):
+        chain[0], sub = jax.random.split(chain[0])
+        return torch.from_numpy(np.stack([
+            jax_cycle_latents(k, n_cycles, n, zdim)
+            for k in jax.random.split(sub, bucket)]))
+    return latents
+
+
+def jax_cem_latents(key, iters, n, zdim):
+    """The noise source that reproduces JAX handle_batch's CEM draws (the
+    plan key's chunks and slots, then each slot's iterations)."""
+    from test_torch_cem import jax_cem_noise
+
+    _, chain, _ = jax.random.split(key, 3)
+    chain = [chain]
+
+    def latents(bucket):
+        chain[0], sub = jax.random.split(chain[0])
+        return torch.from_numpy(np.stack([
+            jax_cem_noise(k, iters, n, zdim)
+            for k in jax.random.split(sub, bucket)]))
+    return latents
+
+
+MIXED_REQUESTS = [
+    {"start": [0.1, 0.1], "goal": [0.9, 0.9],
+     "obstacles": [[0.5, 0.5, 0.12]], "mpc": True},
+    {"start": [0.2, 0.05], "goal": [0.85, 0.9]},
+    {"start": [0.1], "goal": [0.9, 0.9], "mpc": True},  # malformed
+    {"start": [0.05, 0.3], "goal": [0.9, 0.6], "mpc": True,
+     "obstacles": [[0.4, 0.5, 0.1], [0.7, 0.3, 0.1]]},
+]
+
+
+def test_mpc_requests_match_jax_on_planning512(monkeypatch):
+    """A mixed array of closed-loop and plain requests on planning512 with
+    JAX's latents (32-step episodes, a replan every 8 from 16
+    candidates): the same response keys, paths within SCORE_TOL, the
+    flags and replans equal; the plain request as one-shot parity has it;
+    the malformed one its own error."""
+    import ndivplanning_tpu.planning.server as jax_srv
+    from test_torch_checkpoint import jax_planning512, torch_planning512
+
+    _small_mpc(monkeypatch, srv, jax_srv)
+    jcfg, jstate = jax_planning512()
+    jcfg = jcfg.replace(n_candidates=N_PARITY)
+    cfg, state = torch_planning512(n_candidates=N_PARITY)
+    key = jax.random.PRNGKey(8)
+    want = jax_handle_batch(jcfg, jstate, MIXED_REQUESTS, key)
+    got = handle_batch(cfg, state, MIXED_REQUESTS, _gen(),
+                       latents=jax_latents(key, N_PARITY, cfg.latent_dim),
+                       mpc_latents=jax_mpc_latents(key, 4, 16,
+                                                   cfg.latent_dim))
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        if "error" in w:
+            assert g["error"].split(":")[0] == w["error"].split(":")[0]
+            continue
+        assert g["batch_size"] == w["batch_size"]
+        if "path" in w:
+            assert len(g["path"]) == 32 and g["n_replans"] == 4
+            np.testing.assert_allclose(np.asarray(g["path"]),
+                                       np.asarray(w["path"]), **SCORE_TOL)
+            for field in ("reached", "collided", "n_replans"):
+                assert g[field] == w[field], field
+        else:
+            np.testing.assert_allclose(g["best_score"], w["best_score"],
+                                       **SCORE_TOL)
+    assert [g["batch_size"] for g in got if "path" in g] == [2, 2]
+    assert any(g.get("reached") == 1.0 for g in got)
+
+
+def test_cem_refine_matches_jax_on_planning512():
+    """``refine="cem"`` on planning512 with JAX's noise: best plans within
+    SCORE_TOL, the reach flags equal (the diverse picks of a refined
+    population are near-ties: tests/test_torch_cem.py)."""
+    from ndivplanning_tpu_torch.planning.cem import cem_population
+    from test_torch_checkpoint import jax_planning512, torch_planning512
+
+    jcfg, jstate = jax_planning512()
+    jcfg = jcfg.replace(n_candidates=N_PARITY)
+    cfg, state = torch_planning512(n_candidates=N_PARITY)
+    requests = PARITY_REQUESTS[4]
+    key = jax.random.PRNGKey(11)
+    want = jax_handle_batch(jcfg, jstate, requests, key, refine="cem")
+    n, _, iters = cem_population(cfg)
+    got = handle_batch(cfg, state, requests, _gen(), refine="cem",
+                       latents=jax_cem_latents(key, iters, n,
+                                               cfg.latent_dim))
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        if "error" in w:
+            continue
+        assert g["best_reached"] == w["best_reached"]
+        np.testing.assert_allclose(g["best_score"], w["best_score"],
+                                   **SCORE_TOL)
+        np.testing.assert_allclose(np.asarray(g["best_traj"]),
+                                   np.asarray(w["best_traj"]), **SCORE_TOL)
+
+
+def test_mpc_requests_are_counted_and_dispatched_after_plain_ones(
+        monkeypatch):
+    """Closed-loop requests split from plain ones at parse time: the plain
+    ones dispatch first, the episodes after in their own buckets, and
+    ``mpc_requests`` counts them."""
+    cfg = _cfg()
+    state = _state(cfg)
+    _small_mpc(monkeypatch, srv)
+    order = []
+    for name in ("_serve_plan_program", "_serve_mpc_program"):
+        real = getattr(srv, name)
+        monkeypatch.setattr(srv, name, lambda c, st, sc, *a, _r=real,
+                            _n=name: order.append((_n, sc.start.shape[0]))
+                            or _r(c, st, sc, *a))
+    before = srv.serving_stats()
+    reqs = [dict(_req(0.1 * i, 0.1), mpc=True) for i in range(1, 4)]
+    reqs.insert(1, _req())
+    out = handle_batch(cfg, state, reqs, _gen())
+    assert order == [("_serve_plan_program", 1), ("_serve_mpc_program", 4)]
+    assert [set(r) for r in out] == [
+        {"path", "reached", "collided", "n_replans", "latency_ms",
+         "batch_size"}] * 1 + [{"best_traj", "best_score", "best_reached",
+                                "diverse_trajs", "latency_ms",
+                                "batch_size"}] + [
+        {"path", "reached", "collided", "n_replans", "latency_ms",
+         "batch_size"}] * 2
+    assert np.asarray(out[0]["path"]).shape == (32, 2)
+    after = srv.serving_stats()
+    assert after["mpc_requests"] == before["mpc_requests"] + 3
+    assert after["requests"] == before["requests"] + 4
+    assert after["dispatches"] == before["dispatches"] + 2
+
+
+def test_serve_answers_mpc_lines_and_warms_up_mpc_buckets(monkeypatch):
+    """``warmup(mpc=True)`` adds a closed-loop dispatch of every bucket;
+    ``serve`` answers ``"mpc": true`` lines and arrays in protocol order,
+    and a server refining with CEM answers plain lines."""
+    cfg = _cfg()
+    state = _state(cfg)
+    _small_mpc(monkeypatch, srv)
+    buckets = []
+    real = srv._serve_mpc_program
+    monkeypatch.setattr(srv, "_serve_mpc_program", lambda c, st, sc, *a:
+                        buckets.append(sc.start.shape[0]) or real(c, st, sc,
+                                                                  *a))
+    assert warmup(cfg, state, mpc=True) > 0
+    assert buckets == list(BUCKETS)
+    served, lines = _serve(cfg, state, json.dumps(dict(_req(), mpc=True))
+                           + "\n" + json.dumps([_req(0.2, 0.1),
+                                                dict(_req(0.3), mpc=True)])
+                           + "\nstats\nquit\n")
+    assert served == 3
+    assert "path" in lines[0] and "best_score" in lines[1][0]
+    assert "path" in lines[1][1] and lines[2]["mpc_requests"] >= 2
+    served, lines = _serve(cfg, state, json.dumps(_req()) + "\nquit\n",
+                           refine="cem")
+    assert served == 1 and len(lines[0]["best_traj"]) == cfg.horizon
