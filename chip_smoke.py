@@ -39,7 +39,10 @@ suites as MPC episodes on the card, and 128 of them against the CPU,
 with dispatch times and profiles; `cli serve --warmup-mpc` answering
 "mpc": true requests; a CEM plan against the CPU and `cli eval
 --planner cem` beside oneshot; and the three distilled models' frozen
-suites on the card against the CPU.
+suites on the card against the CPU.  The gradient refiners (grad,
+trajopt, iLQR and CEM -> trajopt) each plan on the card against the CPU
+at their default budgets, through `cli plan --refine` and `cli serve
+--refine`, and `cli eval --planner trajopt` / `ilqr` beside oneshot.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is the device summary.
 
@@ -61,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # Published H100 SXM rates at its 700 W power limit (NVIDIA's data
 # sheet): HBM bandwidth, and float32 outside the tensor cores.
@@ -72,6 +76,13 @@ ALPHA = 0.8
 # mode).
 NDIV_KERNELS = ("ndiv_tile_kernel", "sum_partials_kernel",
                 "ndiv_warp_kernel")
+# Every profiled window opens and closes with a sleep kernel of this many
+# cycles (~5 ms on an H100): a window whose own kernels reach its edge now
+# and then loses the CUPTI records of its last kernels, or of all of them
+# (profiler_drop_check.py).  The profiler lists the sleep as PAD_KERNEL,
+# which no statistic of the window counts.
+PROFILE_PAD_CYCLES = 10_000_000
+PAD_KERNEL = "spin_kernel"
 # Kernel launches per train step under the profiler when every joint call
 # ran the tile kernel and its one-block sum (two launches), as this script
 # counted them on an NVIDIA H100 80GB HBM3 at 700.00 W.
@@ -278,6 +289,41 @@ DISTILLED_MODELS = {"quadrotor_distilled": ("quadrotor", 504),
                     "quadrotor_distilled_ilqr": ("quadrotor", 1512),
                     "unicycle_distilled": ("unicycle", 4536)}
 DISTILLED_ILQR_JAX = {"tpu_best_of_both": 0.5361, "cpu_512_scenes": 0.5144}
+# The gradient refiners at their default budgets (1000 candidates: grad
+# and trajopt refine 250 latents or warm starts, iLQR 62 warm starts over
+# 36 iterations, cem+trajopt 41 seeds of CEM's 166): each planned in
+# process on the first model of its pair, card against CPU on one set of
+# CPU-drawn noise, and through `cli plan --refine` on the second.  The
+# best score and the soft-loss curve, card against CPU, within twice the
+# sum of the CPU's own moves under the noise one ulp up and one ulp down,
+# plus SERVE_RTOL/ATOL of the CPU's values (the form of `env_families`:
+# Adam's normalised steps and the quadrotor's attitude loop turn an ulp
+# into a path; the card's G sums its GEMMs in another order, a move one
+# one-ulp move alone may undershoot, hence their sum).
+REFINE_MODELS = {"grad": ("unicycle150k", "reacher150k"),
+                 "trajopt": ("unicycle150k", "reacher150k"),
+                 "ilqr": ("quadrotor_distilled_ilqr", "quadrotor150k"),
+                 "cem+trajopt": ("quadrotor150k",
+                                 "quadrotor_distilled_ilqr")}
+# `cli serve --refine`: trajopt answers a burst of 4 lines, iLQR one.
+REFINE_SERVE = {"trajopt": ("unicycle150k", 4),
+                "ilqr": ("quadrotor_distilled_ilqr", 1)}
+# `cli eval --planner` beside oneshot on the same cut suite (64 of the
+# 512 scenes: a trajopt or iLQR plan of 16 scenes takes seconds).
+REFINE_LADDER = {"trajopt": "unicycle150k",
+                 "ilqr": "quadrotor_distilled_ilqr"}
+REFINE_LADDER_SCENES = 64
+REFINE_CLI_WORKERS = 4
+# Each refiner's profile is of its plan cut to this many steps (Adam
+# steps or iLQR iterations) and to twice as many, the device's activity
+# alone: the profiler's bookkeeping of a whole plan's 10^5-10^6 launches
+# would take minutes.  A
+# plan's launches are the cut plan's plus the steps left times the
+# launches a step (the two profiles' difference over their steps).
+REFINE_PROFILE_STEPS = 1
+REFINE_STEP_FIELD = {"grad": "grad_refine_steps",
+                     "trajopt": "trajopt_steps", "ilqr": "ilqr_iters",
+                     "cem+trajopt": "trajopt_steps"}
 # Their eval_ndiv, card against CPU: fine-tuning left the hinge nearly
 # inactive (quadrotor_distilled's total ~9e-5 on an NVIDIA H100), so the
 # card's 1e-7 moves of G's samples move the small total by 3.3e-4 of
@@ -535,25 +581,41 @@ def device_ms(torch, fn, n, sleep_cycles, repeats=5):
     return statistics.median(times)
 
 
-def profile(torch, fn, n):
+@contextlib.contextmanager
+def padded_window(torch):
+    """The body of a profiled window between two sleep kernels, each run to
+    its end apart from the body, so no clock of the body sees them."""
+    torch.cuda._sleep(PROFILE_PAD_CYCLES)
+    torch.cuda.synchronize()
+    yield
+    torch.cuda.synchronize()
+    torch.cuda._sleep(PROFILE_PAD_CYCLES)
+    torch.cuda.synchronize()
+
+
+def profile(torch, fn, n, cpu_ops=True):
     """torch.profiler over n synchronised calls: wall time, summed kernel
     time, their ratio (the device's busy share), kernel launches, and the
-    kernels that took the most device time."""
+    kernels that took the most device time.  ``cpu_ops=False`` records the
+    device's activity alone: half the bookkeeping for calls of 10^4+
+    launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu_ops:
+        activities.append(ProfilerActivity.CPU)
+    with torch_profile(activities=activities) as prof, padded_window(torch):
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and PAD_KERNEL not in e.key]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     ndiv = [e for e in kernels if any(name in e.key for name in NDIV_KERNELS)]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
@@ -1229,9 +1291,9 @@ def warp_launches_by_mode(torch, fn) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            padded_window(torch):
         out = fn()
-        torch.cuda.synchronize()
     counts = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -2152,6 +2214,191 @@ def distilled_phase(torch, ndiv_cuda):
     return {"phase": "distilled", **out}, launches
 
 
+def model_step(name: str) -> int:
+    """The recorded step of a vendored model."""
+    return {**FAMILY_MODELS, **DISTILLED_MODELS}[name][1]
+
+
+def cli_json(args, timeout=600) -> dict:
+    """Run the port's CLI in a subprocess; its last stdout line as JSON."""
+    done = subprocess.run([sys.executable, "-m", "ndivplanning_tpu_torch.cli",
+                           *args], capture_output=True, text=True,
+                          timeout=timeout)
+    if done.returncode:
+        raise AssertionError(f"cli {' '.join(args)} exited "
+                             f"{done.returncode}: {done.stderr[-2000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def refine_plan_vs_cpu(torch, ndiv_cuda, refine, name):
+    """One plan of ``refine`` on ``name`` at its default budget on the card
+    and on the CPU from one set of CPU-drawn noise (REFINE_MODELS' rule),
+    no NDiv launch, the union contract; its wall time; and profiles of the
+    plan cut to REFINE_PROFILE_STEPS steps and to twice as many.  (The card
+    tests hold a refined plan bitwise run to run.)"""
+    from ndivplanning_tpu_torch.envs.types import Scene
+    from ndivplanning_tpu_torch.planning.refine import (
+        noise_shape,
+        plan_refined_batch,
+    )
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+
+    workdir = os.path.join("checkpoints_torch", name)
+    cfg, state, cpu_state, _ = checkpoint_restore(torch, workdir,
+                                                  model_step(name))
+    scenes = Scene.stack([Scene.create(
+        [0.1, 0.1], [0.9, 0.9], [[0.5, 0.5, 0.12], [0.3, 0.7, 0.08]],
+        device="cpu")])
+    conds = _condition_for(cfg, scenes)
+    noise = torch.randn((1, *noise_shape(cfg, refine)),
+                        generator=torch.Generator().manual_seed(29))
+    card_scenes, card_conds = scenes.map(lambda t: t.cuda()), conds.cuda()
+
+    def card_plan(c=cfg):
+        return plan_refined_batch(c, state, card_scenes, card_conds, refine,
+                                  noise=noise.cuda())
+
+    def cpu_plan(nz):
+        return plan_refined_batch(cfg, cpu_state, scenes, conds, refine,
+                                  noise=nz)
+
+    reset(ndiv_cuda)
+    t0 = time.perf_counter()
+    card, card_curve = card_plan()
+    best = float(card.best_score[0])
+    plan_s = time.perf_counter() - t0
+    if launched(ndiv_cuda):
+        raise AssertionError(f"{refine} launched {launched(ndiv_cuda)}")
+    t0 = time.perf_counter()
+    cpu, cpu_curve = cpu_plan(noise)
+    cpu_s = time.perf_counter() - t0
+    cpu_best = float(cpu.best_score[0])
+    own = {"best": [], "curve": []}
+    for direction in (math.inf, -math.inf):
+        moved, moved_curve = cpu_plan(torch.nextafter(
+            noise, torch.full_like(noise, direction)))
+        own["best"].append(abs(float(moved.best_score[0]) - cpu_best))
+        own["curve"].append(float((moved_curve - cpu_curve).abs().max()))
+    curve = card_curve.cpu()
+    allowed = {"best": 2 * sum(own["best"]) + SERVE_RTOL * abs(cpu_best)
+               + SERVE_ATOL,
+               "curve": 2 * sum(own["curve"]) + SERVE_RTOL * float(
+                   cpu_curve.abs().max()) + SERVE_ATOL}
+    gaps = {"best": abs(best - cpu_best),
+            "curve": float((curve - cpu_curve).abs().max())}
+    for key, gap in gaps.items():
+        if not gap <= allowed[key]:
+            raise AssertionError(f"{refine} on {name}, card vs CPU {key} "
+                                 f"{gap}, allowed {allowed[key]}")
+    n = card.scores.shape[1] // 2
+    prior_best = float(card.scores[0, :n].min())
+    if not (math.isfinite(best) and best <= prior_best
+            and bool(torch.isfinite(curve).all())
+            and bool(torch.isfinite(card.best_traj).all())):
+        raise AssertionError(f"{refine}: best {best}, prior best "
+                             f"{prior_best}, curve {curve.tolist()}")
+    if refine == "ilqr" and not bool((curve[0, 1:] <= curve[0, :-1]).all()):
+        raise AssertionError(f"iLQR cost curve rose: {curve.tolist()}")
+    field, steps = REFINE_STEP_FIELD[refine], curve.shape[1]
+    cut = {}
+    for k in (REFINE_PROFILE_STEPS, 2 * REFINE_PROFILE_STEPS):
+        cut_cfg = cfg.replace(**{field: k})
+        cut[k] = profile(torch, lambda: card_plan(cut_cfg)[0].best_score
+                         .item(), 1, cpu_ops=False)
+        if cut[k]["ndiv_launches_per_call"]:
+            raise AssertionError(f"{refine} launched NDiv kernels")
+    (k1, p1), (k2, p2) = cut.items()
+    per_step = (p2["kernel_launches_per_call"]
+                - p1["kernel_launches_per_call"]) / (k2 - k1)
+    return {"model": name, "n_union": 2 * n, "steps": steps,
+            "best_score_card": best, "best_score_cpu": cpu_best,
+            "best_score_prior_card": prior_best,
+            "best_reached_card": float(card.best_reached[0]),
+            "gaps": gaps, "allowed": allowed, "cpu_own_ulp_moves": own,
+            "curve_card": curve[0].tolist(),
+            "curve_cpu": cpu_curve[0].tolist(), "plan_s": plan_s,
+            "cpu_plan_s": cpu_s,
+            "profile_cut": {k: {m: v for m, v in p.items()
+                                if m != "top_kernels"}
+                            for k, p in cut.items()},
+            "top_kernels_cut": p2["top_kernels"][:3],
+            "launches_per_step": per_step,
+            "launches_per_plan": p1["kernel_launches_per_call"]
+            + (steps - k1) * per_step}
+
+
+def refine_phase(torch, ndiv_cuda):
+    """The gradient refiners on the card: each refiner's plan against the
+    CPU on its first model (refine_plan_vs_cpu), `cli plan --refine` on
+    its second, `cli serve --refine` for trajopt (a burst) and iLQR (one
+    request), and the planner ladder (`cli eval --planner` beside oneshot
+    on REFINE_LADDER_SCENES suite scenes)."""
+    from ndivplanning_tpu_torch.planning.client import PlanningClient
+
+    plans, served = {}, {}
+    for refine, (name, _) in REFINE_MODELS.items():
+        t0 = time.perf_counter()
+        plans[refine] = refine_plan_vs_cpu(torch, ndiv_cuda, refine, name)
+        plans[refine]["check_s"] = time.perf_counter() - t0
+        print(f"[refine] {refine} on {name}: {plans[refine]['check_s']:.1f} "
+              "s", file=sys.stderr, flush=True)
+    reqs = serve_requests(torch, 4, 31)
+    for refine, (name, n) in REFINE_SERVE.items():
+        t0 = time.perf_counter()
+        with PlanningClient.spawn(["--workdir", os.path.join(
+                "checkpoints_torch", name), "--refine", refine]) as c:
+            answers = (c.send_lines([json.dumps(r) for r in reqs[:n]])
+                       if n > 1 else [c.plan(**reqs[0])])
+            report = c.close()
+        for r in answers:
+            if (r.get("batch_size") != n or "best_traj" not in r
+                    or not math.isfinite(r["best_score"])):
+                raise AssertionError(f"serve --refine {refine}: "
+                                     f"{str(r)[:300]}")
+        if report != [{"served": n}]:
+            raise AssertionError(f"serve --refine {refine}: {report}")
+        served[refine] = {"model": name, "requests": n,
+                          "latency_ms": [r["latency_ms"] for r in answers],
+                          "process_s": time.perf_counter() - t0}
+    # The CLI's plans and the ladder's evals, REFINE_CLI_WORKERS processes
+    # at a time (each is host-bound on one core; their process_s is under
+    # that sharing).
+    jobs = {("plan", refine): ["plan", "--workdir", os.path.join(
+        "checkpoints_torch", cli_name), "--refine", refine]
+        for refine, (_, cli_name) in REFINE_MODELS.items()}
+    jobs.update({("ladder", refine, planner): [
+        "eval", "--workdir", os.path.join("checkpoints_torch", name),
+        "--planner", planner, "--suite-size", str(REFINE_LADDER_SCENES)]
+        for refine, name in REFINE_LADDER.items()
+        for planner in (refine, "oneshot")})
+
+    def run(args):
+        t0 = time.perf_counter()
+        out = cli_json(args)
+        return {**out, "process_s": time.perf_counter() - t0}
+
+    with ThreadPoolExecutor(REFINE_CLI_WORKERS) as pool:
+        done = dict(zip(jobs, pool.map(run, jobs.values())))
+    cli_plans, ladder = {}, {}
+    for refine, (_, cli_name) in REFINE_MODELS.items():
+        out = done["plan", refine]
+        if (set(out) != {"best_score", "best_reached", "n_candidates",
+                         "soft_loss_curve", "process_s"}
+                or not math.isfinite(out["best_score"])
+                or not all(map(math.isfinite, out["soft_loss_curve"]))):
+            raise AssertionError(f"cli plan --refine {refine}: {out}")
+        cli_plans[refine] = {"model": cli_name, **out}
+    for refine, name in REFINE_LADDER.items():
+        rungs = {p: done["ladder", refine, p] for p in (refine, "oneshot")}
+        for planner, rung in rungs.items():
+            if (rung["eval_planner"] != planner
+                    or rung["eval_plan_n_scenes"] != REFINE_LADDER_SCENES):
+                raise AssertionError(f"cli eval --planner {planner}: {rung}")
+        ladder[refine] = {"model": name, **rungs}
+    return {"phase": "refine", "plans": plans, "cli_plans": cli_plans,
+            "serve": served, "ladder": ladder}
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -2715,6 +2962,8 @@ def main() -> int:
     emit({**phase, "card": smi})
     for name, n in launches.items():
         path_launches[f"eval_{name}"] = n
+    # 8i. The gradient refiners (no NDiv kernel on their paths either).
+    emit({**refine_phase(torch, ndiv_cuda), "card": smi})
 
     # 9. Kernel times on the first imagecond step's inputs, every route,
     # beside the tile kernel's (one tiling, the same in every layout).

@@ -6,6 +6,7 @@
     python -m ndivplanning_tpu_torch.cli serve --workdir checkpoints_torch/planning512 --warmup
     python -m ndivplanning_tpu_torch.cli eval  --workdir checkpoints_torch/quadrotor150k --mpc
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/unicycle150k --refine cem
+    python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/quadrotor_distilled_ilqr --refine ilqr
 
 Every command runs on the CUDA card unless ``--device cpu`` is given.  A
 ``--workdir`` holding a recorded ``config.json`` is the base config; eval,
@@ -34,8 +35,8 @@ NOT_PORTED_COMMANDS = ("viz", "record-data", "distill", "export", "doctor",
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to the torch CLI yet (ported: "
                       "train and eval on the on-device sampler, one-shot "
-                      "and CEM planning, closed-loop MPC; plan and serve, "
-                      "unsharded)")
+                      "planning and every refiner, closed-loop MPC; plan "
+                      "and serve, unsharded)")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -142,13 +143,8 @@ def _load_state(cfg, device, prefer_best: bool = True):
 
 
 def _check_ported(args) -> None:
-    from ndivplanning_tpu_torch.planning.server import REFINES
-    from ndivplanning_tpu_torch.train.evaluate import PORTED_PLANNERS
-
     flags = {"--profile-dir": args.profile_dir is not None,
              "--debug-nans": args.debug_nans}
-    if args.cmd in ("plan", "serve"):
-        flags[f"--refine {args.refine}"] = args.refine not in REFINES
     if args.cmd == "plan":
         flags["--sharded"] = args.sharded
     elif args.cmd == "serve":
@@ -162,9 +158,7 @@ def _check_ported(args) -> None:
                       "--epochs": args.epochs is not None,
                       "--eval-fraction": args.eval_fraction is not None})
     else:
-        flags.update({"--dataset": args.dataset is not None,
-                      f"--planner {args.planner}":
-                          args.planner not in (None, *PORTED_PLANNERS)})
+        flags["--dataset"] = args.dataset is not None
     for flag, on in flags.items():
         if on:
             raise _not_ported(f"{args.cmd} {flag}")
@@ -237,10 +231,10 @@ def _parser() -> argparse.ArgumentParser:
     eval_p.add_argument("--planner", default=None, choices=PLANNERS,
                         help="open-loop planner quality on the frozen "
                              "suite: mean best score (lower is better) and "
-                             "reach rate; 'oneshot' and 'cem' are ported")
+                             "reach rate")
     eval_p.add_argument("--scene-chunk", type=int, default=None,
                         help="scenes per dispatch for --planner "
-                             "(default 128 oneshot, 16 cem)")
+                             "(default 128 oneshot, 16 the refiners)")
     eval_p.add_argument("--dataset", default=None, help="not ported yet")
     eval_p.add_argument("--mpc", action="store_true",
                         help="closed-loop quality: every frozen-suite scene "
@@ -260,8 +254,12 @@ def _parser() -> argparse.ArgumentParser:
                                 "cem+trajopt"),
                        help="refinement: 'cem' runs cross-entropy-method "
                             "iterations in G's latent space at the one-shot "
-                            "planner's rollout budget; 'none' and 'cem' are "
-                            "ported")
+                            "planner's rollout budget; 'grad' runs Adam on "
+                            "the latents through G and the env on a soft "
+                            "cost; 'trajopt' runs Adam on the trajectories "
+                            "from G's warm starts; 'ilqr' runs iLQR on "
+                            "action sequences from G's warm starts; "
+                            "'cem+trajopt' seeds trajopt from CEM's best")
     plan_p.add_argument("--mpc", action="store_true",
                         help="closed-loop receding-horizon planning: replan "
                              "every --mpc-replan steps from the live state")
@@ -342,8 +340,9 @@ def main(argv=None) -> int:
 
     if args.cmd == "plan":
         from ndivplanning_tpu_torch.data.scenes import random_scene
-        from ndivplanning_tpu_torch.planning.cem import plan_cem
-        from ndivplanning_tpu_torch.planning.planner import plan
+        from ndivplanning_tpu_torch.envs.types import Scene
+        from ndivplanning_tpu_torch.planning.planner import PlanResult, plan
+        from ndivplanning_tpu_torch.planning.refine import plan_refined_batch
         from ndivplanning_tpu_torch.planning.server import _condition_for
 
         state = _load_state(cfg, device)
@@ -352,10 +351,13 @@ def main(argv=None) -> int:
         condition = _condition_for(cfg, scene)
         generator = torch.Generator(device=device).manual_seed(cfg.seed + 4)
         out = {}
-        if args.refine == "cem":
-            result, best_curve = plan_cem(cfg, state, scene, condition,
-                                          generator)
-            out["best_curve"] = best_curve.tolist()
+        if args.refine != "none":
+            result, curve = plan_refined_batch(
+                cfg, state, Scene.stack([scene]), condition[None],
+                args.refine, generator=generator)
+            result = PlanResult(*(field[0] for field in result))
+            key = "best_curve" if args.refine == "cem" else "soft_loss_curve"
+            out[key] = curve[0].tolist()
         else:
             result = plan(cfg, state, scene, condition, generator)
         print(json.dumps({

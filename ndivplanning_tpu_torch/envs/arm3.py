@@ -27,6 +27,7 @@ from ndivplanning_tpu_torch.envs.reacher import (
     two_link_ik,
 )
 from ndivplanning_tpu_torch.envs.types import Scene, StepInfo, latch_step
+from ndivplanning_tpu_torch.ops.clip import clip
 
 
 @dataclasses.dataclass
@@ -106,8 +107,8 @@ def reset(params: Arm3Params, scene: Scene, n: int) -> Arm3State:
 def step(params: Arm3Params, scene: Scene, state: Arm3State,
          action: torch.Tensor) -> tuple[Arm3State, StepInfo]:
     """One dynamics step of every candidate, ``action [..., N, 3]``."""
-    a = torch.clamp(action, -params.max_accel, params.max_accel)
-    qd = torch.clamp(state.qd + a * params.dt, -params.max_qd, params.max_qd)
+    a = clip(action, -params.max_accel, params.max_accel)
+    qd = clip(state.qd + a * params.dt, -params.max_qd, params.max_qd)
     q = state.q + qd * params.dt
     j1, j2, ee = forward_kinematics(params, q)
     collided_now = torch.maximum(

@@ -20,6 +20,7 @@ from ndivplanning_tpu_torch.envs.types import (
     StepInfo,
     latch_step,
 )
+from ndivplanning_tpu_torch.ops.clip import clip
 
 
 def reset(params: EnvParams, scene: Scene, n: int) -> EnvState:
@@ -37,7 +38,7 @@ def reset(params: EnvParams, scene: Scene, n: int) -> EnvState:
 def _clip_speed(vel: torch.Tensor, max_speed: float) -> torch.Tensor:
     speed = torch.sqrt(torch.sum(vel * vel, dim=-1, keepdim=True))
     scale = torch.where(speed > max_speed,
-                        max_speed / torch.clamp(speed, min=1e-12),
+                        max_speed / clip(speed, 1e-12),
                         torch.ones_like(speed))
     return vel * scale
 
@@ -74,10 +75,10 @@ def waypoint_control(params: EnvParams, state: EnvState, target: torch.Tensor,
 def step(params: EnvParams, scene: Scene, state: EnvState,
          action: torch.Tensor) -> tuple[EnvState, StepInfo]:
     """One dynamics step of every candidate."""
-    a = torch.clamp(action, -params.max_accel, params.max_accel)
+    a = clip(action, -params.max_accel, params.max_accel)
     vel = _clip_speed(state.vel + a * params.dt, params.max_speed)
     raw_pos = state.pos + vel * params.dt
-    pos = torch.clamp(raw_pos, params.bounds_lo, params.bounds_hi)
+    pos = clip(raw_pos, params.bounds_lo, params.bounds_hi)
     vel = torch.where(pos == raw_pos, vel, torch.zeros_like(vel))  # absorbing walls
     return latch_step(state, {"pos": pos, "vel": vel}, scene,
                       params.goal_radius, _collision(state.pos, pos, scene))

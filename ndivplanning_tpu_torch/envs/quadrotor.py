@@ -23,6 +23,7 @@ import torch
 
 from ndivplanning_tpu_torch.envs.pointmass import _collision
 from ndivplanning_tpu_torch.envs.types import Scene, StepInfo, latch_step
+from ndivplanning_tpu_torch.ops.clip import clip
 
 
 @dataclasses.dataclass
@@ -89,18 +90,18 @@ def _up(theta: torch.Tensor) -> torch.Tensor:
 def step(params: QuadrotorParams, scene: Scene, state: QuadrotorState,
          action: torch.Tensor) -> tuple[QuadrotorState, StepInfo]:
     """One dynamics step of every candidate, ``action [..., N, 2]``."""
-    u1 = torch.clamp(action[..., 0], 0.0, params.max_thrust)
-    u2 = torch.clamp(action[..., 1], 0.0, params.max_thrust)
+    u1 = clip(action[..., 0], 0.0, params.max_thrust)
+    u2 = clip(action[..., 1], 0.0, params.max_thrust)
     torque = (u2 - u1) * params.arm
-    omega = torch.clamp(state.omega + torque / params.inertia * params.dt,
+    omega = clip(state.omega + torque / params.inertia * params.dt,
                         -params.max_omega, params.max_omega)
     theta = state.theta + omega * params.dt
     acc = ((u1 + u2) / params.mass)[..., None] * _up(theta)
     acc = torch.stack([acc[..., 0], acc[..., 1] - params.gravity], dim=-1)
-    vel = torch.clamp(state.vel + acc * params.dt, -params.max_speed,
+    vel = clip(state.vel + acc * params.dt, -params.max_speed,
                       params.max_speed)
     raw_pos = state.pos + vel * params.dt
-    pos = torch.clamp(raw_pos, params.bounds_lo, params.bounds_hi)
+    pos = clip(raw_pos, params.bounds_lo, params.bounds_hi)
     vel = torch.where(pos == raw_pos, vel, torch.zeros_like(vel))
     return latch_step(state, {"pos": pos, "vel": vel, "theta": theta,
                               "omega": omega},
@@ -120,10 +121,10 @@ def waypoint_control(params: QuadrotorParams, state: QuadrotorState,
     a_des = kp * (target - state.pos) - kd * state.vel
     a_des = torch.stack([a_des[..., 0], a_des[..., 1] + params.gravity],
                         dim=-1)
-    thrust = torch.clamp(
-        params.mass * torch.sum(a_des * _up(state.theta), dim=-1), min=0.0)
+    thrust = clip(
+        params.mass * torch.sum(a_des * _up(state.theta), dim=-1), 0.0)
     err = torch.atan2(-a_des[..., 0], a_des[..., 1]) - state.theta
     err = torch.atan2(torch.sin(err), torch.cos(err))  # wrap to (-pi, pi]
     half = (kth * err - kom * state.omega) / params.arm / 2.0
-    return torch.clamp(torch.stack([thrust / 2.0 - half, thrust / 2.0 + half],
-                                   dim=-1), 0.0, params.max_thrust)
+    return clip(torch.stack([thrust / 2.0 - half, thrust / 2.0 + half],
+                            dim=-1), 0.0, params.max_thrust)

@@ -26,6 +26,7 @@ import torch
 
 from ndivplanning_tpu_torch.envs.pointmass import _collision
 from ndivplanning_tpu_torch.envs.types import Scene, StepInfo, latch_step
+from ndivplanning_tpu_torch.ops.clip import clip
 
 
 @dataclasses.dataclass
@@ -127,8 +128,8 @@ def reset(params: ReacherParams, scene: Scene, n: int) -> ReacherState:
 def step(params: ReacherParams, scene: Scene, state: ReacherState,
          action: torch.Tensor) -> tuple[ReacherState, StepInfo]:
     """One dynamics step of every candidate, ``action [..., N, 2]``."""
-    a = torch.clamp(action, -params.max_accel, params.max_accel)
-    qd = torch.clamp(state.qd + a * params.dt, -params.max_qd, params.max_qd)
+    a = clip(action, -params.max_accel, params.max_accel)
+    qd = clip(state.qd + a * params.dt, -params.max_qd, params.max_qd)
     q = state.q + qd * params.dt
     elbow, ee = forward_kinematics(params, q)
     # The swept tip and both links: a link can sweep an obstacle the tip

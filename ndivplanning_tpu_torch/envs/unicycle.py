@@ -19,6 +19,7 @@ import torch
 
 from ndivplanning_tpu_torch.envs.pointmass import _collision
 from ndivplanning_tpu_torch.envs.types import Scene, StepInfo, latch_step
+from ndivplanning_tpu_torch.ops.clip import clip
 
 
 @dataclasses.dataclass
@@ -74,13 +75,13 @@ def reset(params: UnicycleParams, scene: Scene, n: int) -> UnicycleState:
 def step(params: UnicycleParams, scene: Scene, state: UnicycleState,
          action: torch.Tensor) -> tuple[UnicycleState, StepInfo]:
     """One dynamics step of every candidate, ``action [..., N, 2]``."""
-    a = torch.clamp(action[..., 0], -params.max_accel, params.max_accel)
-    w = torch.clamp(action[..., 1], -params.max_steer, params.max_steer)
+    a = clip(action[..., 0], -params.max_accel, params.max_accel)
+    w = clip(action[..., 1], -params.max_steer, params.max_steer)
     heading = state.heading + w * params.dt
-    speed = torch.clamp(state.speed + a * params.dt, 0.0, params.max_speed)
+    speed = clip(state.speed + a * params.dt, 0.0, params.max_speed)
     direction = torch.stack([torch.cos(heading), torch.sin(heading)], dim=-1)
     raw_pos = state.pos + speed[..., None] * direction * params.dt
-    pos = torch.clamp(raw_pos, params.bounds_lo, params.bounds_hi)
+    pos = clip(raw_pos, params.bounds_lo, params.bounds_hi)
     # Absorbing walls: one clipped component stops the vehicle.
     speed = torch.where(torch.all(pos == raw_pos, dim=-1), speed,
                         torch.zeros_like(speed))

@@ -20,17 +20,18 @@ malformed request is answered with ``{"error": ...}`` at its own
 position and the rest of its batch still plans.
 
 Each dispatch plans a chunk of up to ``BUCKETS[-1]`` scenes with one
-:func:`plan_batch` call (``refine="cem"``: ``plan_cem_batch``), padded to
-the next bucket size with copies of its first scene.  Closed-loop
-requests are split from plain ones at parse time and run, after the plain
-ones, as bucketed ``mpc_rollout_batch`` episodes at the fixed
+:func:`plan_batch` call (with ``refine``, the refiner's batched planner,
+``planning/refine.py``), padded to the next bucket size with copies of
+its first scene.  Closed-loop requests are split from plain ones at
+parse time and run, after the plain ones, as bucketed
+``mpc_rollout_batch`` episodes at the fixed
 ``MPC_TOTAL_STEPS`` / ``MPC_REPLAN_EVERY`` / ``MPC_CANDIDATES``.  Requests
 are parsed and validated on the host; a chunk goes to the device as one
 stacked copy and its answers come back as one.
 
-Not ported yet, each raising ``NotImplementedError`` with its name: the
-refiners other than CEM (``refine``), ``serve_tcp``, the cross-connection
-batcher and the best-checkpoint watcher.
+Not ported yet, each raising ``NotImplementedError`` with its name:
+``serve_tcp``, the cross-connection batcher and the best-checkpoint
+watcher.
 """
 
 from __future__ import annotations
@@ -49,9 +50,13 @@ import torch
 
 from ndivplanning_tpu_torch.data.scenes import rasterize_batch
 from ndivplanning_tpu_torch.envs.types import MAX_OBSTACLES, Scene
-from ndivplanning_tpu_torch.planning.cem import cem_population, plan_cem_batch
 from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
 from ndivplanning_tpu_torch.planning.planner import plan_batch
+from ndivplanning_tpu_torch.planning.refine import (
+    REFINERS,
+    noise_shape,
+    plan_refined_batch,
+)
 from ndivplanning_tpu_torch.train.state import TrainState
 from ndivplanning_tpu_torch.utils.config import Config
 
@@ -61,9 +66,8 @@ BUCKETS = (1, 2, 4, 8, 16)
 MPC_TOTAL_STEPS = 64
 MPC_REPLAN_EVERY = 8
 MPC_CANDIDATES = 256
-# The refinements a server plans with (the JAX server's other refiners
-# are not ported).
-REFINES = ("none", "cem")
+# The refinements a server plans with, the JAX server's.
+REFINES = ("none", *REFINERS)
 
 # Process-level serving counters, answered on a ``stats`` line.  The keys
 # are the JAX server's; the ones of unported paths stay 0.
@@ -113,7 +117,8 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def check_refine(refine: str) -> None:
     if refine not in REFINES:
-        raise _not_ported(f"refine={refine!r}")
+        raise ValueError(f"unknown refine={refine!r}; choose from "
+                         f"{list(REFINES)}")
 
 
 def serve_tcp(*args, **kwargs):
@@ -143,11 +148,11 @@ def _condition_for(cfg: Config, scenes: Scene) -> torch.Tensor:
 def _serve_plan_program(cfg: Config, state: TrainState, scenes: Scene,
                         z: torch.Tensor, n_diverse: int, refine: str = "none"):
     """One dispatch: the chunk's conditions, then :func:`plan_batch`, or
-    with ``refine="cem"`` ``plan_cem_batch`` (``z`` its noise)."""
+    with a ``refine`` the refiner's batched planner (``z`` its noise)."""
     conditions = _condition_for(cfg, scenes)
-    if refine == "cem":
-        return plan_cem_batch(cfg, state, scenes, conditions,
-                              n_diverse=n_diverse, eps=z)[0]
+    if refine != "none":
+        return plan_refined_batch(cfg, state, scenes, conditions, refine,
+                                  noise=z, n_diverse=n_diverse)[0]
     return plan_batch(cfg, state, scenes, conditions, n_diverse=n_diverse,
                       z=z)
 
@@ -198,14 +203,15 @@ def _fetch(result) -> tuple:
 def _latent_shape(cfg: Config, refine: str = "none",
                  mpc: bool = False) -> tuple[int, ...]:
     """The latents of one scene of a dispatch: ``[N, zdim]`` for a plan,
-    ``[iters + 1, n, zdim]`` for a CEM plan's noise, ``[n_cycles,
-    MPC_CANDIDATES, zdim]`` for a closed-loop episode."""
+    the refiner's noise for a refined one (``planning/refine.py``:
+    ``[iters + 1, n, zdim]`` for CEM's draws, ``[n, zdim]`` for warm
+    starts), ``[n_cycles, MPC_CANDIDATES, zdim]`` for a closed-loop
+    episode."""
     if mpc:
         return (MPC_TOTAL_STEPS // MPC_REPLAN_EVERY, MPC_CANDIDATES,
                 cfg.latent_dim)
-    if refine == "cem":
-        n, _, iters = cem_population(cfg)
-        return (iters + 1, n, cfg.latent_dim)
+    if refine != "none":
+        return noise_shape(cfg, refine)
     return (cfg.n_candidates, cfg.latent_dim)
 
 
@@ -228,8 +234,8 @@ def handle_batch(cfg: Config, state: TrainState, requests: list,
     """Plan for a list of scene requests in bucketed dispatches; returns one
     JSON-serialisable response per request.
 
-    Plain requests go first, in :func:`plan_batch` dispatches (``refine=
-    "cem"``: ``plan_cem_batch``), then the closed-loop (``"mpc": true``)
+    Plain requests go first, in :func:`plan_batch` dispatches (with a
+    ``refine``, the refiner's), then the closed-loop (``"mpc": true``)
     ones in ``mpc_rollout_batch`` dispatches, so that an episode adds
     nothing to a plain request's latency.  A dispatch's latents come from
     ``latents(bucket)`` (plans) or ``mpc_latents(bucket)`` (episodes),

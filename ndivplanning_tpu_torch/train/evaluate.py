@@ -39,10 +39,8 @@ from ndivplanning_tpu_torch.utils.config import Config
 EVAL_SUITE_SEED = 0xE7A1
 EVAL_SUITE_SIZE = 512
 
-# The JAX package's planner families; the one-shot planner and CEM are
-# ported.
+# The JAX package's planner families.
 PLANNERS = ("oneshot", "cem", "grad", "trajopt", "ilqr", "cem+trajopt")
-PORTED_PLANNERS = ("oneshot", "cem")
 
 # Keyed on task_fingerprint (the fields make_task consumes), not the whole
 # Config: configs differing only in workdir, steps or LR share one suite.
@@ -173,33 +171,30 @@ def evaluate_fixed_planner(cfg: Config, state: TrainState,
     planned once and the best candidate's score and reach are recorded.
 
     ``planner`` is ``"oneshot"`` (``planning/planner.py::plan_batch``,
-    default chunk 128) or ``"cem"`` (``planning/cem.py::plan_cem_batch``,
-    default chunk 16); the other planners of the JAX package are not
-    ported.  The latents (CEM: its noise) of every scene are drawn at once
-    on the CPU from ``seed + 3``, so the result does not depend on
-    ``scene_chunk`` (scenes per dispatch) or on the device.  Returns
+    default chunk 128) or a refiner, ``"cem"``, ``"grad"``, ``"trajopt"``,
+    ``"ilqr"`` or ``"cem+trajopt"`` (``planning/refine.py``, default chunk
+    16: their plans are 10-100x heavier).  The latents (CEM: its noise) of
+    every scene are drawn at once on the CPU from ``seed + 3``, so the
+    result does not depend on ``scene_chunk`` (scenes per dispatch; the
+    gradient refiners' only to rounding, their reductions' order following
+    the tensor's size) or on the device.  Returns
     ``eval_plan_best_score`` (suite mean of the best scores, LOWER is
     better), ``eval_plan_reach_rate``, ``eval_plan_n_scenes`` and the
     planner's name."""
-    from ndivplanning_tpu_torch.planning.cem import (
-        cem_population,
-        plan_cem_batch,
-    )
     from ndivplanning_tpu_torch.planning.planner import plan_batch
+    from ndivplanning_tpu_torch.planning.refine import (
+        noise_shape,
+        plan_refined_batch,
+    )
 
-    if planner not in PORTED_PLANNERS:
-        if planner in PLANNERS:
-            raise NotImplementedError(
-                f"evaluate_fixed_planner: planner {planner!r} is not ported "
-                f"yet (ported: {', '.join(PORTED_PLANNERS)})")
+    if planner not in PLANNERS:
         raise ValueError(f"unknown planner {planner!r}; choose from "
                          f"{list(PLANNERS)}")
     if planner == "oneshot":
         shape = (cfg.n_candidates, cfg.latent_dim)
         chunk = 128 if scene_chunk is None else scene_chunk
     else:
-        n, _, iters = cem_population(cfg)
-        shape = (iters + 1, n, cfg.latent_dim)
+        shape = noise_shape(cfg, planner)
         chunk = 16 if scene_chunk is None else scene_chunk
     if chunk < 1:
         raise ValueError(f"scene_chunk must be >= 1, got {chunk}")
@@ -216,8 +211,9 @@ def evaluate_fixed_planner(cfg: Config, state: TrainState,
             result = plan_batch(cfg, state, part.scenes, part.conditions,
                                 z=zc)
         else:
-            result, _ = plan_cem_batch(cfg, state, part.scenes,
-                                       part.conditions, eps=zc)
+            result, _ = plan_refined_batch(cfg, state, part.scenes,
+                                           part.conditions, planner,
+                                           noise=zc)
         s, r = plan_batch_result(result)
         scores.append(s)
         reached.append(r)

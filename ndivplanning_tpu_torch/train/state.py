@@ -147,6 +147,34 @@ def f32_pow(base: float, n: int) -> float:
                  ** torch.tensor(float(n), dtype=torch.float32))
 
 
+@functools.lru_cache(maxsize=4096)
+def _bias_correction(b: float, count: int) -> float:
+    """``1 - b ** count`` in float32, computed on the host once a count."""
+    return float(torch.tensor(1.0, dtype=torch.float32) - f32_pow(b, count))
+
+
+@torch.no_grad()
+def adam_update(params: list, grads: list, mu: list, nu: list, count: int,
+                lr: float, b1: float, b2: float, eps: float = 1e-8) -> None:
+    """One ``optax.adam`` update of the tensors ``params`` in place, with
+    their moments ``mu``, ``nu`` (updated in place too) and ``count``, the
+    number of updates including this one.  The arithmetic of
+    :class:`Adam` and of the refiners' Adam on latents and trajectories
+    (``planning/grad_refine.py``, ``planning/trajopt.py``)."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(
+        nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
+    bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+    den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+    torch._foreach_add_(den, eps)
+    upd = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(upd, den)
+    torch._foreach_mul_(upd, -lr)
+    torch._foreach_add_(params, upd)
+
+
 class Adam:
     """Adam as ``optax.adam``: ``p -= lr * mu_hat / (sqrt(nu_hat) + eps)``,
     bias corrections in float32, moments keyed by parameter name.
@@ -165,27 +193,11 @@ class Adam:
     @torch.no_grad()
     def step(self, module: nn.Module, grads) -> None:
         names, params = zip(*module.named_parameters())
-        mu = [self.mu[n] for n in names]
-        nu = [self.nu[n] for n in names]
-        grads = list(grads)
         self.count += 1
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - self.b1))
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_add_(
-            nu, torch._foreach_mul(torch._foreach_mul(grads, grads),
-                                   1.0 - self.b2))
-        bc1 = float(torch.tensor(1.0, dtype=torch.float32)
-                    - f32_pow(self.b1, self.count))
-        bc2 = float(torch.tensor(1.0, dtype=torch.float32)
-                    - f32_pow(self.b2, self.count))
-        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-        torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(upd, den)
         lr = self.lr(self.count - 1) if callable(self.lr) else self.lr
-        torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(list(params), upd)
+        adam_update(list(params), list(grads), [self.mu[n] for n in names],
+                    [self.nu[n] for n in names], self.count, lr, self.b1,
+                    self.b2, self.eps)
 
 
 @dataclasses.dataclass

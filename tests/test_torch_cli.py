@@ -8,6 +8,7 @@ the JAX CLI that the port lacks exits with a message naming it.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -110,25 +111,26 @@ def test_unported_subcommands_exit_with_their_name(cmd):
 
 
 @pytest.mark.parametrize("args,flag", [
-    (["plan", "--refine", "trajopt"], "--refine trajopt"),
+    (["plan", "--refine", "trajopt", "--sharded"], "--sharded"),
     (["plan", "--sharded"], "--sharded"),
-    (["plan", "--refine", "ilqr"], "--refine ilqr"),
-    (["serve", "--refine", "grad"], "--refine grad"),
+    (["plan", "--refine", "ilqr", "--sharded"], "--sharded"),
+    (["serve", "--refine", "grad", "--tcp", "0"], "--tcp"),
     (["plan", "--profile-dir", "prof"], "--profile-dir"),
     (["serve", "--tcp", "0"], "--tcp"),
     (["serve", "--cross-batch"], "--cross-batch"),
     (["serve", "--max-pending", "4"], "--max-pending"),
     (["serve", "--deadline-ms", "50"], "--deadline-ms"),
     (["serve", "--watch-best"], "--watch-best"),
-    (["serve", "--refine", "cem+trajopt"], "--refine cem+trajopt"),
+    (["plan", "--refine", "cem+trajopt", "--sharded"], "--sharded"),
     (["train", "--dataset", "data.npz"], "--dataset"),
     (["train", "--epochs", "2"], "--epochs"),
     (["train", "--eval-fraction", "0.2"], "--eval-fraction"),
     (["train", "--profile-dir", "prof"], "--profile-dir"),
     (["eval", "--dataset", "data.npz"], "--dataset"),
-    (["eval", "--planner", "grad"], "--planner grad"),
-    (["eval", "--planner", "trajopt"], "--planner trajopt"),
-    (["eval", "--planner", "ilqr"], "--planner ilqr"),
+    (["plan", "--refine", "grad", "--sharded"], "--sharded"),
+    (["eval", "--planner", "trajopt", "--profile-dir", "prof"],
+     "--profile-dir"),
+    (["serve", "--refine", "ilqr", "--debug-nans"], "--debug-nans"),
     (["eval", "--debug-nans"], "--debug-nans"),
 ])
 def test_unported_flags_exit_with_their_name(args, flag):
@@ -317,3 +319,44 @@ def test_cli_serve_warms_up_mpc_and_refines_with_cem(tmp_path):
         assert len(out[0]["path"]) == 64 and "best_traj" in out[1]
         stats = c.stats()
         assert stats["mpc_requests"] == sum((1, 2, 4, 8, 16)) + 1
+
+
+REFINE_RUNS = {
+    "grad": ("unicycle150k", "grad_refine_steps", 250),
+    "trajopt": ("unicycle150k", "trajopt_steps", 250),
+    "ilqr": ("quadrotor_distilled_ilqr", "ilqr_iters", 62),
+    "cem+trajopt": ("quadrotor150k", "trajopt_steps", 41),
+}
+
+
+@pytest.mark.parametrize("refine", sorted(REFINE_RUNS))
+def test_cli_plans_and_evaluates_with_each_refiner(capsys, refine):
+    """``plan --refine <r>`` on a vendored model at its full width (the
+    refiner's steps cut by ``--set``): one-shot's keys and JAX's
+    ``soft_loss_curve``, ``n_candidates`` the 2n of the union; ``eval
+    --planner <r>`` the ladder's keys."""
+    name, steps_field, n = REFINE_RUNS[refine]
+    workdir = os.path.join(REPO, "checkpoints_torch", name)
+    cut = ["--set", f"{steps_field}=3", "--device", "cpu"]
+    out = _cli_json(capsys, ["plan", "--workdir", workdir, "--refine",
+                             refine, *cut])
+    assert set(out) == {"best_score", "best_reached", "n_candidates",
+                        "soft_loss_curve"}
+    assert out["n_candidates"] == 2 * n and len(out["soft_loss_curve"]) == 3
+    assert all(map(math.isfinite, out["soft_loss_curve"]))
+    ev = _cli_json(capsys, ["eval", "--workdir", workdir, "--planner",
+                            refine, "--suite-size", "2", *cut])
+    assert ev["eval_planner"] == refine and ev["eval_plan_n_scenes"] == 2.0
+
+
+def test_cli_serve_refines_with_ilqr_over_pipes(tmp_path):
+    """``serve --refine ilqr --warmup`` over pipes answers a plan and a
+    burst as refined plans (the warm-up dispatched every bucket)."""
+    with PlanningClient.spawn([*_serve_args(tmp_path), "--refine", "ilqr",
+                               "--set", "ilqr_iters=2", "--warmup"]) as c:
+        resp = c.plan(start=[0.1, 0.1], goal=[0.9, 0.9])
+        assert len(resp["best_traj"]) == 32 and resp["batch_size"] == 1
+        out = c.plan_batch([{"start": [0.2, 0.2], "goal": [0.8, 0.8]},
+                            {"start": [0.3, 0.1], "goal": [0.7, 0.9]}])
+        assert [r["batch_size"] for r in out] == [2, 2]
+        assert all(math.isfinite(r["best_score"]) for r in out)

@@ -244,10 +244,38 @@ def test_oneshot_planner_ladder_does_not_depend_on_the_chunk():
 @pytest.mark.parametrize("planner", ["grad", "trajopt", "ilqr",
                                      "cem+trajopt"])
 def test_refining_planners_are_not_ported_yet(planner):
-    cfg = _small()
+    """The gradient refiners are ported now (the name is kept from when
+    they raised): evaluate_fixed_planner(planner) is the refiner's batched
+    planner over the whole suite with the noise of seed + 3
+    (``planning/refine.py::noise_shape``), whatever the scenes per
+    dispatch; an unknown planner is a ValueError naming it.  The mean best
+    score within rtol 1e-6: on the CPU a reduction over a path's steps
+    and obstacles sums in an order that depends on the tensor's size, and
+    the refiners' iterations carry that ulp (measured 2.4e-7)."""
+    from ndivplanning_tpu_torch.planning.refine import (
+        noise_shape,
+        plan_refined_batch,
+    )
+
+    cfg = _small("goalcond", n_candidates=48, trajopt_steps=6,
+                 grad_refine_steps=6, ilqr_iters=3)
     state = create_train_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=re.escape(f"'{planner}'")):
-        ev.evaluate_fixed_planner(cfg, state, planner=planner, n_scenes=2)
+    outs = [ev.evaluate_fixed_planner(cfg, state, planner, n_scenes=6,
+                                      seed=3, scene_chunk=chunk)
+            for chunk in (None, 4)]
+    suite = ev.make_eval_suite(cfg, 6, 3, device="cpu")
+    noise = torch.randn((6, *noise_shape(cfg, planner)),
+                        generator=torch.Generator().manual_seed(6))
+    result, _ = plan_refined_batch(cfg, state, suite.scenes,
+                                   suite.conditions, planner, noise=noise)
+    score, reached = ev.plan_batch_result(result)
+    for out in outs:
+        best = out.pop("eval_plan_best_score")
+        np.testing.assert_allclose(best, float(np.mean(score.numpy())),
+                                   rtol=1e-6)
+        assert out == {"eval_plan_reach_rate": float(np.mean(
+            reached.numpy())), "eval_plan_n_scenes": 6.0,
+            "eval_planner": planner}
     with pytest.raises(ValueError, match="unknown planner 'bogus'"):
         ev.evaluate_fixed_planner(cfg, state, planner="bogus", n_scenes=2)
 

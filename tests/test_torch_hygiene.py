@@ -60,6 +60,11 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
             "ndivplanning_tpu_torch.planning.client",
             "ndivplanning_tpu_torch.planning.mpc",
             "ndivplanning_tpu_torch.planning.cem",
+            "ndivplanning_tpu_torch.planning.grad_refine",
+            "ndivplanning_tpu_torch.planning.trajopt",
+            "ndivplanning_tpu_torch.planning.ilqr",
+            "ndivplanning_tpu_torch.planning.refine",
+            "ndivplanning_tpu_torch.ops.clip",
             "ndivplanning_tpu_torch.utils.checkpoint",
             "ndivplanning_tpu_torch.utils.metrics",
             "ndivplanning_tpu_torch.train.evaluate",

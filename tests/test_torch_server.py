@@ -409,15 +409,18 @@ def test_two_servers_with_one_seed_answer_alike():
 
 
 def test_unported_paths_raise_with_their_name():
+    """Every refiner of the JAX server is ported; an unknown one is a
+    ValueError naming it, and the unported serving paths name
+    themselves."""
     cfg = _cfg()
     state = _state(cfg)
-    for refine in ("grad", "trajopt", "ilqr", "cem+trajopt"):
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(f"refine={refine!r}")):
-            handle_batch(cfg, state, [_req()], _gen(), refine=refine)
-        with pytest.raises(NotImplementedError, match=re.escape(refine)):
-            serve(cfg, state, stdin=io.StringIO("quit\n"),
-                  stdout=io.StringIO(), refine=refine)
+    assert srv.REFINES == ("none", "cem", "grad", "trajopt", "ilqr",
+                           "cem+trajopt")
+    with pytest.raises(ValueError, match=re.escape("refine='bogus'")):
+        handle_batch(cfg, state, [_req()], _gen(), refine="bogus")
+    with pytest.raises(ValueError, match="bogus"):
+        serve(cfg, state, stdin=io.StringIO("quit\n"),
+              stdout=io.StringIO(), refine="bogus")
     with pytest.raises(NotImplementedError, match="serve_tcp"):
         srv.serve_tcp(cfg, state)
     with pytest.raises(NotImplementedError, match="--cross-batch"):
@@ -547,6 +550,61 @@ def test_cem_refine_matches_jax_on_planning512():
                                    np.asarray(w["best_traj"]), **SCORE_TOL)
 
 
+def jax_refine_latents(key, refine, n, zdim, iters=None):
+    """The noise source that reproduces JAX handle_batch's draws for a
+    refiner: each slot key's ``normal(k, (n, zdim))`` warm starts, or for
+    ``cem+trajopt`` the CEM draws of the slot key's ``split(k)[0]``."""
+    from test_torch_cem import jax_cem_noise
+
+    _, chain, _ = jax.random.split(key, 3)
+    chain = [chain]
+
+    def one(k):
+        if refine == "cem+trajopt":
+            return jax_cem_noise(jax.random.split(k)[0], iters, n, zdim)
+        return np.asarray(jax.random.normal(k, (n, zdim)))
+
+    def latents(bucket):
+        chain[0], sub = jax.random.split(chain[0])
+        return torch.from_numpy(np.stack([
+            one(k) for k in jax.random.split(sub, bucket)]))
+    return latents
+
+
+@pytest.mark.parametrize("refine", ["grad", "trajopt", "ilqr",
+                                    "cem+trajopt"])
+def test_refiners_match_jax_on_planning512(refine):
+    """Each gradient refiner on planning512 through ``handle_batch`` with
+    JAX's noise, at 64 candidates and a short budget (8 Adam steps, 4 iLQR
+    iterations): best scores within SCORE_TOL and the reach flags equal,
+    the malformed request its own error, the response keys JAX's."""
+    from ndivplanning_tpu_torch.planning.refine import noise_shape
+    from test_torch_checkpoint import jax_planning512, torch_planning512
+
+    budget = dict(n_candidates=N_PARITY, trajopt_steps=8,
+                  grad_refine_steps=8, ilqr_iters=4)
+    jcfg, jstate = jax_planning512()
+    jcfg = jcfg.replace(**budget)
+    cfg, state = torch_planning512(**budget)
+    requests = PARITY_REQUESTS[4]
+    key = jax.random.PRNGKey(13)
+    want = jax_handle_batch(jcfg, jstate, requests, key, refine=refine)
+    shape = noise_shape(cfg, refine)
+    got = handle_batch(cfg, state, requests, _gen(), refine=refine,
+                       latents=jax_refine_latents(
+                           key, refine, shape[-2], cfg.latent_dim,
+                           shape[0] - 1 if len(shape) == 3 else None))
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        if "error" in w:
+            assert g["error"].split(":")[0] == w["error"].split(":")[0]
+            continue
+        assert g["batch_size"] == w["batch_size"] == 4
+        assert g["best_reached"] == w["best_reached"]
+        np.testing.assert_allclose(g["best_score"], w["best_score"],
+                                   **SCORE_TOL)
+
+
 def test_mpc_requests_are_counted_and_dispatched_after_plain_ones(
         monkeypatch):
     """Closed-loop requests split from plain ones at parse time: the plain
@@ -604,3 +662,30 @@ def test_serve_answers_mpc_lines_and_warms_up_mpc_buckets(monkeypatch):
     served, lines = _serve(cfg, state, json.dumps(_req()) + "\nquit\n",
                            refine="cem")
     assert served == 1 and len(lines[0]["best_traj"]) == cfg.horizon
+
+
+def test_serve_and_warmup_plan_with_every_refiner(monkeypatch):
+    """``serve(refine=...)`` answers a plain line with each refiner's plan
+    (a refined union, the response keys of a plan), and ``warmup`` with a
+    refiner dispatches every bucket through it, drawing the refiner's
+    noise shape."""
+    from ndivplanning_tpu_torch.planning.refine import noise_shape
+
+    cfg = _cfg().replace(trajopt_steps=4, grad_refine_steps=4, ilqr_iters=3)
+    state = _state(cfg)
+    for refine in ("grad", "trajopt", "ilqr", "cem+trajopt"):
+        served, lines = _serve(cfg, state, json.dumps(_req()) + "\nquit\n",
+                               refine=refine)
+        assert served == 1 and len(lines[0]["best_traj"]) == cfg.horizon
+        # m = 4, clamped to the better half of the union (iLQR's 2 warm
+        # starts + 2, the hybrid's 2 seeds + 2).
+        assert len(lines[0]["diverse_trajs"]) == (
+            2 if refine in ("ilqr", "cem+trajopt") else 4)
+        assert np.isfinite(lines[0]["best_score"])
+    shapes = []
+    real = srv._serve_plan_program
+    monkeypatch.setattr(srv, "_serve_plan_program",
+                        lambda c, st, sc, z, *a: shapes.append(
+                            tuple(z.shape)) or real(c, st, sc, z, *a))
+    assert warmup(cfg, state, refine="ilqr", buckets=(1, 2)) > 0
+    assert shapes == [(b, *noise_shape(cfg, "ilqr")) for b in (1, 2)]
