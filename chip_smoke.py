@@ -43,6 +43,12 @@ suites on the card against the CPU.  The gradient refiners (grad,
 trajopt, iLQR and CEM -> trajopt) each plan on the card against the CPU
 at their default budgets, through `cli plan --refine` and `cli serve
 --refine`, and `cli eval --planner trajopt` / `ilqr` beside oneshot.
+Recorded data: `cli record-data`, `cli train --dataset` and `cli eval
+--dataset` on the planning512 recipe, and in process the device-resident,
+streaming and resumed dataset runs, bitwise equal; expert iteration: one
+`cli distill` round with the MPC teacher on a copy of quadrotor150k, the
+same round in process (counted, the caller's state untouched), and the
+one-shot teacher's recording on unicycle150k on the card against the CPU.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is the device summary.
 
@@ -94,12 +100,17 @@ TILE_JOINT_LAUNCHES_PER_STEP = {"goalcond": 263, "imagecond": 529,
 # a block walks over a ragged number of them, and k=40 padded to kp = 64;
 # then imagecond's widths at k=64, and 8192 conditions of them (pod_dp's
 # per-rank batch); last the env families' loops: the 128-scene frozen
-# suite's eval legs, and arm3's action-mode step and eval (dx = 32 x 3).
+# suite's eval legs, and arm3's action-mode step and eval (dx = 32 x 3);
+# last the dataset phase's held-out eval leg (the split's 76 rows).  The
+# dataset and distill phases also check the shapes their run's data gave
+# (check_path_shapes): a held-out split or a fine-tune batch cut to the
+# rows kept.
 CHECK_SHAPES = [(256, 8, 2, 64), (512, 8, 2, 64), (256, 32, 2, 64),
                 (1024, 32, 2, 64), (3, 5, 3, 7), (1, 256, 4, 8),
                 (7, 2, 2, 64), (5, 31, 3, 7), (1001, 32, 2, 64),
                 (5, 40, 3, 7), (512, 64, 2, 64), (8192, 64, 2, 64),
-                (128, 8, 2, 64), (256, 8, 2, 96), (128, 8, 2, 96)]
+                (128, 8, 2, 64), (256, 8, 2, 96), (128, 8, 2, 96),
+                (76, 8, 2, 64)]
 GOALCOND_SHAPE = (256, 8, 2, 64)  # B=256, k=8, dz=2, dx=H*S=64
 IMAGECOND_SHAPE = (512, 8, 2, 64)
 K64_SHAPES = [(512, 64, 2, 64), (8192, 64, 2, 64)]  # imagecond's widths
@@ -330,6 +341,27 @@ REFINE_STEP_FIELD = {"grad": "grad_refine_steps",
 # itself; held at the tests' rtol for such a loss
 # (tests/test_torch_evaluate.py, NDIV_RTOL_UNTRAINED).
 DISTILLED_NDIV_RTOL = 1e-2
+# The recorded-dataset path on the planning512 recipe at full width:
+# `cli record-data` of 4096 task-sampler experts (about a sixth survive
+# the collision filter), `cli train --dataset` over 30 epochs with a
+# tenth held out, `cli eval --dataset`; in process the device-resident run,
+# the streaming run and a run resumed at epoch 15, all bitwise equal.
+DATASET_EXAMPLES = 4096
+DATASET_EPOCHS = 30
+DATASET_RESUME_AT = 15
+DATASET_EVAL_FRACTION = 0.1
+DATASET_EVERY = dict(log_every=5, eval_every=15, checkpoint_every=15)
+# Expert iteration: one round on a copy of quadrotor150k with the MPC
+# teacher, through `cli distill` and in process (counted); and
+# `record-data --from-planner oneshot` on unicycle150k on the card against
+# the CPU on the same scenes and noise, each count of disagreements within
+# twice the CPU's own under the noise one ulp up and down, plus the slack.
+DISTILL_WORKDIR = os.path.join("checkpoints_torch", "quadrotor150k")
+DISTILL_ROUND = dict(planner="mpc", rounds=1, scenes_per_round=256,
+                     epochs=200, suite_scenes=128)
+ONESHOT_RECORD_WORKDIR = os.path.join("checkpoints_torch", "unicycle150k")
+ONESHOT_RECORD_SCENES = 128
+ONESHOT_RECORD_SLACK = {"picks_differ": 2, "ok_differ": 1}
 
 
 def emit(obj) -> None:
@@ -407,6 +439,17 @@ def check_kernels(torch, ndiv_cuda, b, k, dz, dx, gen):
         spread_latents(torch, n, k, dz, gen),
         torch.randn((n, k, dx), generator=gen, device="cuda")), b)
     return check_inputs(torch, ndiv_cuda, z, x, f"{b}x{k}x{dz}x{dx}")
+
+
+def check_path_shapes(torch, ndiv_cuda, shapes):
+    """check_kernels at each shape a path's run gave its kernels that
+    CHECK_SHAPES does not hold, after the path's launches were read (so
+    these count for none of them).  Returns {shape: max_abs_err}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    return {f"{b}x{k}x{dz}x{dx}": check_kernels(
+        torch, ndiv_cuda, b, k, dz, dx, gen)["max_abs_err"]
+        for b, k, dz, dx in sorted(set(shapes) - set(CHECK_SHAPES))}
 
 
 def run_route(ndiv_cuda, kernel, variant, z, x, g):
@@ -2399,6 +2442,397 @@ def refine_phase(torch, ndiv_cuda):
             "serve": served, "ladder": ladder}
 
 
+def snapshot_state(torch, state) -> dict:
+    """A copy of every tensor and count of a TrainState and its generator's
+    state (``checkpoint.state_dict``, flattened)."""
+    from ndivplanning_tpu_torch.utils import checkpoint
+
+    out = {}
+
+    def walk(value, path):
+        if isinstance(value, dict):
+            for key, v in value.items():
+                walk(v, f"{path}/{key}")
+        else:
+            out[path] = value.clone() if isinstance(value,
+                                                    torch.Tensor) else value
+
+    walk(checkpoint.state_dict(state), "")
+    return out
+
+
+def check_snapshots_equal(torch, a, b, label) -> int:
+    if a.keys() != b.keys():
+        raise AssertionError(f"{label}: entries differ")
+    for key, v in a.items():
+        same = (torch.equal(v, b[key]) if isinstance(v, torch.Tensor)
+                else v == b[key])
+        if not same:
+            raise AssertionError(f"{label}: {key} differs")
+    return sum(v.numel() for v in a.values() if isinstance(v, torch.Tensor))
+
+
+def dataset_phase(torch, ndiv_cuda):
+    """The recorded-dataset path on the planning512 recipe at full width:
+    `cli record-data`, `cli train --dataset` and `cli eval --dataset` in
+    subprocesses; then in process the device-resident run, the streaming
+    run and a run resumed at DATASET_RESUME_AT epochs (its second half
+    under the profiler), final states bitwise equal to each other and to
+    the CLI's, rows equal but for clocks, launches one ndiv_joint a step and
+    one ndiv_fwd an eval leg; step ms from the log windows; a resident
+    step and a held-out eval leg profiled.  Returns (phase, launches)."""
+    from ndivplanning_tpu_torch.data.host_pipeline import (
+        ArrayDataset,
+        batch_from_arrays,
+        train_eval_split,
+    )
+    from ndivplanning_tpu_torch.train import loop
+    from ndivplanning_tpu_torch.train.evaluate import evaluate_on_batch
+    from ndivplanning_tpu_torch.train.step import train_step_impl
+    from ndivplanning_tpu_torch.utils import checkpoint as ckpt
+    from ndivplanning_tpu_torch.utils.config import load_config, save_config
+    from ndivplanning_tpu_torch.utils.metrics import host_floats
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
+    npz, cli_run = os.path.join(tmp, "p512.npz"), os.path.join(tmp, "cli")
+    cfg = load_config(PLANNING512).replace(**DATASET_EVERY)
+    process_s = {}
+    t0 = time.perf_counter()
+    rec = cli_json(["record-data", "--workdir", PLANNING512, "--out", npz,
+                    "--n-examples", str(DATASET_EXAMPLES)])
+    process_s["record"] = time.perf_counter() - t0
+    if rec["kept"] + rec["dropped"] != DATASET_EXAMPLES or not rec["kept"]:
+        raise AssertionError(f"cli record-data: {rec}")
+    save_config(cfg.replace(workdir=cli_run), cli_run)
+    t0 = time.perf_counter()
+    trained = cli_json(["train", "--workdir", cli_run, "--dataset", npz,
+                        "--epochs", str(DATASET_EPOCHS), "--eval-fraction",
+                        str(DATASET_EVAL_FRACTION)])
+    process_s["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli_eval = cli_json(["eval", "--workdir", cli_run, "--dataset", npz])
+    process_s["eval"] = time.perf_counter() - t0
+    if not cli_eval or not all(k.startswith("eval_") and math.isfinite(v)
+                               for k, v in cli_eval.items()):
+        raise AssertionError(f"cli eval --dataset: {cli_eval}")
+
+    ds, held = train_eval_split(ArrayDataset.from_npz(npz),
+                                DATASET_EVAL_FRACTION, seed=cfg.seed)
+    per_epoch = ds.size // cfg.batch_size
+    steps, resume_steps = (DATASET_EPOCHS * per_epoch,
+                           DATASET_RESUME_AT * per_epoch)
+    if trained["final_step"] != steps:
+        raise AssertionError(f"cli train --dataset: {trained}, want step "
+                             f"{steps}")
+    legs = 2 if cfg.g_ema_decay > 0 else 1
+
+    def points(n):
+        return n // cfg.eval_every + (n % cfg.eval_every > 0)
+
+    launches = {}
+
+    def run(key, workdir, epochs, resident, want):
+        os.environ["NDIV_DATASET_DEVICE_MB"] = "512" if resident else "0"
+        reset(ndiv_cuda)
+        t0 = time.perf_counter()
+        try:
+            state, _ = loop.train_from_dataset(cfg, ds, epochs,
+                                               workdir=workdir,
+                                               eval_dataset=held)
+        finally:
+            del os.environ["NDIV_DATASET_DEVICE_MB"]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches[key] = launched(ndiv_cuda)
+        if launches[key] != want:
+            raise AssertionError(f"dataset run {key}: launches "
+                                 f"{launches[key]}, want {want}")
+        return state, wall_s
+
+    full_want = {"joint": steps, "fwd": legs * points(steps)}
+    run_a, run_b, run_c = (os.path.join(tmp, x) for x in "abc")
+    state_a, wall_a = run("resident", run_a, DATASET_EPOCHS, True, full_want)
+    state_b, wall_b = run("streaming", run_b, DATASET_EPOCHS, False,
+                          full_want)
+    run("resumed_first", run_c, DATASET_RESUME_AT, True,
+        {"joint": resume_steps, "fwd": legs * points(resume_steps)})
+    want_prof = {"joint": steps - resume_steps,
+                 "fwd": legs * (points(steps) - points(resume_steps))}
+    (state_c, _), prof_counts = warp_launches_by_mode(
+        torch, lambda: run("resumed", run_c, DATASET_EPOCHS, True,
+                           want_prof))
+    if prof_counts != want_prof:
+        raise AssertionError(f"the profiler counted {prof_counts} NDiv "
+                             f"kernels in the resumed run, want {want_prof}")
+    values = check_states_bitwise(torch, state_a, state_b,
+                                  "resident and streaming runs")
+    check_states_bitwise(torch, state_a, state_c, "the resumed run")
+    check_states_bitwise(torch, state_a, ckpt.restore_latest(
+        cli_run, loop.create_train_state(cfg)), "cli train --dataset")
+    clocks = ("wall_s", "steps_per_sec")
+    rows = {k: _rows(w) for k, w in (("a", run_a), ("b", run_b),
+                                     ("c", run_c))}
+
+    def strip(rs, lo=0):
+        return [{k: v for k, v in r.items() if k not in clocks}
+                for r in rs if r["step"] > lo]
+
+    if strip(rows["a"]) != strip(rows["b"]) or strip(
+            rows["a"], resume_steps) != strip(rows["c"], resume_steps):
+        raise AssertionError("the dataset runs' metric rows differ")
+    for r in rows["a"]:
+        if not all(math.isfinite(v) for v in r.values()
+                   if isinstance(v, float)):
+            raise AssertionError(f"non-finite row {r}")
+
+    # A resident step (its gather included) and a held-out eval leg,
+    # profiled on a copy of run A's state.
+    full = batch_from_arrays(ds.arrays, cfg.conditioning).map(
+        lambda t: t.cuda())
+    idx = torch.from_numpy(next(ds.batch_indices(cfg.batch_size))).cuda()
+    step_state = clone_state(torch, state_a)
+    step_prof = profile(torch, lambda: train_step_impl(
+        cfg, step_state, full.map(lambda t: t.index_select(0, idx))), 5)
+    n_eval = (held.size // cfg.batch_size) * cfg.batch_size or held.size
+    held_batch = batch_from_arrays({k: v[:n_eval] for k, v in
+                                    held.arrays.items()},
+                                   cfg.conditioning).map(lambda t: t.cuda())
+
+    def eval_leg():
+        return host_floats(evaluate_on_batch(
+            cfg, state_a, torch.Generator().manual_seed(cfg.seed + 1),
+            held_batch))
+
+    eval_leg()
+    eval_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eval_leg()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    eval_prof = profile(torch, eval_leg, 3)
+    if (step_prof["ndiv_launches_per_call"], eval_prof[
+            "ndiv_launches_per_call"]) != (1, 1):
+        raise AssertionError("a dataset step or eval leg launched "
+                             f"{step_prof['ndiv_launches_per_call']} / "
+                             f"{eval_prof['ndiv_launches_per_call']} NDiv "
+                             "kernels, want 1 / 1")
+    dx = math.prod(held_batch.real_traj.shape[1:])
+    shapes_checked = check_path_shapes(torch, ndiv_cuda, [
+        (cfg.batch_size, cfg.k, cfg.latent_dim, dx),
+        (n_eval, cfg.k, cfg.latent_dim, dx)])
+    shutil.rmtree(tmp)
+    return {
+        "phase": "dataset", "workdir_config": PLANNING512,
+        "record": rec, "train_rows": ds.size, "held_out_rows": held.size,
+        "batch_size": cfg.batch_size, "k": cfg.k,
+        "g_hidden": list(cfg.g_hidden), "d_hidden": list(cfg.d_hidden),
+        "epochs": DATASET_EPOCHS, "steps": steps,
+        "resumed_at_step": resume_steps, **DATASET_EVERY, "eval_legs": legs,
+        "cli_train": trained, "cli_eval": cli_eval, "process_s": process_s,
+        "launches": launches, "profiler_resumed_run": prof_counts,
+        "bitwise_equal_values": values, "rows_equal": True,
+        "batch_bytes_streamed": sum(
+            t.nbytes for t in (full.conditions[:cfg.batch_size],
+                               full.real_traj[:cfg.batch_size])),
+        "step_ms_resident_median": statistics.median(
+            clean_window_ms(rows["a"], cfg)),
+        "step_ms_resident_windows": clean_window_ms(rows["a"], cfg),
+        "step_ms_streaming_median": statistics.median(
+            clean_window_ms(rows["b"], cfg)),
+        "step_ms_streaming_windows": clean_window_ms(rows["b"], cfg),
+        "run_resident_s": wall_a, "run_streaming_s": wall_b,
+        "eval_leg_ms_median": statistics.median(eval_ms),
+        "eval_leg_rows": n_eval, "path_shapes_checked": shapes_checked,
+        "step_profile": {k: v for k, v in step_prof.items()
+                         if k != "top_kernels"},
+        "step_top_kernels": step_prof["top_kernels"],
+        "eval_leg_profile": {k: v for k, v in eval_prof.items()
+                             if k != "top_kernels"},
+        "eval_rows": [r for r in rows["a"] if r.get("kind") == "eval"],
+        "last_train_row": [r for r in rows["a"] if "kind" not in r][-1]}, (
+            launches)
+
+
+def oneshot_record_vs_cpu(torch, distill, cfg, state, cpu_state, tmp):
+    """record_planner_dataset with the one-shot teacher on the card and on
+    the CPU (the same CPU-drawn scenes and noise), and on the CPU with the
+    noise one ulp up and down: the rows whose pick or open-loop success
+    differs from the CPU's, within twice the CPU's own plus the slack."""
+    import numpy as np
+
+    kw = dict(planner="oneshot", success_only=False)
+    paths = {k: os.path.join(tmp, f"oneshot_{k}.npz")
+             for k in ("card", "cpu", "up", "down")}
+    t0 = time.perf_counter()
+    stats = {"card": distill.record_planner_dataset(
+        cfg, state, ONESHOT_RECORD_SCENES, paths["card"], **kw)}
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats["cpu"] = distill.record_planner_dataset(
+        cfg, cpu_state, ONESHOT_RECORD_SCENES, paths["cpu"], **kw)
+    cpu_s = time.perf_counter() - t0
+    noise = distill._chunk_noise
+    try:
+        for key, to in (("up", math.inf), ("down", -math.inf)):
+            def moved(*args, _to=to):
+                z = noise(*args)
+                return torch.nextafter(z, torch.full_like(z, _to))
+
+            distill._chunk_noise = moved
+            stats[key] = distill.record_planner_dataset(
+                cfg, cpu_state, ONESHOT_RECORD_SCENES, paths[key], **kw)
+    finally:
+        distill._chunk_noise = noise
+    data = {}
+    for key, path in paths.items():
+        with np.load(path) as f:
+            data[key] = {k: f[k] for k in f.files}
+    for key in ("conditions", "scene_start", "scene_goal", "scene_obstacles",
+                "scene_obstacle_mask"):
+        if not np.array_equal(data["card"][key], data["cpu"][key]):
+            raise AssertionError(f"oneshot recording: {key} differs on the "
+                                 "card from the CPU's")
+    from ndivplanning_tpu_torch.data.host_pipeline import scenes_from_arrays
+
+    scenes = scenes_from_arrays(data["cpu"], cfg.conditioning)
+
+    def outcome(key):
+        trajs = torch.from_numpy(data[key]["real_traj"])
+        r, c = distill._verify_open_loop(cfg, scenes, trajs)
+        return trajs, (r > 0.5) & (c < 0.5)
+
+    ref_trajs, ref_ok = outcome("cpu")
+
+    def tally(key):
+        trajs, ok = outcome(key)
+        off = ((trajs - ref_trajs).abs() > 1e-4 + 1e-4 * ref_trajs.abs())
+        return {"picks_differ": int(off.flatten(1).any(dim=1).sum()),
+                "ok_differ": int((ok != ref_ok).sum())}
+
+    got = tally("card")
+    own = {key: tally(key) for key in ("up", "down")}
+    for key, n in got.items():
+        allowed = (2 * sum(o[key] for o in own.values())
+                   + ONESHOT_RECORD_SLACK[key])
+        if n > allowed:
+            raise AssertionError(f"oneshot recording, card vs CPU: {key} {n},"
+                                 f" allowed {allowed} (the CPU's own {own})")
+    if not np.isfinite(data["card"]["real_traj"]).all():
+        raise AssertionError("oneshot recording: non-finite rows")
+    return {"scenes": ONESHOT_RECORD_SCENES, "card_vs_cpu": got,
+            "cpu_vs_cpu_moved": own,
+            "keep_rate": {k: v["open_loop_keep_rate"]
+                          for k, v in stats.items()},
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def distill_phase(torch, ndiv_cuda):
+    """Expert iteration: `cli distill` (one MPC round) on a copy of
+    quadrotor150k and `cli record-data --from-planner oneshot` on
+    unicycle150k in subprocesses; the same round in process, counted and
+    timed, leaving the caller's state bitwise as it was; the one-shot
+    recording on the card against the CPU.  Returns (phase, launches)."""
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.data.host_pipeline import ArrayDataset
+    from ndivplanning_tpu_torch.train import distill
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_distill_")
+    copy_dir = os.path.join(tmp, os.path.basename(DISTILL_WORKDIR))
+    shutil.copytree(DISTILL_WORKDIR, copy_dir)
+    r = DISTILL_ROUND
+    jobs = {
+        "distill": ["distill", "--workdir", copy_dir, "--planner",
+                    r["planner"], "--rounds", str(r["rounds"]),
+                    "--scenes-per-round", str(r["scenes_per_round"]),
+                    "--epochs", str(r["epochs"]), "--suite-size",
+                    str(r["suite_scenes"])],
+        "record_oneshot": ["record-data", "--workdir",
+                           ONESHOT_RECORD_WORKDIR, "--from-planner",
+                           "oneshot", "--n-examples",
+                           str(ONESHOT_RECORD_SCENES), "--out",
+                           os.path.join(tmp, "cli_oneshot.npz")]}
+
+    def job(args):
+        t0 = time.perf_counter()
+        out = cli_json(args, timeout=900)
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        done = dict(zip(jobs, pool.map(job, jobs.values())))
+    (cli_row,), cli_s = done["distill"][0]["rounds"], done["distill"][1]
+    rec_out, rec_s = done["record_oneshot"]
+    if (cli_row["record"]["kept"] + cli_row["record"]["dropped"]
+            != r["scenes_per_round"] or not isinstance(
+                cli_row["accepted"], bool)):
+        raise AssertionError(f"cli distill: {cli_row}")
+    if (rec_out["planner"] != "oneshot"
+            or rec_out["kept"] + rec_out["dropped"] != ONESHOT_RECORD_SCENES):
+        raise AssertionError(f"cli record-data --from-planner: {rec_out}")
+
+    cfg = load_config(copy_dir).replace(workdir=DISTILL_WORKDIR)
+    state = _load_state(cfg, "cuda")
+    before = snapshot_state(torch, state)
+    reset(ndiv_cuda)
+    t0 = time.perf_counter()
+    out_state, (row,) = distill.expert_iteration(
+        cfg, state, rounds=r["rounds"], scenes_per_round=r["scenes_per_round"],
+        epochs=r["epochs"], planner=r["planner"],
+        suite_scenes=r["suite_scenes"], workdir=os.path.join(tmp, "inproc"))
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = launched(ndiv_cuda)
+    kept = row["record"]["kept"]
+    ft_batch = row.get("batch_size", cfg.batch_size)
+    legs = 2 if cfg.g_ema_decay > 0 else 1
+    if kept:
+        ft_steps = row["epochs"] * max(kept // ft_batch, 1)
+        cadence = max(ft_steps // 20, 1)
+        points = ft_steps // cadence + (ft_steps % cadence > 0)
+        want = {"joint": ft_steps, "fwd": 2 + legs * points}
+    else:
+        want = {"fwd": 1}
+    if launches != want:
+        raise AssertionError(f"distill round launched {launches}, want {want}")
+    shapes_checked = {}
+    if kept:
+        # The fine-tune's joint ran at its batch cut to the rows kept.
+        dx = math.prod(ArrayDataset.from_npz(os.path.join(
+            tmp, "inproc", "round_0", "expert.npz")).arrays[
+                "real_traj"].shape[1:])
+        shapes_checked = check_path_shapes(torch, ndiv_cuda, [
+            (n, cfg.k, cfg.latent_dim, dx)
+            for n in (ft_batch, r["suite_scenes"])])
+    values = check_snapshots_equal(torch, before, snapshot_state(
+        torch, state), "the caller's state after the round")
+    if not row["accepted"] and out_state is not state:
+        raise AssertionError("a rejected round returned another state")
+    after = row.get("after", {})
+    if not all(math.isfinite(v) for v in after.values()):
+        raise AssertionError(f"distill round: non-finite {after}")
+    u_cfg, u_state, u_cpu, _ = checkpoint_restore(
+        torch, ONESHOT_RECORD_WORKDIR, model_step("unicycle150k"))
+    oneshot = oneshot_record_vs_cpu(torch, distill, u_cfg, u_state, u_cpu,
+                                    tmp)
+    shutil.rmtree(tmp)
+    return {
+        "phase": "distill", "model": DISTILL_WORKDIR, **DISTILL_ROUND,
+        "keep_rate": row["record"]["open_loop_keep_rate"],
+        "kept": kept, "accepted": row["accepted"],
+        "finetune_batch_size": ft_batch,
+        "path_shapes_checked": shapes_checked,
+        "finetune_epochs": row.get("epochs"), "round_s": round_s,
+        "launches": launches, "caller_state_bitwise_values": values,
+        "before": row["before"], "after": after,
+        "rejected_for_diversity": row.get("rejected_for_diversity"),
+        "cli_round": {k: cli_row.get(k) for k in ("accepted", "epochs",
+                                                  "batch_size")},
+        "cli_keep_rate": cli_row["record"]["open_loop_keep_rate"],
+        "cli_process_s": cli_s, "cli_record_oneshot": rec_out,
+        "cli_record_oneshot_s": rec_s, "oneshot_record_vs_cpu": oneshot}, (
+            launches)
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -2964,6 +3398,14 @@ def main() -> int:
         path_launches[f"eval_{name}"] = n
     # 8i. The gradient refiners (no NDiv kernel on their paths either).
     emit({**refine_phase(torch, ndiv_cuda), "card": smi})
+    # 8j. Recorded data and expert iteration: the dataset loop on the
+    # planning512 recipe, and one distillation round on quadrotor150k.
+    phase, launches = dataset_phase(torch, ndiv_cuda)
+    emit({**phase, "card": smi})
+    for run, n in launches.items():
+        path_launches[f"dataset_{run}"] = n
+    phase, path_launches["distill_round"] = distill_phase(torch, ndiv_cuda)
+    emit({**phase, "card": smi})
 
     # 9. Kernel times on the first imagecond step's inputs, every route,
     # beside the tile kernel's (one tiling, the same in every layout).

@@ -7,6 +7,9 @@
     python -m ndivplanning_tpu_torch.cli eval  --workdir checkpoints_torch/quadrotor150k --mpc
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/unicycle150k --refine cem
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/quadrotor_distilled_ilqr --refine ilqr
+    python -m ndivplanning_tpu_torch.cli record-data --preset planning --out runs/p512.npz
+    python -m ndivplanning_tpu_torch.cli train --workdir runs/p512 --dataset runs/p512.npz --epochs 30
+    python -m ndivplanning_tpu_torch.cli distill --workdir checkpoints_torch/quadrotor150k --planner mpc
 
 Every command runs on the CUDA card unless ``--device cpu`` is given.  A
 ``--workdir`` holding a recorded ``config.json`` is the base config; eval,
@@ -28,13 +31,13 @@ import torch
 
 from ndivplanning_tpu_torch.utils.device import resolve_device
 
-NOT_PORTED_COMMANDS = ("viz", "record-data", "distill", "export", "doctor",
-                       "curves")
+NOT_PORTED_COMMANDS = ("viz", "export", "doctor", "curves")
 
 
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to the torch CLI yet (ported: "
-                      "train and eval on the on-device sampler, one-shot "
+                      "train and eval on the on-device sampler and on "
+                      "recorded datasets, record-data and distill, one-shot "
                       "planning and every refiner, closed-loop MPC; plan "
                       "and serve, unsharded)")
 
@@ -153,12 +156,6 @@ def _check_ported(args) -> None:
                       "--max-pending": bool(args.max_pending),
                       "--deadline-ms": bool(args.deadline_ms),
                       "--watch-best": args.watch_best})
-    elif args.cmd == "train":
-        flags.update({"--dataset": args.dataset is not None,
-                      "--epochs": args.epochs is not None,
-                      "--eval-fraction": args.eval_fraction is not None})
-    else:
-        flags["--dataset"] = args.dataset is not None
     for flag, on in flags.items():
         if on:
             raise _not_ported(f"{args.cmd} {flag}")
@@ -209,21 +206,66 @@ def _plan_mpc(cfg, state, device, args) -> dict:
 
 
 def _parser() -> argparse.ArgumentParser:
+    from ndivplanning_tpu_torch.train.distill import TEACHERS
     from ndivplanning_tpu_torch.train.evaluate import PLANNERS
 
     parser = argparse.ArgumentParser(prog="ndivplanning_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name in NOT_PORTED_COMMANDS:
         sub.add_parser(name, add_help=False, help="not ported yet")
-    for name in ("train", "eval", "plan", "serve"):
+    names = ("train", "eval", "plan", "serve", "record-data", "distill")
+    for name in names:
         _add_common(sub.add_parser(name))
-    train_p, eval_p, plan_p, serve_p = (
-        sub.choices[name] for name in ("train", "eval", "plan", "serve"))
-    train_p.add_argument("--dataset", default=None, help="not ported yet")
-    train_p.add_argument("--epochs", type=int, default=None,
-                         help="not ported yet")
-    train_p.add_argument("--eval-fraction", type=float, default=None,
-                         help="not ported yet")
+    train_p, eval_p, plan_p, serve_p, record_p, distill_p = (
+        sub.choices[name] for name in names)
+    train_p.add_argument("--dataset", default=None,
+                         help="train from a recorded .npz dataset "
+                              "(record-data) instead of the on-device task "
+                              "sampler")
+    train_p.add_argument("--epochs", type=int, default=1,
+                         help="epochs over --dataset")
+    train_p.add_argument("--eval-fraction", type=float, default=0.1,
+                         help="held-out fraction of --dataset evaluated "
+                              "against its true scenes (0 disables)")
+    record_p.add_argument("--out", required=True, help="output .npz path")
+    record_p.add_argument("--n-examples", type=int, default=4096)
+    record_p.add_argument("--from-planner", default=None, choices=TEACHERS,
+                          help="record planner-made expert trajectories "
+                               "(re-verified open-loop against their true "
+                               "scenes) instead of the task sampler's "
+                               "experts: expert iteration's data")
+    record_p.add_argument("--per-scene", type=int, default=1,
+                          help="independent planner draws per scene "
+                               "(--from-planner)")
+    distill_p.add_argument("--rounds", type=int, default=1,
+                           help="expert-iteration rounds (record -> "
+                                "fine-tune -> frozen-suite eval; a round is "
+                                "kept only if the tracked metric improves)")
+    distill_p.add_argument("--scenes-per-round", type=int, default=2048)
+    distill_p.add_argument("--per-scene", type=int, default=1,
+                           help="independent planner draws per scene")
+    distill_p.add_argument("--planner", default="mpc", choices=TEACHERS)
+    distill_p.add_argument("--track", default=None,
+                           help="the metric a round is accepted on (default: "
+                                "the config's track_best_metric or "
+                                "eval_success_rate); 'eval_plan_best_score' "
+                                "adjudicates on the one-shot planner ladder "
+                                "(lower is better)")
+    distill_p.add_argument("--epochs", type=int, default=None,
+                           help="fine-tune epochs per round (default: ~5000 "
+                                "optimizer steps)")
+    distill_p.add_argument("--suite-size", type=int, default=512,
+                           help="frozen-suite scenes of the before/after "
+                                "measurement")
+    distill_p.add_argument("--mpc-replan", type=int, default=8)
+    distill_p.add_argument("--mpc-candidates", type=int, default=256)
+    distill_p.add_argument("--distill-workdir", default=None,
+                           help="where the rounds' datasets and checkpoints "
+                                "go (default <workdir>/distill)")
+    distill_p.add_argument("--min-diversity-frac", type=float, default=0.5,
+                           help="reject a round whose frozen-suite mean "
+                                "pairwise distance falls below this fraction "
+                                "of the pre-iteration value (0 disables)")
     eval_p.add_argument("--sampled", action="store_true",
                         help="sample a fresh eval batch instead of the "
                              "frozen suite")
@@ -235,7 +277,9 @@ def _parser() -> argparse.ArgumentParser:
     eval_p.add_argument("--scene-chunk", type=int, default=None,
                         help="scenes per dispatch for --planner "
                              "(default 128 oneshot, 16 the refiners)")
-    eval_p.add_argument("--dataset", default=None, help="not ported yet")
+    eval_p.add_argument("--dataset", default=None,
+                        help="evaluate on a recorded .npz dataset's first "
+                             "--suite-size rows against their true scenes")
     eval_p.add_argument("--mpc", action="store_true",
                         help="closed-loop quality: every frozen-suite scene "
                              "as a receding-horizon MPC episode (fixed "
@@ -301,6 +345,65 @@ def main(argv=None) -> int:
     cfg = _build_config(args)
     device = resolve_device(args.device)
 
+    if args.cmd == "record-data":
+        if args.from_planner:
+            from ndivplanning_tpu_torch.train.distill import (
+                record_planner_dataset,
+            )
+
+            stats = record_planner_dataset(
+                cfg, _load_state(cfg, device), args.n_examples, args.out,
+                planner=args.from_planner, per_scene=args.per_scene)
+        else:
+            from ndivplanning_tpu_torch.data.host_pipeline import (
+                record_dataset,
+            )
+
+            stats = record_dataset(cfg, args.n_examples, args.out,
+                                   seed=cfg.seed, device=device)
+        print(json.dumps({"out": args.out, **stats}))
+        return 0
+
+    if args.cmd == "distill":
+        from ndivplanning_tpu_torch.train.distill import (
+            RECORD_SEED,
+            expert_iteration,
+        )
+
+        # --seed moves the recording's scenes (and, through the config,
+        # the fine-tune's draws); the offset keeps every derived seed far
+        # from the frozen suite's.
+        record_seed = (RECORD_SEED if args.seed is None
+                       else RECORD_SEED + 7919 * args.seed)
+        _, report = expert_iteration(
+            cfg, _load_state(cfg, device), seed=record_seed,
+            rounds=args.rounds, scenes_per_round=args.scenes_per_round,
+            per_scene=args.per_scene, epochs=args.epochs,
+            planner=args.planner, replan_every=args.mpc_replan,
+            n_candidates=args.mpc_candidates, workdir=args.distill_workdir,
+            suite_scenes=args.suite_size, echo=True,
+            min_diversity_frac=args.min_diversity_frac, track=args.track)
+        print(json.dumps({"rounds": report}))
+        return 0
+
+    if args.cmd == "train" and args.dataset:
+        from ndivplanning_tpu_torch.data.host_pipeline import (
+            ArrayDataset,
+            train_eval_split,
+        )
+        from ndivplanning_tpu_torch.train.loop import train_from_dataset
+
+        ds = ArrayDataset.from_npz(args.dataset)
+        eval_ds = None
+        if args.eval_fraction > 0:
+            ds, eval_ds = train_eval_split(ds, args.eval_fraction,
+                                           seed=cfg.seed)
+        state, last = train_from_dataset(
+            cfg, ds, num_epochs=args.epochs, workdir=cfg.workdir, echo=True,
+            eval_dataset=eval_ds, device=device)
+        print(json.dumps({"final_step": int(state.step), "last": last}))
+        return 0
+
     if args.cmd == "train":
         from ndivplanning_tpu_torch.train.loop import train
 
@@ -323,6 +426,21 @@ def main(argv=None) -> int:
                 cfg, state, n_scenes=args.suite_size,
                 total_steps=args.mpc_steps, replan_every=args.mpc_replan,
                 n_candidates=args.mpc_candidates)
+        elif args.dataset:
+            # Held-out eval against a recorded dataset's true scenes, the
+            # leg train --dataset runs, latents fixed from seed + 1.
+            from ndivplanning_tpu_torch.data.host_pipeline import (
+                ArrayDataset,
+                batch_from_arrays,
+            )
+
+            ds = ArrayDataset.from_npz(args.dataset)
+            n = min(args.suite_size, ds.size)
+            batch = batch_from_arrays({k: v[:n] for k, v in
+                                       ds.arrays.items()}, cfg.conditioning)
+            out = host_floats(ev.evaluate_on_batch(
+                cfg, state, torch.Generator().manual_seed(cfg.seed + 1),
+                batch))
         elif args.sampled:
             out = host_floats(ev.evaluate(
                 cfg, state, torch.Generator().manual_seed(cfg.seed + 2)))

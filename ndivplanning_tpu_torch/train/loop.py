@@ -1,11 +1,14 @@
-"""Host-side training loop; counterpart of ``ndivplanning_tpu/train/loop.py``.
+"""Host-side training loops; counterpart of ``ndivplanning_tpu/train/loop.py``.
 
-The loop runs chunks of steps that end at the next log, checkpoint or eval
-boundary, reads the chunk's metrics from the card once there, checkpoints
-every N steps, evaluates on the frozen suite with best-of-both (EMA and
-raw) checkpoint selection, and restores on start, so a stopped run resumes
-its exact bitwise loss curve.  This is the on-device sampler's loop; the
-recorded-dataset loop (``train_from_dataset``) is not ported yet.
+:func:`train` runs the on-device sampler's loop: chunks of steps that end
+at the next log, checkpoint or eval boundary, the chunk's metrics read
+from the card once there, checkpoints every N steps, frozen-suite evals
+with best-of-both (EMA and raw) checkpoint selection, and a restore on
+start, so a stopped run resumes its exact bitwise loss curve.
+:func:`train_from_dataset` is the same loop over a recorded dataset
+(``data/host_pipeline.py``): the batch order is the dataset's
+deterministic epoch stream, so its step counter is a position in one
+dataset, which a marker file in the workdir vouches for on resume.
 
 The port runs in one process.  A config with ``dp_shards * div_shards >
 1`` trains over its global batch without a mesh, as the unsharded step
@@ -16,20 +19,80 @@ row (``kind="compile"``) has no counterpart yet.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ndivplanning_tpu_torch.train.evaluate import evaluate_fixed
 from ndivplanning_tpu_torch.train.state import TrainState, create_train_state
-from ndivplanning_tpu_torch.train.step import train_chunk, train_step_fused
+from ndivplanning_tpu_torch.train.step import (
+    train_chunk,
+    train_step_fused,
+    train_step_impl,
+)
 from ndivplanning_tpu_torch.utils import checkpoint as ckpt
 from ndivplanning_tpu_torch.utils.config import Config, save_config
 from ndivplanning_tpu_torch.utils.metrics import MetricsWriter, host_floats
+
+
+def _dataset_marker_path(workdir: str) -> str:
+    return os.path.join(workdir, "dataset_run.json")
+
+
+def _dataset_fingerprint(dataset, cfg: Config) -> dict:
+    """What ties a workdir's step counter to one dataset's batch order: the
+    JAX package's dict for the same arrays and config (a content hash,
+    not only shapes, so a re-recorded file of the same shape is refused)."""
+    h = hashlib.blake2b(digest_size=16)
+    for name in sorted(dataset.arrays):
+        a = np.ascontiguousarray(dataset.arrays[name])
+        h.update(name.encode())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return {"dataset_size": int(dataset.size),
+            "batch_size": int(cfg.batch_size),
+            "seed": int(cfg.seed),
+            "arrays": sorted(dataset.arrays),
+            "content_blake2b": h.hexdigest()}
+
+
+def _write_dataset_marker(workdir: str, dataset, cfg: Config) -> None:
+    os.makedirs(workdir, exist_ok=True)
+    with open(_dataset_marker_path(workdir), "w", encoding="utf-8") as f:
+        json.dump(_dataset_fingerprint(dataset, cfg), f)
+
+
+def _check_dataset_marker(workdir: str, dataset, cfg: Config) -> None:
+    """Raise unless ``workdir``'s marker vouches for this dataset run.  Only
+    the keys the stored marker has are compared, so a marker written
+    before a field existed stays resumable on the same dataset."""
+    path = _dataset_marker_path(workdir)
+    if not os.path.exists(path):
+        raise ValueError(
+            f"workdir {workdir!r} holds a checkpoint but no dataset-run "
+            "marker: it was trained by a different path (e.g. the "
+            "on-device sampler), and its step counter cannot be used as "
+            "a position in this dataset. Use a fresh --workdir or "
+            "restore=False.")
+    with open(path, encoding="utf-8") as f:
+        marker = json.load(f)
+    want = _dataset_fingerprint(dataset, cfg)
+    mismatch = {k: (marker[k], want.get(k))
+                for k in marker if marker[k] != want.get(k)}
+    if mismatch:
+        raise ValueError(
+            f"workdir {workdir!r} was trained on a different dataset "
+            f"run (mismatched fields: {mismatch}); resuming would "
+            "misalign the deterministic batch order. Use a fresh "
+            "--workdir.")
+
 
 # Metrics where smaller is better; everything else is maximised by the
 # best-checkpoint tracker.
@@ -270,6 +333,153 @@ def train(cfg: Config, num_steps: Optional[int] = None,
     finally:
         writer.close()
     return state, obs.history
+
+
+def train_from_dataset(cfg: Config, dataset, num_epochs: int,
+                       state: TrainState | None = None, prefetch: int = 2,
+                       workdir: Optional[str] = None, restore: bool = True,
+                       echo: bool = False, eval_dataset=None,
+                       eval_suite: bool = False, device=None):
+    """Train from a recorded dataset (``data/host_pipeline.py``) instead of
+    the on-device sampler, with :func:`train`'s bookkeeping.
+
+    - Batches carry their recorded scenes (or the exact obstacle-free
+      rebuild of a start/goal dataset without them).
+    - Metrics go through :class:`MetricsWriter`; ``workdir`` (None: none)
+      gets checkpoints every ``cfg.checkpoint_every`` steps, the dataset
+      marker and the config.  A restore on start resumes the batch order
+      (epoch e shuffles with ``cfg.seed + e``) after the consumed prefix,
+      so the resumed run is bitwise the uninterrupted one; a workdir with
+      a checkpoint but no marker, or another dataset's, is refused.
+    - ``eval_dataset`` (e.g. from ``train_eval_split``) is the held-out
+      eval every ``cfg.eval_every`` steps: ``evaluate_on_batch`` against
+      its true scenes with latents fixed from ``cfg.seed + 1``.
+      ``eval_suite=True`` evaluates on the frozen suite
+      (``evaluate_fixed``) instead, the expert-iteration fine-tune's
+      protocol (``train/distill.py``); the two exclude each other.
+    - A dataset whose converted batch (scenes included) fits
+      ``NDIV_DATASET_DEVICE_MB`` (default 512; 0 disables) is uploaded to
+      the device once and each step gathers its rows with
+      ``index_select``; otherwise a prefetch thread streams the batches
+      (``prefetch`` batches ahead: it applies to this path only).  Both
+      give bitwise the same states.
+    - Each step runs as its batch arrives; metrics are read from the
+      device at the log, checkpoint and eval boundaries, the JAX loop's
+      flush points.
+
+    ``state=None`` starts from ``create_train_state(cfg, device=device)``
+    (default: the card).  Returns (state, the last metrics row)."""
+    from ndivplanning_tpu_torch.data.host_pipeline import (
+        batch_from_arrays,
+        batch_nbytes,
+        prefetch_to_device,
+    )
+    from ndivplanning_tpu_torch.train.evaluate import evaluate_on_batch
+
+    _check_one_process()
+    if eval_suite and eval_dataset is not None:
+        raise ValueError("eval_suite and eval_dataset are mutually "
+                         "exclusive: pick one eval protocol")
+    steps_per_epoch = dataset.size // cfg.batch_size
+    if steps_per_epoch == 0:
+        raise ValueError(
+            f"dataset of {dataset.size} examples is smaller than one "
+            f"batch ({cfg.batch_size})")
+    total_steps = num_epochs * steps_per_epoch
+
+    if state is None:
+        state = create_train_state(cfg, device=device)
+    device = state.rng.device
+    if restore and workdir and ckpt.latest_step(workdir) is not None:
+        # The step counter is a position in this dataset's batch order:
+        # refuse a checkpoint the marker does not vouch for before loading
+        # it into the state.
+        _check_dataset_marker(workdir, dataset, cfg)
+        state = ckpt.restore_latest(workdir, state)
+    if workdir:
+        _write_dataset_marker(workdir, dataset, cfg)
+        save_config(cfg, workdir)
+    adam_lead = state.d_opt.count - state.step
+
+    def to_batch(arrays):
+        return batch_from_arrays(arrays, cfg.conditioning)
+
+    eval_fn = None
+    if eval_suite:
+        def eval_fn(state, step, use_ema):
+            return host_floats(evaluate_fixed(
+                cfg, state, n_scenes=cfg.eval_suite_scenes, use_ema=use_ema))
+    elif eval_dataset is not None:
+        n_eval = ((eval_dataset.size // cfg.batch_size) * cfg.batch_size
+                  or eval_dataset.size)
+        eval_batch = to_batch({k: v[:n_eval] for k, v in
+                               eval_dataset.arrays.items()}).map(
+            lambda t: t.to(device))
+
+        def eval_fn(state, step, use_ema):
+            # Latents fixed across eval points, so the best-of tracker
+            # selects on the generator, not on the draw.
+            return host_floats(evaluate_on_batch(
+                cfg, state, torch.Generator().manual_seed(cfg.seed + 1),
+                eval_batch, use_ema=use_ema))
+
+    start_step = state.step
+    if start_step >= total_steps:
+        return state, {}
+
+    def epoch_indices():
+        """Each epoch's ``[steps, batch]`` indices, from the resumed step
+        on."""
+        for e in range(num_epochs):
+            lo = max(start_step - e * steps_per_epoch, 0)
+            if lo < steps_per_epoch:
+                idx = np.stack(list(dataset.batch_indices(
+                    cfg.batch_size, seed=cfg.seed + e)))
+                yield idx[lo:]
+
+    row_bytes = batch_nbytes(to_batch({k: v[:1] for k, v in
+                                       dataset.arrays.items()}))
+    dev_mb = int(os.environ.get("NDIV_DATASET_DEVICE_MB", "512"))
+    if dev_mb > 0 and row_bytes * dataset.size <= (dev_mb << 20):
+        # Device-resident: the converted dataset goes to the device once;
+        # each epoch's order follows as one index upload.
+        full = to_batch(dataset.arrays).map(lambda t: t.to(device))
+
+        def resident():
+            for idx in epoch_indices():
+                idx = torch.from_numpy(idx).to(device)
+                for row in idx:
+                    yield full.map(lambda t: t.index_select(0, row))
+
+        stream = resident()
+    else:
+        stream = prefetch_to_device(
+            (to_batch({k: v[i] for k, v in dataset.arrays.items()})
+             for idx in epoch_indices() for i in idx),
+            buffer_size=prefetch, device=device)
+
+    writer = MetricsWriter(workdir, echo=echo)
+    obs = _LoopObserver(cfg, workdir, total_steps, writer, eval_fn=eval_fn)
+    last: dict = {}
+    step = seen = start_step
+    target = obs.next_boundary(step)
+    try:
+        for batch in stream:
+            state, metrics = train_step_impl(cfg, state, batch)
+            step += 1
+            if step < target:
+                continue
+            # The one read of the metrics since the last boundary.
+            last = host_floats(metrics)
+            obs.at_boundary(state, step, step - seen, last)
+            seen, target = step, obs.next_boundary(step)
+        obs.final_save(state)
+    except KeyboardInterrupt:
+        obs.interrupt_save(state, adam_lead)
+        raise
+    finally:
+        writer.close()
+    return state, last
 
 
 def run_steps(cfg: Config, state: TrainState, n: int):

@@ -242,11 +242,21 @@ def create_train_state(cfg: Config, seed: int | None = None,
     g, d = g.to(device), d.to(device)
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
-    zero = torch.zeros((), dtype=torch.float32, device=device)
+    g_opt, d_opt = build_optimizers(cfg, g, d)
     return TrainState(
-        step=0, rng=rng, g=g, d=d,
-        g_opt=Adam(g, lr_schedule(cfg, cfg.g_lr), cfg.adam_b1, cfg.adam_b2),
-        d_opt=Adam(d, lr_schedule(cfg, cfg.d_lr), cfg.adam_b1, cfg.adam_b2),
+        step=0, rng=rng, g=g, d=d, g_opt=g_opt, d_opt=d_opt,
         g_ema=copy.deepcopy(g).requires_grad_(False),
-        ada={"r": zero.clone(), "p": zero.clone()},
+        ada=fresh_ada(device),
     )
+
+
+def build_optimizers(cfg: Config, g: nn.Module, d: nn.Module):
+    """Fresh (G, D) Adam chains at count 0 with the config's LR schedules."""
+    return (Adam(g, lr_schedule(cfg, cfg.g_lr), cfg.adam_b1, cfg.adam_b2),
+            Adam(d, lr_schedule(cfg, cfg.d_lr), cfg.adam_b1, cfg.adam_b2))
+
+
+def fresh_ada(device) -> dict:
+    """The ADA controller's state at its start: r_t EMA and p at 0."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"r": zero.clone(), "p": zero.clone()}

@@ -14,6 +14,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from ndivplanning_tpu_torch.cli import main
@@ -103,8 +104,7 @@ def test_cli_plan_on_planning512(capsys):
     assert out["best_reached"] in (0.0, 1.0) and out["best_score"] > 0
 
 
-@pytest.mark.parametrize("cmd", ["viz", "record-data", "distill", "export",
-                                 "doctor", "curves"])
+@pytest.mark.parametrize("cmd", ["viz", "export", "doctor", "curves"])
 def test_unported_subcommands_exit_with_their_name(cmd):
     with pytest.raises(SystemExit, match=f"'{cmd}' subcommand is not ported"):
         main([cmd, "--preset", "goalcond"])
@@ -122,16 +122,17 @@ def test_unported_subcommands_exit_with_their_name(cmd):
     (["serve", "--deadline-ms", "50"], "--deadline-ms"),
     (["serve", "--watch-best"], "--watch-best"),
     (["plan", "--refine", "cem+trajopt", "--sharded"], "--sharded"),
-    (["train", "--dataset", "data.npz"], "--dataset"),
-    (["train", "--epochs", "2"], "--epochs"),
-    (["train", "--eval-fraction", "0.2"], "--eval-fraction"),
     (["train", "--profile-dir", "prof"], "--profile-dir"),
-    (["eval", "--dataset", "data.npz"], "--dataset"),
     (["plan", "--refine", "grad", "--sharded"], "--sharded"),
     (["eval", "--planner", "trajopt", "--profile-dir", "prof"],
      "--profile-dir"),
     (["serve", "--refine", "ilqr", "--debug-nans"], "--debug-nans"),
     (["eval", "--debug-nans"], "--debug-nans"),
+    (["record-data", "--out", "x.npz", "--profile-dir", "prof"],
+     "--profile-dir"),
+    (["distill", "--debug-nans"], "--debug-nans"),
+    (["train", "--dataset", "x.npz", "--profile-dir", "prof"],
+     "--profile-dir"),
 ])
 def test_unported_flags_exit_with_their_name(args, flag):
     with pytest.raises(SystemExit, match=re.escape(f"{flag} is not ported")):
@@ -195,6 +196,100 @@ def test_cli_eval_prints_the_frozen_sampled_and_planner_metrics(tmp_path,
     assert planner["eval_planner"] == "oneshot"
     assert planner["eval_plan_n_scenes"] == 6.0
     assert 0.0 <= planner["eval_plan_reach_rate"] <= 1.0
+
+
+def test_cli_record_data_then_train_and_eval_on_the_dataset(tmp_path,
+                                                           capsys):
+    """record-data (the task sampler's experts) -> train --dataset with a
+    held-out split -> a resume to more epochs -> eval --dataset."""
+    data, run = str(tmp_path / "rec.npz"), str(tmp_path / "run")
+    rec = _cli_json(capsys, ["record-data", *TRAIN_ARGS, "--out", data,
+                             "--n-examples", "48"])
+    assert rec == {"out": data, "kept": 48, "dropped": 0}
+    args = ["train", *TRAIN_ARGS, "--workdir", run, "--dataset", data,
+            "--eval-fraction", "0.25"]
+    out = _cli_json(capsys, [*args, "--epochs", "2"])
+    assert out["final_step"] == 2 * (36 // 8)
+    assert {"d_loss", "g_adv", "g_ndiv", "steps_per_sec"} <= set(out["last"])
+    assert os.path.exists(os.path.join(run, "dataset_run.json"))
+    assert load_config(run).name == "goalcond"
+    with open(os.path.join(run, "metrics.jsonl"), encoding="utf-8") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows if r.get("kind") == "eval"] == [8]
+    out = _cli_json(capsys, [*args, "--epochs", "3"])
+    assert out["final_step"] == 12
+    ev = _cli_json(capsys, ["eval", "--workdir", run, "--dataset", data,
+                            "--suite-size", "16", "--device", "cpu"])
+    assert set(ev) == {"eval_mean_pairwise_dist", "eval_ndiv",
+                       "eval_endpoint_err", "eval_success_rate",
+                       "eval_collision_rate", "eval_mean_score"}
+    assert all(math.isfinite(v) for v in ev.values())
+    assert ev == _cli_json(capsys, ["eval", "--workdir", run, "--dataset",
+                                    data, "--suite-size", "16", "--device",
+                                    "cpu"])
+
+
+def test_cli_record_data_from_planner(tmp_path, capsys):
+    run, data = str(tmp_path / "run"), str(tmp_path / "expert.npz")
+    _cli_json(capsys, ["train", *TRAIN_ARGS, "--steps", "5",
+                       "--workdir", run])
+    out = _cli_json(capsys, ["record-data", "--workdir", run, "--out", data,
+                             "--n-examples", "6", "--from-planner",
+                             "oneshot", "--per-scene", "2", "--set",
+                             "n_candidates=16", "--device", "cpu"])
+    assert out["out"] == data and out["planner"] == "oneshot"
+    assert (out["kept"] + out["dropped"], out["per_scene"]) == (12, 2)
+    assert out["n_candidates"] == 256  # --from-planner's default budget
+    assert out["seed"] == 0xD157
+    with np.load(data) as d:
+        assert d["real_traj"].shape == (out["kept"], 32, 2)
+
+
+def test_cli_distill_runs_a_round(tmp_path, capsys):
+    run, wd = str(tmp_path / "run"), str(tmp_path / "distill")
+    _cli_json(capsys, ["train", *TRAIN_ARGS, "--steps", "5",
+                       "--workdir", run])
+    out = _cli_json(capsys, ["distill", "--workdir", run, "--device", "cpu",
+                             "--planner", "oneshot", "--rounds", "1",
+                             "--scenes-per-round", "32", "--epochs", "1",
+                             "--suite-size", "16", "--mpc-candidates", "16",
+                             "--distill-workdir", wd])
+    (row,) = out["rounds"]
+    assert row["round"] == 0 and row["record"]["planner"] == "oneshot"
+    assert row["record"]["n_scenes"] == 32
+    assert row["record"]["seed"] == 0xD157
+    assert isinstance(row["accepted"], bool)
+    if row["record"]["kept"]:
+        assert {"after", "epochs"} <= set(row)
+    assert os.path.exists(os.path.join(wd, "round_0", "report_row.json"))
+
+
+def test_cli_distill_passes_its_flags_and_seed_rule(tmp_path, monkeypatch,
+                                                    capsys):
+    from ndivplanning_tpu_torch.train import distill
+
+    seen = {}
+
+    def fake(cfg, state, **kw):
+        seen.update(kw, batch_size=cfg.batch_size)
+        return state, [{"round": 0}]
+
+    monkeypatch.setattr(distill, "expert_iteration", fake)
+    out = _cli_json(capsys, ["distill", *TRAIN_ARGS, "--workdir",
+                             str(tmp_path), "--seed", "3", "--rounds", "2",
+                             "--scenes-per-round", "64", "--per-scene", "2",
+                             "--planner", "ilqr", "--track",
+                             "eval_plan_best_score", "--epochs", "7",
+                             "--suite-size", "32", "--mpc-replan", "4",
+                             "--mpc-candidates", "64", "--distill-workdir",
+                             "dw", "--min-diversity-frac", "0.25"])
+    assert out == {"rounds": [{"round": 0}]}
+    assert seen == {"seed": 0xD157 + 7919 * 3, "rounds": 2,
+                    "scenes_per_round": 64, "per_scene": 2, "epochs": 7,
+                    "planner": "ilqr", "replan_every": 4, "n_candidates": 64,
+                    "workdir": "dw", "suite_scenes": 32, "echo": True,
+                    "min_diversity_frac": 0.25,
+                    "track": "eval_plan_best_score", "batch_size": 8}
 
 
 @pytest.mark.parametrize("name", ["unicycle150k", "reacher150k",

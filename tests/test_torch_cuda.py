@@ -923,3 +923,45 @@ def test_ilqr_iteration_on_the_card_matches_the_cpu(cuda):
         else:
             tol = dict(rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(card, cpu, **tol, msg=f"piece {i}")
+
+
+def test_prefetch_to_the_card_stages_through_pinned_memory(cuda):
+    """The side-stream copies land before the consumer reads them, and the
+    stream keeps its order through the queue."""
+    import numpy as np
+
+    from ndivplanning_tpu_torch.data.host_pipeline import prefetch_to_device
+
+    host = [{"a": np.full((256, 1024), i, np.float32)} for i in range(12)]
+    for i, item in enumerate(prefetch_to_device(iter(host), buffer_size=3,
+                                                device="cuda")):
+        assert item["a"].is_cuda
+        assert bool((item["a"] * 2 == 2 * i).all())
+
+
+def test_dataset_paths_on_the_card_are_bitwise_equal(cuda, monkeypatch):
+    """The device-resident and the streaming dataset path give one state,
+    with one joint NDiv launch a step."""
+    from ndivplanning_tpu_torch.data.host_pipeline import ArrayDataset
+    from ndivplanning_tpu_torch.data.tasks import make_task
+    from ndivplanning_tpu_torch.train.loop import train_from_dataset
+    from ndivplanning_tpu_torch.utils import checkpoint as ckpt
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    cfg = get_config("goalcond", batch_size=64, log_every=5, eval_every=0,
+                     checkpoint_every=0)
+    b = make_task(cfg).sample(torch.Generator().manual_seed(0), 640)
+    ds = ArrayDataset({"conditions": b.conditions.numpy(),
+                       "real_traj": b.real_traj.numpy()})
+    states = []
+    for mb in ("0", "512"):
+        monkeypatch.setenv("NDIV_DATASET_DEVICE_MB", mb)
+        for key in ndiv_cuda.LAUNCHES:
+            ndiv_cuda.LAUNCHES[key] = 0
+        state, _ = train_from_dataset(cfg, ds, 2, device="cuda")
+        assert state.step == 20
+        assert ndiv_cuda.LAUNCHES["joint"] == 20
+        states.append(ckpt.state_dict(state))
+    for part in ("g", "d", "g_ema"):
+        for name, t in states[0][part].items():
+            assert torch.equal(t, states[1][part][name]), (part, name)

@@ -68,7 +68,10 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
             "ndivplanning_tpu_torch.utils.checkpoint",
             "ndivplanning_tpu_torch.utils.metrics",
             "ndivplanning_tpu_torch.train.evaluate",
-            "ndivplanning_tpu_torch.train.loop"} <= set(mods)
+            "ndivplanning_tpu_torch.train.loop",
+            "ndivplanning_tpu_torch.train.distill",
+            "ndivplanning_tpu_torch.data.host_pipeline",
+            "ndivplanning_tpu_torch.data.native"} <= set(mods)
     assert len(mods) >= 20
     new = _new_modules(mods)
     assert "torch" in new or "torch" in sys.modules
