@@ -49,6 +49,14 @@ streaming and resumed dataset runs, bitwise equal; expert iteration: one
 `cli distill` round with the MPC teacher on a copy of quadrotor150k, the
 same round in process (counted, the caller's state untouched), and the
 one-shot teacher's recording on unicycle150k on the card against the CPU.
+The stabiliser knobs: each of the JAX package's recorded recipes (SN +
+DiffAugment + cosine, LeCam, ADA, D restarts, R1, instance noise, top-k,
+the diversity floor, feature matching, remat) on imagecond and the tuned
+transformer recipe on goalcond (bf16 and float32), 20 steps each at full
+width, twice, bitwise equal, one ndiv_joint a step, one step against the
+CPU; remat bitwise the recipe without it; the D restart on its step; and
+the transformer through `cli train`, `cli eval` and `cli plan`, its plan
+against the CPU's.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is the device summary.
 
@@ -319,11 +327,12 @@ REFINE_MODELS = {"grad": ("unicycle150k", "reacher150k"),
 # `cli serve --refine`: trajopt answers a burst of 4 lines, iLQR one.
 REFINE_SERVE = {"trajopt": ("unicycle150k", 4),
                 "ilqr": ("quadrotor_distilled_ilqr", 1)}
-# `cli eval --planner` beside oneshot on the same cut suite (64 of the
-# 512 scenes: a trajopt or iLQR plan of 16 scenes takes seconds).
+# `cli eval --planner` beside oneshot on the same cut suite (32 of the
+# 512 scenes, two chunks of 16: a trajopt or iLQR plan of 16 scenes takes
+# seconds; cut from 64 to keep the whole smoke inside its time).
 REFINE_LADDER = {"trajopt": "unicycle150k",
                  "ilqr": "quadrotor_distilled_ilqr"}
-REFINE_LADDER_SCENES = 64
+REFINE_LADDER_SCENES = 32
 REFINE_CLI_WORKERS = 4
 # Each refiner's profile is of its plan cut to this many steps (Adam
 # steps or iLQR iterations) and to twice as many, the device's activity
@@ -362,6 +371,47 @@ DISTILL_ROUND = dict(planner="mpc", rounds=1, scenes_per_round=256,
 ONESHOT_RECORD_WORKDIR = os.path.join("checkpoints_torch", "unicycle150k")
 ONESHOT_RECORD_SCENES = 128
 ONESHOT_RECORD_SLACK = {"picks_differ": 2, "ok_differ": 1}
+
+
+# The stabilisers phase: the JAX package's recorded recipes
+# (benchmarks/convergence_*.json) at full width from random weights, 20
+# steps each through train_chunk (9, then the step D restarts on, then
+# 10).  d_reset_every is cut from 20000 to 10 so the restart lands in the
+# run; "remat" is the R1 recipe recomputed in the backward, held bitwise to
+# "r1".
+STAB_IMAGECOND = {
+    "sn_diffaug_cosine": dict(d_spectral_norm=True, diffaug="shift,cutout",
+                              lr_schedule="cosine", steps=150000),
+    "lecam01_cosine": dict(lecam_weight=0.1, lr_schedule="cosine",
+                           steps=150000),
+    "ada": dict(diffaug="shift,cutout", ada_target=0.6, g_lr=5e-4,
+                lr_schedule="cosine", steps=150000),
+    "dreset": dict(d_reset_every=10, d_reset_start=10, g_lr=5e-4,
+                   lr_schedule="cosine", steps=150000),
+    "r1": dict(r1_weight=0.1, steps=50000),
+    "noise": dict(instance_noise_sigma=0.02, steps=150000),
+    "topk": dict(topk_g_fraction=0.5, steps=150000),
+    "sn_diffaug_floor": dict(d_spectral_norm=True, diffaug="shift,cutout",
+                             div_floor=0.4, steps=150000),
+    "feature_matching": dict(feature_matching_weight=1.0),
+    "remat": dict(r1_weight=0.1, steps=50000, remat=True),
+}
+# The tuned transformer recipe (benchmarks/convergence_tf_lr0.0001_s*.json)
+# on goalcond, and the same in float32.
+TF_RECIPE = dict(g_arch="transformer", lr_schedule="cosine",
+                 compute_dtype="bf16", warmup_steps=2000, g_lr=1e-4,
+                 steps=100000)
+STAB_GOALCOND = {"transformer_bf16": TF_RECIPE,
+                 "transformer_f32": dict(TF_RECIPE, compute_dtype="f32")}
+STAB_FIRST_CHUNK = 9  # steps before the one d_reset_every=10 restarts on
+# The card-against-CPU step: train_step_vs_cpu's small shapes.
+STAB_SMALL = dict(batch_size=8, k=4, horizon=8, g_hidden=(32, 32),
+                  d_hidden=(32, 32), g_tf_dim=32, ndiv_impl="pallas")
+# bf16 metrics: four bf16 ulps (tests/test_torch_bf16.py).
+BF16_METRIC_RTOL = 4 * 2.0 ** -8
+TF_CLI_STEPS = 100
+TF_PLAN_SCENES = 4  # the transformer's plan against the CPU: 4 x 1000
+TF_PLAN_TAUS_TOL = {"f32": 1e-5, "bf16": BF16_METRIC_RTOL}
 
 
 def emit(obj) -> None:
@@ -844,7 +894,8 @@ def clone_state(torch, state):
         state, rng=rng, g=copy.deepcopy(state.g), d=copy.deepcopy(state.d),
         g_opt=copy.deepcopy(state.g_opt), d_opt=copy.deepcopy(state.d_opt),
         g_ema=copy.deepcopy(state.g_ema),
-        ada={key: v.clone() for key, v in state.ada.items()})
+        ada={key: v.clone() for key, v in state.ada.items()},
+        lecam_ema={key: v.clone() for key, v in state.lecam_ema.items()})
 
 
 def first_step_inputs(torch, cfg, state, make_task):
@@ -1295,7 +1346,7 @@ def _rows(workdir):
 
 def state_tensors(state) -> dict:
     """Every tensor of a TrainState by name: G, D, EMA G, both Adam
-    chains' moments and the ADA state."""
+    chains' moments, the ADA state and the LeCam trackers."""
     out = {}
     for name, module in (("g", state.g), ("d", state.d),
                          ("g_ema", state.g_ema)):
@@ -1304,6 +1355,7 @@ def state_tensors(state) -> dict:
         out.update({f"{name}.mu.{k}": v for k, v in opt.mu.items()})
         out.update({f"{name}.nu.{k}": v for k, v in opt.nu.items()})
     out.update({f"ada.{k}": v for k, v in state.ada.items()})
+    out.update({f"lecam_ema.{k}": v for k, v in state.lecam_ema.items()})
     return out
 
 
@@ -1624,27 +1676,28 @@ def cpu_spread(cfg, scenes, taus, card_taus):
             for t in (taus, card_taus, ulp_up(torch, taus))]
 
 
-def family_plan_vs_cpu(torch, cfg, state, cpu_state, seed):
-    """plan_batch on FAMILY_SCENES random scenes at the config's candidates
+def family_plan_vs_cpu(torch, cfg, state, cpu_state, seed,
+                       n_scenes=FAMILY_SCENES, taus_tol=1e-5):
+    """plan_batch on ``n_scenes`` random scenes at the config's candidates
     on the card and on the CPU from one set of latents: G's candidates at
-    rtol/atol 1e-5, and each count of disagreements within twice the sum
-    of the CPU's own counts under the card's two kinds of move
+    rtol/atol ``taus_tol``, and each count of disagreements within twice
+    the sum of the CPU's own counts under the card's two kinds of move
     (``cpu_spread``), plus FAMILY_SLACK."""
     from ndivplanning_tpu_torch.envs.types import Scene
     from ndivplanning_tpu_torch.planning import server as srv
     from ndivplanning_tpu_torch.planning.planner import plan_batch
 
-    requests = serve_requests(torch, FAMILY_SCENES, seed)
+    requests = serve_requests(torch, n_scenes, seed)
     scenes = Scene.stack([Scene.create(r["start"], r["goal"], r["obstacles"],
                                        device="cpu") for r in requests])
     conditions = srv._condition_for(cfg, scenes)
-    z = torch.randn((FAMILY_SCENES, cfg.n_candidates, cfg.latent_dim),
+    z = torch.randn((n_scenes, cfg.n_candidates, cfg.latent_dim),
                     generator=torch.Generator().manual_seed(seed))
     card = plan_batch(cfg, state, srv._to_device(scenes, "cuda"),
                       conditions.cuda(), z=z.cuda())
     cpu = plan_batch(cfg, cpu_state, scenes, conditions, z=z)
     taus_err = assert_close(torch, card.taus.cpu(), cpu.taus,
-                            f"{cfg.env} plan candidates", 1e-5, 1e-5)
+                            f"{cfg.env} plan candidates", taus_tol, taus_tol)
     _, by_g, by_ulp = cpu_spread(cfg, scenes, cpu.taus, card.taus.cpu())
     got = plan_tally(card.scores.cpu(), card.best_reached.cpu(), cpu)
     own = {name: plan_tally(r.score, r.reached.gather(
@@ -1660,7 +1713,7 @@ def family_plan_vs_cpu(torch, cfg, state, cpu_state, seed):
             and tuple(card.taus.shape[1:]) == (cfg.n_candidates, cfg.horizon,
                                                cfg.state_dim)):
         raise AssertionError(f"{cfg.env} plan: shapes or non-finite scores")
-    return {"scenes": FAMILY_SCENES, "n_candidates": cfg.n_candidates,
+    return {"scenes": n_scenes, "n_candidates": cfg.n_candidates,
             "candidates_err_over_max": taus_err, "card_vs_cpu": got,
             "cpu_vs_cpu_moved": own,
             "best_score_card_mean": float(card.best_score.mean()),
@@ -2833,6 +2886,231 @@ def distill_phase(torch, ndiv_cuda):
             launches)
 
 
+def draws_to(draws, device):
+    """A step's injected draws (``train/step.py::StepDraws``) on ``device``
+    (a fresh D's state_dict stays where it is: the step copies it)."""
+    def move(aug):
+        return dataclasses.replace(aug, **{
+            f.name: getattr(aug, f.name).to(device)
+            for f in dataclasses.fields(aug)
+            if getattr(aug, f.name) is not None})
+    return dataclasses.replace(
+        draws, noise=tuple(t.to(device) for t in draws.noise),
+        aug=tuple(move(a) for a in draws.aug))
+
+
+def recipe_step_vs_cpu(torch, preset, overrides):
+    """One step of the recipe at train_step_vs_cpu's small shapes on the
+    card and on the CPU from one state, batch, latents and stabiliser draws
+    (drawn on the CPU): every metric within train_step_vs_cpu's tolerances
+    (bf16: four bf16 ulps).  Returns the largest relative error."""
+    from ndivplanning_tpu_torch.data.tasks import make_task
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.train.step import draw_step, train_step_impl
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    extra = {"image_size": 16} if preset == "imagecond" else {}
+    cfg = get_config(preset, **{**overrides, **STAB_SMALL, **extra})
+    cpu_state = create_train_state(cfg, seed=1, device="cpu")
+    batch = make_task(cfg).sample(torch.Generator().manual_seed(6),
+                                  cfg.batch_size)
+    z = torch.randn((cfg.batch_size, cfg.k, cfg.latent_dim),
+                    generator=torch.Generator().manual_seed(7))
+    draws = draw_step(cfg, cpu_state, batch)
+    card_state = create_train_state(cfg, seed=1, device="cuda")
+    _, cpu = train_step_impl(cfg, cpu_state, batch, z=z, draws=draws)
+    _, card = train_step_impl(cfg, card_state, batch.map(
+        lambda t: t.cuda()), z=z.cuda(), draws=draws_to(draws, "cuda"))
+    worst = 0.0
+    for key, want in cpu.items():
+        want, got = float(want), float(card[key])
+        rtol = 1e-2 if key == "g_ndiv" else 1e-4
+        if cfg.compute_dtype == "bf16":
+            rtol = max(rtol, BF16_METRIC_RTOL)
+        if abs(got - want) > rtol * abs(want) + 1e-6:
+            raise AssertionError(f"{preset} {overrides} step {key}: cuda "
+                                 f"{got} vs cpu {want}")
+        worst = max(worst, abs(got - want) / max(abs(want), 1e-30))
+    return worst
+
+
+def check_d_reset(torch, ndiv_cuda, cfg, state, make_task):
+    """The step D restarts on, from ``state`` (step 9): taken once as the
+    loop takes it and once with its draws drawn by hand from a copy of
+    the generator in the step's order (batch, z, then draw_step's): the two
+    bitwise equal, D equal to the fresh draw, D's Adam chain fresh (count
+    0, zero moments), G's chain at count 10."""
+    from ndivplanning_tpu_torch.train.step import (
+        draw_step,
+        reset_due,
+        train_chunk,
+        train_step_impl,
+    )
+
+    if not reset_due(cfg, state.step):
+        raise AssertionError(f"no D restart due after step {state.step}")
+    twin = clone_state(torch, state)
+    batch = make_task(cfg).sample(twin.rng, cfg.batch_size)
+    z = torch.randn((cfg.batch_size, cfg.k, cfg.latent_dim),
+                    generator=twin.rng, device=twin.rng.device)
+    draws = draw_step(cfg, twin, batch)
+    counts = dict(ndiv_cuda.LAUNCHES)
+    train_step_impl(cfg, twin, batch, z=z, draws=draws)
+    ndiv_cuda.LAUNCHES.update(counts)  # a check's launch counts for no path
+    state, _ = train_chunk(cfg, state, 1)
+    values = check_states_bitwise(torch, state, twin, "the D restart step")
+    fresh = all(torch.equal(p, draws.fresh_d[name].to(p.device))
+                for name, p in state.d.named_parameters())
+    zero = all(float(t.abs().max()) == 0.0 for t in [
+        *state.d_opt.mu.values(), *state.d_opt.nu.values()])
+    if not (fresh and zero and state.d_opt.count == 0
+            and state.g_opt.count == state.step == STAB_FIRST_CHUNK + 1):
+        raise AssertionError(f"D restart: fresh {fresh}, zero moments "
+                             f"{zero}, counts {state.d_opt.count} / "
+                             f"{state.g_opt.count}")
+    return state, {"at_step": state.step, "d_equals_fresh_draw": True,
+                   "d_adam_count": state.d_opt.count,
+                   "g_adam_count": state.g_opt.count,
+                   "hand_drawn_step_bitwise_values": values}
+
+
+def recipe_run(torch, ndiv_cuda, preset, name, overrides, make_task):
+    """One recipe at full width: 20 steps from a seed-0 state through
+    train_chunk, twice, bitwise equal; one ndiv_joint a step by the counts
+    and by the profiler; the card against the CPU at small shapes; where D
+    restarts, the restart checked.  Returns (phase row, final state)."""
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.train.step import train_chunk, train_step_fused
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    cfg = get_config(preset, **overrides)
+    start = create_train_state(cfg, seed=0)
+    runs, row = [], {"recipe": name, "preset": preset, "set": {
+        k: list(v) if isinstance(v, tuple) else v
+        for k, v in overrides.items()}}
+    for run in range(2):
+        state = clone_state(torch, start)
+        reset(ndiv_cuda)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, first = train_chunk(cfg, state, STAB_FIRST_CHUNK)
+        if cfg.d_reset_every:
+            state, row["d_reset"] = check_d_reset(torch, ndiv_cuda, cfg,
+                                                  state, make_task)
+        else:
+            state, _ = train_chunk(cfg, state, 1)
+        state, last = train_chunk(cfg, state, TRAIN_STEPS
+                                  - STAB_FIRST_CHUNK - 1)
+        torch.cuda.synchronize()
+        if run == 0:
+            row["chunk_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / (
+                TRAIN_STEPS)
+            row["launches"] = launched(ndiv_cuda)
+        runs.append((state, {k: torch.cat([first[k], last[k]])
+                             for k in first}))
+    (a, ma), (b, mb) = runs
+    row["repeat_bitwise_values"] = check_states_bitwise(
+        torch, a, b, f"{name}: two 20-step runs")
+    if not all(torch.equal(ma[k], mb[k]) for k in ma):
+        raise AssertionError(f"{name}: the two runs' metrics differ")
+    if not all(bool(torch.isfinite(v).all()) for v in ma.values()):
+        raise AssertionError(f"{name}: non-finite metrics")
+    if row["launches"] != {"joint": TRAIN_STEPS}:
+        raise AssertionError(f"{name}: launches {row['launches']}")
+    prof = profile(torch, lambda: train_step_fused(cfg, b), 3)
+    if prof["ndiv_launches_per_call"] != 1:
+        raise AssertionError(f"{name}: {prof['ndiv_launches_per_call']} NDiv "
+                             f"kernels a step in the profiler, want 1")
+    row["profile"] = {k: v for k, v in prof.items() if k != "top_kernels"}
+    row["top_kernels"] = prof["top_kernels"][:3]
+    row["card_vs_cpu_max_rel_err"] = recipe_step_vs_cpu(torch, preset,
+                                                       overrides)
+    row["first"] = {k: float(v[0]) for k, v in ma.items()}
+    row["last"] = {k: float(v[-1]) for k, v in ma.items()}
+    return row, a
+
+
+def transformer_cli(torch, tmp):
+    """The tuned transformer recipe through the CLI on the card: `cli train`
+    (goalcond, 100 steps), then `cli eval` and a 1000-candidate `cli plan`
+    on its run at once, in subprocesses, and meanwhile its checkpoint
+    restored on the card and on the CPU, planned against each other as
+    family_plan_vs_cpu holds the family models."""
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    sets = [f"--set={k}={v}" for k, v in TF_RECIPE.items() if k != "steps"]
+    sets += [f"--set={k}={CLI_EVERY}"
+             for k in ("log_every", "eval_every", "checkpoint_every")]
+    t0 = time.perf_counter()
+    final = cli_json(["train", "--preset", "goalcond", "--steps",
+                      str(TF_CLI_STEPS), "--workdir", tmp, *sets])
+    train_s = time.perf_counter() - t0
+    if final["final_step"] != TF_CLI_STEPS:
+        raise AssertionError(f"cli train transformer: {final}")
+
+    def job(args):
+        t1 = time.perf_counter()
+        return cli_json(args), time.perf_counter() - t1
+
+    cfg = load_config(tmp).replace(workdir=tmp)
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(job, args) for args in (
+            ["eval", "--workdir", tmp], ["plan", "--workdir", tmp])]
+        # The card against the CPU in this process meanwhile.
+        state, cpu_state = _load_state(cfg, "cuda"), _load_state(cfg, "cpu")
+        vs_cpu = family_plan_vs_cpu(
+            torch, cfg, state, cpu_state, seed=41, n_scenes=TF_PLAN_SCENES,
+            taus_tol=TF_PLAN_TAUS_TOL[cfg.compute_dtype])
+        (ev, eval_s), (planned, plan_s) = (r.result() for r in runs)
+    if not ev or not all(k.startswith("eval_") and math.isfinite(v)
+                         for k, v in ev.items()):
+        raise AssertionError(f"cli eval transformer: {ev}")
+    if (planned["n_candidates"] != cfg.n_candidates or cfg.g_arch
+            != "transformer" or not math.isfinite(planned["best_score"])):
+        raise AssertionError(f"cli plan transformer: {planned}")
+    return {"steps": TF_CLI_STEPS, "final": final, "eval": ev,
+            "plan": {k: planned[k] for k in ("n_candidates", "best_score",
+                                              "best_reached")},
+            "restored_step": state.step, "plan_vs_cpu": vs_cpu,
+            "train_process_s": train_s, "eval_process_s": eval_s,
+            "plan_process_s": plan_s}
+
+
+def stabilisers_phase(torch, ndiv_cuda):
+    """The stabiliser knobs and the transformer generator: every recorded
+    recipe at full width (``recipe_run``), remat bitwise equal to the same
+    recipe without it, then the transformer through the CLI.  Returns
+    (phase, launches of the in-process runs)."""
+    from ndivplanning_tpu_torch.data.tasks import make_task
+
+    t0 = time.perf_counter()
+    rows, finals = [], {}
+    for preset, recipes in (("imagecond", STAB_IMAGECOND),
+                            ("goalcond", STAB_GOALCOND)):
+        for name, overrides in recipes.items():
+            row, finals[name] = recipe_run(torch, ndiv_cuda, preset, name,
+                                           overrides, make_task)
+            rows.append(row)
+    remat_values = check_states_bitwise(torch, finals["remat"], finals["r1"],
+                                        "remat against the R1 recipe")
+    launches = {"joint": sum(r["launches"]["joint"] for r in rows)}
+    shapes = check_path_shapes(torch, ndiv_cuda, [
+        IMAGECOND_SHAPE if r["preset"] == "imagecond" else GOALCOND_SHAPE
+        for r in rows])
+    recipes_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tf_")
+    try:
+        cli = transformer_cli(torch, tmp)
+    finally:
+        shutil.rmtree(tmp)
+    return {"phase": "stabilisers", "steps": TRAIN_STEPS, "runs": rows,
+            "remat_bitwise_r1_values": remat_values,
+            "path_shapes_checked": shapes, "launches": launches,
+            "recipes_s": recipes_s, "transformer_cli": cli,
+            "phase_s": time.perf_counter() - t0}, launches
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -3405,6 +3683,10 @@ def main() -> int:
     for run, n in launches.items():
         path_launches[f"dataset_{run}"] = n
     phase, path_launches["distill_round"] = distill_phase(torch, ndiv_cuda)
+    emit({**phase, "card": smi})
+    # 8k. The stabiliser knobs and the transformer generator: the recorded
+    # recipes at full width, then the transformer through the CLI.
+    phase, path_launches["stabilisers"] = stabilisers_phase(torch, ndiv_cuda)
     emit({**phase, "card": smi})
 
     # 9. Kernel times on the first imagecond step's inputs, every route,

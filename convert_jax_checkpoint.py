@@ -52,7 +52,8 @@ def convert(src: str, dst: str) -> int:
     tree = jax.tree.map(np.asarray, {
         "step": jstate.step, "g_params": jstate.g_params,
         "d_params": jstate.d_params, "g_ema_params": jstate.g_ema_params,
-        "ada": jstate.ada, "g_adam": jstate.g_opt_state,
+        "ada": jstate.ada, "lecam_ema": jstate.lecam_ema,
+        "g_adam": jstate.g_opt_state,
         "d_adam": jstate.d_opt_state})
     cfg = config_from_dict(dataclasses.asdict(jcfg))
     state = train_state_from_flax(cfg, tree, device="cpu")

@@ -9,6 +9,9 @@ before the dense stack.
 stay float32 and each layer casts its input, weight and bias to ``dtype``,
 rounds the product to it and then adds the bias (:func:`linear`).  The
 outputs (trajectories, logits, features) come back as float32.
+
+``spectral_norm`` (D only) swaps each of D's dense layers, its head too,
+for :class:`SNDense`, as the JAX ``Discriminator(spectral_norm=True)``.
 """
 
 from __future__ import annotations
@@ -36,9 +39,38 @@ def lecun_normal_(layer: nn.Linear | nn.Conv2d,
         layer.bias.zero_()
 
 
-def dense(in_dim: int, out_dim: int,
-          generator: torch.Generator | None) -> nn.Linear:
-    layer = nn.Linear(in_dim, out_dim)
+class SNDense(nn.Linear):
+    """A dense layer with spectral normalisation, ``y = x @ (W / sigma) + b``,
+    as the JAX ``SNDense``: sigma is estimated on every call by
+    ``SN_ITERS`` power iterations from the fixed start vector
+    ``u = 1 / sqrt(in_dim)``, in float32, with no state kept between calls
+    (``torch.nn.utils.spectral_norm`` keeps a ``u`` buffer and runs one
+    iteration a call: another function and another checkpoint schema).
+    ``u`` and ``v`` carry no gradient; ``sigma = u W v`` does."""
+
+    SN_ITERS = 15
+
+    def normalized_weight(self) -> torch.Tensor:
+        """``W / (sigma + 1e-12)`` in float32, ``[out, in]``."""
+        w = self.weight.float()  # [out, in], the flax kernel transposed
+        with torch.no_grad():
+            u = torch.full((w.shape[1],), 1.0 / math.sqrt(w.shape[1]),
+                           dtype=torch.float32, device=w.device)
+            for _ in range(self.SN_ITERS):
+                v = w @ u
+                v = v / (torch.linalg.vector_norm(v) + 1e-12)
+                u = w.t() @ v
+                u = u / (torch.linalg.vector_norm(u) + 1e-12)
+        sigma = (w @ u) @ v  # u^T W v in the flax kernel's layout
+        return self.weight / (sigma + 1e-12)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.normalized_weight(), self.bias)
+
+
+def dense(in_dim: int, out_dim: int, generator: torch.Generator | None,
+          spectral_norm: bool = False) -> nn.Linear:
+    layer = (SNDense if spectral_norm else nn.Linear)(in_dim, out_dim)
     lecun_normal_(layer, generator)
     return layer
 
@@ -46,10 +78,13 @@ def dense(in_dim: int, out_dim: int,
 def linear(layer: nn.Linear, x: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` in ``dtype`` as flax computes ``Dense(dtype=dtype)``:
-    the product rounded to ``dtype``, then the bias added in it."""
+    the product rounded to ``dtype``, then the bias added in it.  An
+    :class:`SNDense` normalises its weight in float32 first."""
     if dtype == torch.float32:
         return layer(x)
-    return (torch.matmul(x.to(dtype), layer.weight.to(dtype).t())
+    weight = (layer.normalized_weight() if isinstance(layer, SNDense)
+              else layer.weight)
+    return (torch.matmul(x.to(dtype), weight.to(dtype).t())
             + layer.bias.to(dtype))
 
 
@@ -58,12 +93,14 @@ class MLPTrunk(nn.Module):
 
     def __init__(self, in_dim: int, hidden: Sequence[int],
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 spectral_norm: bool = False):
         super().__init__()
         dims = [in_dim, *hidden]
         self.compute_dtype = dtype
         self.layers = nn.ModuleList(
-            dense(a, b, generator) for a, b in zip(dims[:-1], dims[1:]))
+            dense(a, b, generator, spectral_norm)
+            for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
@@ -112,10 +149,12 @@ class Discriminator(nn.Module):
     def __init__(self, cond_dim: int, traj_dim: int,
                  hidden: Sequence[int] = (256, 256),
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 spectral_norm: bool = False):
         super().__init__()
-        self.trunk = MLPTrunk(cond_dim + traj_dim, hidden, generator, dtype)
-        self.head = dense(hidden[-1], 1, generator)
+        self.trunk = MLPTrunk(cond_dim + traj_dim, hidden, generator, dtype,
+                              spectral_norm)
+        self.head = dense(hidden[-1], 1, generator, spectral_norm)
 
     def forward(self, cond_embed: torch.Tensor, traj: torch.Tensor,
                 return_features: bool = False):

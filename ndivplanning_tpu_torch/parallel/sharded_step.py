@@ -182,7 +182,8 @@ def ndiv_loss_sharded(z: torch.Tensor, x: torch.Tensor, alpha: float,
 def _state_tensors(state: TrainState):
     """Every tensor of the train state that the replicas must agree on."""
     tensors = [*state.g.parameters(), *state.d.parameters(),
-               *state.g_ema.parameters(), *state.ada.values()]
+               *state.g_ema.parameters(), *state.ada.values(),
+               *state.lecam_ema.values()]
     for opt in (state.g_opt, state.d_opt):
         tensors += [*opt.mu.values(), *opt.nu.values()]
     return tensors

@@ -54,6 +54,7 @@ from ndivplanning_tpu_torch.train.state import (
     build_optimizers,
     create_train_state,
     fresh_ada,
+    fresh_lecam_ema,
 )
 from ndivplanning_tpu_torch.utils import checkpoint as ckpt
 from ndivplanning_tpu_torch.utils.config import Config
@@ -269,8 +270,8 @@ def record_planner_dataset(cfg: Config, state: TrainState, n_scenes: int,
 def reset_for_finetune(cfg: Config, state: TrainState) -> TrainState:
     """A state re-based for a dataset fine-tune: step 0 (the fine-tune
     reads its step as a position in the new dataset's batch order), fresh
-    Adam chains at count 0 and a fresh ADA state, and COPIES of G, D, the
-    EMA G and the generator's state.
+    Adam chains at count 0, fresh ADA and LeCam states, and COPIES of G,
+    D, the EMA G and the generator's state.
 
     The copies are load-bearing: the step updates modules and moments in
     place, so a shared module would let a rejected round's fine-tune
@@ -281,7 +282,8 @@ def reset_for_finetune(cfg: Config, state: TrainState) -> TrainState:
     g_opt, d_opt = build_optimizers(cfg, g, d)
     return TrainState(step=0, rng=rng, g=g, d=d, g_opt=g_opt, d_opt=d_opt,
                       g_ema=copy.deepcopy(state.g_ema),
-                      ada=fresh_ada(state.rng.device))
+                      ada=fresh_ada(state.rng.device),
+                      lecam_ema=fresh_lecam_ema(state.rng.device))
 
 
 def _suite_metrics(cfg: Config, state: TrainState, n_scenes: int,

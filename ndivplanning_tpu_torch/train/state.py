@@ -18,6 +18,7 @@ from torch import nn
 
 from ndivplanning_tpu_torch.models.conditioning import ConditionEncoder
 from ndivplanning_tpu_torch.models.mlp import Discriminator, Generator
+from ndivplanning_tpu_torch.models.transformer import TrajectoryTransformer
 from ndivplanning_tpu_torch.utils.config import Config
 from ndivplanning_tpu_torch.utils.device import resolve_device
 
@@ -36,13 +37,15 @@ def compute_dtype(cfg: Config) -> torch.dtype:
             f"choose from {sorted(_DTYPES)}") from None
 
 
+G_ARCHS = ("mlp", "transformer")
+
+
 def check_model_knobs(cfg: Config) -> None:
-    """Raise for model options the port does not have yet."""
-    if cfg.g_arch != "mlp":
-        raise NotImplementedError(
-            f"g_arch={cfg.g_arch!r} is not ported yet (only 'mlp')")
-    if cfg.d_spectral_norm:
-        raise NotImplementedError("d_spectral_norm is not ported yet")
+    """Raise ``ValueError`` for a generator family the JAX package does not
+    know."""
+    if cfg.g_arch not in G_ARCHS:
+        raise ValueError(f"unknown g_arch {cfg.g_arch!r}; "
+                         f"choose from {list(G_ARCHS)}")
 
 
 def check_optimizer_knobs(cfg: Config) -> None:
@@ -100,7 +103,8 @@ def lr_schedule(cfg: Config, peak: float) -> float | Callable[[int], float]:
 
 
 class ConditionedGenerator(nn.Module):
-    """G = its own condition encoder + MLP generator."""
+    """G = its own condition encoder + the ``g_arch`` family's generator
+    (the MLP, or the transformer of ``models/transformer.py``)."""
 
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
@@ -110,10 +114,16 @@ class ConditionedGenerator(nn.Module):
             cfg.conditioning, cfg.cond_embed_dim,
             encoder_features=cfg.encoder_features,
             image_size=cfg.image_size, generator=generator, dtype=dtype)
-        self.generator = Generator(
-            self.encoder.embed_dim, cfg.latent_dim, cfg.horizon,
-            cfg.state_dim, cfg.g_hidden, cfg.generator_output, generator,
-            dtype)
+        if cfg.g_arch == "transformer":
+            self.generator = TrajectoryTransformer(
+                self.encoder.embed_dim, cfg.latent_dim, cfg.horizon,
+                cfg.state_dim, cfg.g_tf_dim, cfg.g_tf_layers, cfg.g_tf_heads,
+                cfg.generator_output, generator, dtype)
+        else:
+            self.generator = Generator(
+                self.encoder.embed_dim, cfg.latent_dim, cfg.horizon,
+                cfg.state_dim, cfg.g_hidden, cfg.generator_output, generator,
+                dtype)
 
     def forward(self, conditions: torch.Tensor,
                 z: torch.Tensor) -> torch.Tensor:
@@ -121,7 +131,8 @@ class ConditionedGenerator(nn.Module):
 
 
 class ConditionedDiscriminator(nn.Module):
-    """D = its own condition encoder + MLP scorer (not shared with G)."""
+    """D = its own condition encoder + MLP scorer (not shared with G),
+    spectrally normalised under ``d_spectral_norm``."""
 
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
@@ -133,7 +144,7 @@ class ConditionedDiscriminator(nn.Module):
             image_size=cfg.image_size, generator=generator, dtype=dtype)
         self.discriminator = Discriminator(
             self.encoder.embed_dim, cfg.traj_dim, cfg.d_hidden, generator,
-            dtype)
+            dtype, cfg.d_spectral_norm)
 
     def forward(self, conditions: torch.Tensor, traj: torch.Tensor,
                 return_features: bool = False):
@@ -148,7 +159,7 @@ def f32_pow(base: float, n: int) -> float:
 
 
 @functools.lru_cache(maxsize=4096)
-def _bias_correction(b: float, count: int) -> float:
+def bias_correction(b: float, count: int) -> float:
     """``1 - b ** count`` in float32, computed on the host once a count."""
     return float(torch.tensor(1.0, dtype=torch.float32) - f32_pow(b, count))
 
@@ -166,7 +177,7 @@ def adam_update(params: list, grads: list, mu: list, nu: list, count: int,
     torch._foreach_mul_(nu, b2)
     torch._foreach_add_(
         nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
-    bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+    bc1, bc2 = bias_correction(b1, count), bias_correction(b2, count)
     den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
     torch._foreach_add_(den, eps)
     upd = torch._foreach_div(mu, bc1)
@@ -215,6 +226,10 @@ class TrainState:
     g_ema: ConditionedGenerator
     # ADA controller state: the r_t EMA (tracked by every run) and p.
     ada: dict
+    # LeCam anchor trackers (cfg.lecam_weight): EMAs of D's mean real and
+    # fake logits, bias-corrected by ``step`` where they are read; zeros
+    # while the knob is off.
+    lecam_ema: dict
 
 
 def gen_params(cfg: Config, state: TrainState) -> ConditionedGenerator:
@@ -246,7 +261,7 @@ def create_train_state(cfg: Config, seed: int | None = None,
     return TrainState(
         step=0, rng=rng, g=g, d=d, g_opt=g_opt, d_opt=d_opt,
         g_ema=copy.deepcopy(g).requires_grad_(False),
-        ada=fresh_ada(device),
+        ada=fresh_ada(device), lecam_ema=fresh_lecam_ema(device),
     )
 
 
@@ -260,3 +275,9 @@ def fresh_ada(device) -> dict:
     """The ADA controller's state at its start: r_t EMA and p at 0."""
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return {"r": zero.clone(), "p": zero.clone()}
+
+
+def fresh_lecam_ema(device) -> dict:
+    """The LeCam trackers at their start: both logit EMAs at 0."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"real": zero.clone(), "fake": zero.clone()}

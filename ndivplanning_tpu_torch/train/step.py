@@ -3,36 +3,54 @@
 Alternating updates as in the JAX step: D updates on detached fakes, then
 G updates against the already-updated D with the adversarial loss plus
 ``ndiv_weight`` x NDiv, whose fused kernel runs once per step on the card.
-Covers the default path of the goalcond, pointmass2d, imagecond,
-planning and pod_dp presets, unsharded or over a (dp, div) mesh of
-torch.distributed ranks, in float32 or bf16 compute; every stabiliser
-knob raises until it is ported.
+Covers every preset, unsharded or over a (dp, div) mesh of
+torch.distributed ranks, in float32 or bf16 compute, with the JAX step's
+stabiliser knobs: instance noise, DiffAugment and ADA, R1, LeCam, D
+warm restarts, feature matching, the top-k G update, the diversity floor
+and rematerialisation.  On a mesh the knobs raise: their global forms
+(top-k over every fake, feature means, the floor across the div axis)
+need collectives inside the losses.
+
+Every draw of a step comes from ``state.rng`` in the JAX step's order:
+the latents, then the three instance-noise tensors, then each DiffAugment
+pass's (D's real, D's fake, G's) ADA mask, shift and cutout, then on a
+reset step the fresh D's seed.  A knob that is off draws nothing, so the
+stream of a config without knobs is the latents alone.  ``z`` and
+``draws`` inject them instead (the JAX package's threefry streams cannot
+be drawn in torch).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ndivplanning_tpu_torch.data.tasks import Batch, make_task
 from ndivplanning_tpu_torch.ops.gan_losses import get_gan_losses
 from ndivplanning_tpu_torch.ops.ndiv import ndiv_loss
+from ndivplanning_tpu_torch.ops.pairwise import pairwise_l2
 from ndivplanning_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_, flat_
 from ndivplanning_tpu_torch.train.state import (
+    Adam,
+    ConditionedDiscriminator,
     TrainState,
+    bias_correction,
     check_model_knobs,
     check_optimizer_knobs,
-    f32_pow,
+    lr_schedule,
 )
 from ndivplanning_tpu_torch.utils.config import Config
 
 _F32_TINY = torch.finfo(torch.float32).tiny
 
 
-def check_step_knobs(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` naming the first unported knob set."""
-    check_model_knobs(cfg)
-    check_optimizer_knobs(cfg)
-    knobs = {
+def _knobs(cfg: Config) -> dict[str, bool]:
+    return {
         "instance_noise_sigma": cfg.instance_noise_sigma > 0,
         "diffaug": bool(cfg.diffaug),
         "ada_target": cfg.ada_target > 0,
@@ -44,10 +62,175 @@ def check_step_knobs(cfg: Config) -> None:
         "d_reset_every": cfg.d_reset_every > 0,
         "remat": cfg.remat,
     }
-    for name, on in knobs.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported to the torch train step yet")
+
+
+def check_step_knobs(cfg: Config, mesh: Mesh | None = None) -> None:
+    """Raise ``ValueError`` for a config the JAX step refuses, and on a mesh
+    ``NotImplementedError`` naming every stabiliser knob set."""
+    check_model_knobs(cfg)
+    check_optimizer_knobs(cfg)
+    if cfg.ada_target > 0 and not cfg.diffaug:
+        raise ValueError("ada_target > 0 needs a diffaug transform set "
+                         "(e.g. --set diffaug=shift) — ADA modulates the "
+                         "APPLICATION PROBABILITY of those transforms")
+    on = [name for name, set_ in _knobs(cfg).items() if set_]
+    if mesh is not None and on:
+        raise NotImplementedError(
+            f"{', '.join(on)}: not ported to the sharded train step (a "
+            "mesh) yet")
+
+
+@dataclasses.dataclass
+class AugDraws:
+    """One DiffAugment pass's draws."""
+
+    mask: torch.Tensor | None = None  # [B] 0/1 float: ADA applies it here
+    shift: torch.Tensor | None = None  # [B, 2] uniform in +-diffaug_shift
+    cutout: torch.Tensor | None = None  # [B, 2] int corner (x, y) of the hole
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """A step's draws beyond its latents."""
+
+    # Unit normals: D's reals [B, H, S], D's fakes and G's pass [B, k, H, S].
+    noise: tuple = ()
+    # AugDraws of D's real pass, D's fake pass and G's pass.
+    aug: tuple = ()
+    # The fresh D's state_dict, read on a reset step only.
+    fresh_d: dict | None = None
+
+
+def reset_due(cfg: Config, step: int) -> bool:
+    """Whether the step taken from ``step`` restarts D (``d_reset_every``;
+    ``d_reset_start`` gates the first restart)."""
+    new_step = step + 1
+    return (cfg.d_reset_every > 0 and new_step % cfg.d_reset_every == 0
+            and new_step >= max(cfg.d_reset_start, 1))
+
+
+def _fresh_discriminator(cfg: Config, rng: torch.Generator) -> dict:
+    """A fresh D's state_dict, its weights drawn on the CPU from a seed
+    drawn from ``rng`` (the one host read of a reset step)."""
+    seed = int(torch.randint(2 ** 62, (), generator=rng, device=rng.device))
+    return ConditionedDiscriminator(
+        cfg, torch.Generator().manual_seed(seed)).state_dict()
+
+
+def _draw_aug(cfg: Config, state: TrainState, b: int,
+              image_size: int) -> AugDraws:
+    rng, device = state.rng, state.rng.device
+    kinds = set(cfg.diffaug.split(","))
+    out = AugDraws()
+    if cfg.ada_target > 0:
+        out.mask = (torch.rand(b, generator=rng, device=device)
+                    < state.ada["p"]).float()
+    if "shift" in kinds:
+        out.shift = torch.empty((b, 2), device=device).uniform_(
+            -cfg.diffaug_shift, cfg.diffaug_shift, generator=rng)
+    if "cutout" in kinds and cfg.conditioning == "image":
+        out.cutout = torch.randint(0, image_size - image_size // 2 + 1,
+                                   (b, 2), generator=rng, device=device)
+    return out
+
+
+def draw_step(cfg: Config, state: TrainState, batch: Batch) -> StepDraws:
+    """The step's draws beyond its latents, from ``state.rng`` in order."""
+    rng, device = state.rng, state.rng.device
+    b, traj = batch.real_traj.shape[0], batch.real_traj.shape[1:]
+    draws = StepDraws()
+    if cfg.instance_noise_sigma > 0:
+        draws.noise = tuple(
+            torch.randn(shape, generator=rng, device=device)
+            for shape in ((b, *traj), (b, cfg.k, *traj), (b, cfg.k, *traj)))
+    if cfg.diffaug:
+        size = batch.conditions.shape[1] if cfg.conditioning == "image" else 0
+        draws.aug = tuple(_draw_aug(cfg, state, b, size) for _ in range(3))
+    if reset_due(cfg, state.step):
+        draws.fresh_d = _fresh_discriminator(cfg, rng)
+    return draws
+
+
+def shift_images(images: torch.Tensor, px: torch.Tensor) -> torch.Tensor:
+    """Per-sample zero-padded pixel shift of ``[B, S, S, C]`` images by
+    ``px [B, 2]`` (dx, dy): ``I'(iy, ix) = I(iy - dy, ix - dx)``, two
+    gathers and a validity mask, as the JAX ``_shift_images``."""
+    b, s, _, c = images.shape
+    grid = torch.arange(s, device=images.device)
+    src_y = grid[None, :] - px[:, 1:2]  # [B, S]
+    src_x = grid[None, :] - px[:, 0:1]
+    valid = (((src_y >= 0) & (src_y < s))[:, :, None]
+             & ((src_x >= 0) & (src_x < s))[:, None, :])
+    cy, cx = src_y.clamp(0, s - 1), src_x.clamp(0, s - 1)
+    rows = torch.gather(images, 1, cy[:, :, None, None].expand(b, s, s, c))
+    out = torch.gather(rows, 2, cx[:, None, :, None].expand(b, s, s, c))
+    return torch.where(valid[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                          device=out.device))
+
+
+def cutout_images(images: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Zero one ``(S/2)^2`` square of each ``[B, S, S, C]`` image, its
+    corner at ``pos [B, 2]`` (x, y), as the JAX ``_cutout_images``."""
+    s = images.shape[1]
+    c = s // 2
+    grid = torch.arange(s, device=images.device)[None, :]
+    in_x = (grid >= pos[:, 0:1]) & (grid < pos[:, 0:1] + c)
+    in_y = (grid >= pos[:, 1:2]) & (grid < pos[:, 1:2] + c)
+    hole = in_y[:, :, None] & in_x[:, None, :]
+    return images * (1.0 - hole[..., None].to(images.dtype))
+
+
+def _diffaug(cfg: Config, draws: AugDraws, conditions: torch.Tensor,
+             traj: torch.Tensor):
+    """DiffAugment of one (condition, trajectory) pair-batch D is about to
+    see, ``traj`` ``[B, H, S]`` or ``[B, k, H, S]``: a condition's k fakes
+    share its draws.  Differentiable in ``traj``.  Under ADA a condition
+    row is augmented where its mask is 1: a zeroed shift and an un-blended
+    cutout are identities."""
+    kinds = set(cfg.diffaug.split(","))
+    b = traj.shape[0]
+    if "shift" in kinds:
+        delta = draws.shift
+        if draws.mask is not None:
+            delta = delta * draws.mask[:, None]
+        traj = traj + delta.reshape(b, *(1,) * (traj.dim() - 2), 2)
+        if cfg.conditioning == "image":
+            size = conditions.shape[1]
+            max_px = max(int(cfg.diffaug_shift * size) + 1, 1)
+            px = torch.clamp(torch.round(delta * size).to(torch.int32),
+                             -max_px, max_px)
+            conditions = shift_images(conditions, px)
+        elif cfg.conditioning == "startgoal":
+            conditions = conditions + delta.repeat(1, 2)
+    if "cutout" in kinds and cfg.conditioning == "image":
+        cut = cutout_images(conditions, draws.cutout)
+        if draws.mask is not None:
+            cut = torch.where(draws.mask[:, None, None, None] > 0.5, cut,
+                              conditions)
+        conditions = cut
+    return conditions, traj
+
+
+def _noise_sigma(cfg: Config, step: int) -> float:
+    """The instance-noise sigma at ``step`` in float32, annealed linearly
+    to 0 over ``instance_noise_anneal`` steps when that is set."""
+    sigma = np.float32(cfg.instance_noise_sigma)
+    if cfg.instance_noise_anneal > 0:
+        sigma = sigma * np.clip(
+            np.float32(1.0) - np.float32(step)
+            / np.float32(cfg.instance_noise_anneal),
+            np.float32(0.0), np.float32(1.0))
+    return float(sigma)
+
+
+def _remat(cfg: Config, module):
+    """``module``, recomputed in the backward instead of keeping its
+    activations under ``cfg.remat`` (the model calls inside the
+    differentiated losses only)."""
+    if not cfg.remat:
+        return module
+    return functools.partial(checkpoint, module, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def _ndiv(cfg: Config, z: torch.Tensor, traj: torch.Tensor,
@@ -96,10 +279,12 @@ def _local_block(batch: Batch, z: torch.Tensor, mesh: Mesh):
 
 
 def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
-                    z: torch.Tensor | None = None, mesh: Mesh | None = None):
+                    z: torch.Tensor | None = None, mesh: Mesh | None = None,
+                    draws: StepDraws | None = None):
     """One G+D+NDiv update of ``state`` in place.
 
-    ``z [B, k, zdim]`` replaces the latent draw from ``state.rng``.
+    ``z [B, k, zdim]`` replaces the latent draw from ``state.rng``, and
+    ``draws`` the stabiliser knobs' draws (:func:`draw_step`).
     With a ``mesh`` (``parallel/mesh.py``) this is the explicit form of the
     JAX step under GSPMD: ``batch`` and ``z`` are global and every rank
     keeps its block of them; its losses are its shares of the global ones,
@@ -112,12 +297,14 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
     summed shares.
     Returns (state, metrics), metrics a dict of 0-d float32 tensors.
     """
-    check_step_knobs(cfg)
+    check_step_knobs(cfg, mesh)
     d_loss_fn, g_loss_fn = get_gan_losses(cfg.gan_loss)
     b = batch.real_traj.shape[0]
     if z is None:
         z = torch.randn((b, cfg.k, cfg.latent_dim), generator=state.rng,
                         device=state.rng.device)
+    if draws is None:
+        draws = draw_step(cfg, state, batch)
     if mesh is None:
         conditions, real = batch.conditions, batch.real_traj
     else:
@@ -131,20 +318,116 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
             flat_(tensors, lambda t: all_reduce_sum_(t, mesh.world))
         return tensors
 
+    gen, disc = _remat(cfg, state.g), _remat(cfg, state.d)
+    metrics = {}
+
     # ---------------- D update on detached fakes ----------------
     with torch.no_grad():
         tau_fake = state.g(conditions, z)
-    real_logits = state.d(conditions, real)
-    fake_logits = state.d(conditions, tau_fake)
+    real_d, fake_d = real, tau_fake
+    if cfg.instance_noise_sigma > 0:
+        # Instance noise on everything D sees, G's pass too.
+        sigma = _noise_sigma(cfg, state.step)
+        real_d = real_d + sigma * draws.noise[0]
+        fake_d = fake_d + sigma * draws.noise[1]
+        metrics["d_noise_sigma"] = torch.full((), sigma, device=real.device)
+    if cfg.diffaug:
+        cond_real_d, real_d = _diffaug(cfg, draws.aug[0], conditions, real_d)
+        cond_fake_d, fake_d = _diffaug(cfg, draws.aug[1], conditions, fake_d)
+    else:
+        cond_real_d = cond_fake_d = conditions
+    if cfg.r1_weight > 0:
+        real_d = real_d.detach().requires_grad_(True)
+    real_logits = disc(cond_real_d, real_d)
+    fake_logits = disc(cond_fake_d, fake_d)
     d_loss = share(d_loss_fn(real_logits, fake_logits))
+    if cfg.lecam_weight > 0:
+        # LeCam: each class' logits pinned to the other class' tracked
+        # mean, bias-corrected after state.step tracker updates.
+        if state.step > 0:
+            corr = max(bias_correction(cfg.lecam_decay, state.step),
+                       _F32_TINY)
+            anchor = {key: v / corr for key, v in state.lecam_ema.items()}
+        else:
+            anchor = {key: torch.zeros_like(v)
+                      for key, v in state.lecam_ema.items()}
+        lecam = (torch.mean(torch.square(real_logits - anchor["fake"]))
+                 + torch.mean(torch.square(fake_logits - anchor["real"])))
+        d_loss = d_loss + cfg.lecam_weight * lecam
+        metrics["d_lecam"] = lecam.detach()
+    if cfg.r1_weight > 0:
+        # R1: the squared gradient of D's summed real logits with respect
+        # to the trajectory D saw, summed per sample, batch mean.
+        (g_traj,) = torch.autograd.grad(real_logits.sum(), real_d,
+                                        create_graph=True)
+        r1 = torch.mean(torch.sum(torch.square(g_traj.float()), dim=(1, 2)))
+        d_loss = d_loss + 0.5 * cfg.r1_weight * r1
+        metrics["d_r1"] = r1.detach()
     d_grads = torch.autograd.grad(d_loss, list(state.d.parameters()))
     state.d_opt.step(state.d, world_sum_(list(d_grads)))
+    if reset_due(cfg, state.step):
+        # D warm restart: a fresh D and a fresh Adam chain at count 0 (its
+        # LR schedule starts over); G keeps its momentum.
+        with torch.no_grad():
+            for name, p in state.d.named_parameters():
+                p.copy_(draws.fresh_d[name])
+        state.d_opt = Adam(state.d, lr_schedule(cfg, cfg.d_lr), cfg.adam_b1,
+                           cfg.adam_b2)
+    if cfg.lecam_weight > 0:
+        # One tracker update a step, on the means D saw before its update.
+        lc_d = cfg.lecam_decay
+        state.lecam_ema = {
+            "real": lc_d * state.lecam_ema["real"]
+            + (1.0 - lc_d) * torch.mean(real_logits.detach()),
+            "fake": lc_d * state.lecam_ema["fake"]
+            + (1.0 - lc_d) * torch.mean(fake_logits.detach())}
 
     # ---------------- G update against the updated D ----------------
-    tau = state.g(conditions, z)
-    g_adv = share(g_loss_fn(state.d(conditions, tau)))
+    tau = gen(conditions, z)
+    tau_d = tau
+    if cfg.instance_noise_sigma > 0:
+        tau_d = tau_d + sigma * draws.noise[2]
+    if cfg.diffaug:
+        # G's gradients arrive through the augmented view, at ADA's p.
+        cond_g, tau_d = _diffaug(cfg, draws.aug[2], conditions, tau_d)
+    else:
+        cond_g = conditions
+    fm_w = cfg.feature_matching_weight
+    if fm_w > 0:
+        # Match the first moments of D's last hidden features between the
+        # reals D saw and the B*k fakes.
+        g_logits, fake_feats = disc(cond_g, tau_d, return_features=True)
+        with torch.no_grad():
+            _, real_feats = state.d(cond_real_d, real_d.detach(),
+                                    return_features=True)
+        fake_mean = torch.mean(fake_feats.reshape(-1, fake_feats.shape[-1]),
+                               dim=0)
+        fm = torch.mean(torch.square(torch.mean(real_feats, dim=0)
+                                     - fake_mean))
+    else:
+        g_logits = disc(cond_g, tau_d)
+    if cfg.topk_g_fraction > 0:
+        # Adversarial gradients only through the fakes D scores most real;
+        # the rest still get NDiv's.  Python's round, as the JAX step.
+        flat = g_logits.reshape(-1)
+        n_keep = max(int(round(cfg.topk_g_fraction * flat.shape[0])), 1)
+        g_logits = torch.topk(flat, n_keep).values
+    g_adv = share(g_loss_fn(g_logits))
     g_ndiv = _ndiv(cfg, z, tau, mesh)
     g_total = g_adv + cfg.ndiv_weight * g_ndiv
+    if fm_w > 0:
+        g_total = g_total + fm_w * fm
+        metrics["g_fm"] = fm.detach()
+    if cfg.div_floor > 0:
+        # A hinge on the absolute mean pairwise distance of a condition's k
+        # samples, which NDiv's row normalisation cannot see.
+        flat = tau.reshape(tau.shape[0], cfg.k, -1)
+        off = ~torch.eye(cfg.k, dtype=torch.bool, device=tau.device)
+        mpd = torch.sum(torch.where(off, pairwise_l2(flat), 0.0)) / (
+            flat.shape[0] * cfg.k * (cfg.k - 1))
+        dfloor = F.relu(cfg.div_floor - mpd)
+        g_total = g_total + cfg.div_floor_weight * dfloor
+        metrics["g_divfloor"] = dfloor.detach()
     g_grads = torch.autograd.grad(g_total, list(state.g.parameters()))
     state.g_opt.step(state.g, world_sum_(list(g_grads)))
 
@@ -159,18 +442,26 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
     # the loss variant's decision boundary (0.5 for lsgan's scores).
     rt_center = 0.5 if cfg.gan_loss == "lsgan" else 0.0
     rt = share(torch.mean(torch.sign(real_logits.detach() - rt_center)))
-    metrics = {"d_loss": d_loss.detach(), "g_adv": g_adv.detach(),
-               "g_ndiv": g_ndiv.detach(), "g_total": g_total.detach(),
-               "d_rt": rt}
+    shared = {"d_loss": d_loss.detach(), "g_adv": g_adv.detach(),
+              "g_ndiv": g_ndiv.detach(), "g_total": g_total.detach(),
+              "d_rt": rt}
     if mesh is not None:
-        summed = world_sum_([torch.stack(list(metrics.values()))])[0]
-        metrics = dict(zip(metrics, summed.unbind()))
+        summed = world_sum_([torch.stack(list(shared.values()))])[0]
+        shared = dict(zip(shared, summed.unbind()))
+    metrics.update(shared)
     a_d = cfg.ada_decay
     ada_r = a_d * state.ada["r"] + (1.0 - a_d) * metrics["d_rt"]
-    a_corr = float(torch.tensor(1.0, dtype=torch.float32)
-                   - f32_pow(a_d, state.step + 1))
+    a_corr = bias_correction(a_d, state.step + 1)
     metrics["d_rt_ema"] = ada_r / max(a_corr, _F32_TINY)
-    state.ada = {"r": ada_r, "p": state.ada["p"]}
+    ada_p = state.ada["p"]
+    if cfg.ada_target > 0:
+        # Karras et al.'s feedback rule: raise p while D is too sure of the
+        # reals (r above target), lower it otherwise.
+        ada_p = torch.clamp(
+            ada_p + torch.sign(metrics["d_rt_ema"] - cfg.ada_target)
+            * cfg.ada_step, 0.0, cfg.ada_p_max)
+        metrics["ada_p"] = ada_p
+    state.ada = {"r": ada_r, "p": ada_p}
     state.step += 1
     return state, metrics
 

@@ -4,8 +4,8 @@ The directory layout is the JAX package's: ``<workdir>/checkpoints/<step>/``,
 the newest ``MAX_TO_KEEP`` kept, and the best-by-eval run under
 ``<workdir>/best/`` beside its ``best_path.json``.  Each checkpoint is one
 ``torch.save`` of plain tensors, ints and strings holding the whole
-:class:`TrainState`: G, D, EMA G, both Adam chains, step, the ADA state
-and the state of the run's generator.  No module or config is pickled, so
+:class:`TrainState`: G, D, EMA G, both Adam chains, step, the ADA state,
+the LeCam trackers and the state of the run's generator.  No module or config is pickled, so
 it loads with ``torch.load(weights_only=True)``.  Writes go to a
 temporary file first and are renamed into place, so a reader never sees a
 half-written checkpoint.
@@ -18,7 +18,11 @@ import shutil
 
 import torch
 
-from ndivplanning_tpu_torch.train.state import Adam, TrainState
+from ndivplanning_tpu_torch.train.state import (
+    Adam,
+    TrainState,
+    fresh_lecam_ema,
+)
 
 MAX_TO_KEEP = 3
 FILENAME = "state.pt"
@@ -65,6 +69,7 @@ def state_dict(state: TrainState) -> dict:
         "g_opt": _adam_dict(state.g_opt),
         "d_opt": _adam_dict(state.d_opt),
         "ada": _cpu(state.ada),
+        "lecam_ema": _cpu(state.lecam_ema),
         "rng": {"device": state.rng.device.type,
                 "seed": state.rng.initial_seed(),
                 "state": state.rng.get_state()},
@@ -103,7 +108,9 @@ def load_state_dict(state: TrainState, saved: dict) -> TrainState:
 
     The generator's state carries over where it was saved on the same kind
     of device; the CPU's and CUDA's generators keep states of different
-    kinds, so across them the generator restarts from its saved seed."""
+    kinds, so across them the generator restarts from its saved seed.  A
+    checkpoint written before the LeCam trackers were carried restores
+    them as zeros, as the JAX package restores its pre-LeCam ones."""
     state.step = int(saved["step"])
     for module, key in ((state.g, "g"), (state.d, "d"),
                         (state.g_ema, "g_ema")):
@@ -111,6 +118,8 @@ def load_state_dict(state: TrainState, saved: dict) -> TrainState:
     _load_adam(state.g_opt, saved["g_opt"])
     _load_adam(state.d_opt, saved["d_opt"])
     state.ada = dict(saved["ada"])
+    state.lecam_ema = (dict(saved["lecam_ema"]) if "lecam_ema" in saved
+                       else fresh_lecam_ema(state.rng.device))
     rng = saved["rng"]
     if rng["device"] == state.rng.device.type:
         state.rng.set_state(rng["state"].cpu())

@@ -137,7 +137,9 @@ def _assert_same(got: dict, want: dict):
 def _assert_reconversion_bitwise(tmp_path, src, committed, step):
     """``convert_jax_checkpoint.py`` of ``src`` again: the same step, the
     same config.json and best_path.json bytes, and a state.pt that
-    ``torch.load(weights_only=True)`` alone reads as the committed one."""
+    ``torch.load(weights_only=True)`` alone reads as the committed one.
+    The committed files predate the LeCam trackers, which no vendored run
+    used: the re-conversion carries them as zeros, the rest bitwise."""
     assert convert(src, str(tmp_path)) == step
     for sub in ("config.json", os.path.join("best", "best_path.json")):
         with open(tmp_path / sub, "rb") as f, \
@@ -145,8 +147,11 @@ def _assert_reconversion_bitwise(tmp_path, src, committed, step):
             assert f.read() == g.read(), sub
     load = functools.partial(torch.load, weights_only=True)
     rel = os.path.join("best", "checkpoints", str(step), checkpoint.FILENAME)
-    _assert_same(_flat(load(tmp_path / rel)),
-                 _flat(load(os.path.join(committed, rel))))
+    again, saved = load(tmp_path / rel), load(os.path.join(committed, rel))
+    assert "lecam_ema" not in saved
+    assert {k: float(v) for k, v in again.pop("lecam_ema").items()} == {
+        "real": 0.0, "fake": 0.0}
+    _assert_same(_flat(again), _flat(saved))
 
 
 def test_committed_artifact_is_the_reconversion_bitwise(tmp_path):
@@ -176,8 +181,8 @@ def test_family_artifact_is_the_reconversion_bitwise(tmp_path, name):
 
 
 # The three distilled models (expert iteration on quadrotor150k and a
-# unicycle run): their best step and family.  Their configs set no knob
-# the port lacks (g_arch mlp, ada_target 0, d_reset_every 0).
+# unicycle run): their best step and family.  Their configs set no
+# stabiliser knob (g_arch mlp, ada_target 0, d_reset_every 0).
 DISTILLED_STEPS = {"quadrotor_distilled": (504, "quadrotor"),
                    "quadrotor_distilled_ilqr": (1512, "quadrotor"),
                    "unicycle_distilled": (4536, "unicycle")}
@@ -271,6 +276,42 @@ def _trained_state(seed=0):
     for _ in range(2):
         state, _ = train_step_fused(cfg, state)
     return cfg, state
+
+
+VENDORED = sorted(["planning512", *FAMILY_STEPS, *DISTILLED_STEPS])
+
+
+@pytest.mark.parametrize("name", VENDORED)
+def test_vendored_state_without_lecam_restores_zeros(name):
+    """Every committed checkpoints_torch state was written before the
+    LeCam trackers were carried: it restores them as zeros, as the JAX
+    package restores its pre-LeCam checkpoints."""
+    workdir = os.path.join(REPO, "checkpoints_torch", name)
+    cfg = load_config(workdir).replace(workdir=workdir)
+    state = create_train_state(cfg, device="cpu")
+    state.lecam_ema = {"real": torch.tensor(1.0), "fake": torch.tensor(2.0)}
+    restored = checkpoint.restore_latest(os.path.join(workdir, "best"), state)
+    assert restored.step > 0
+    assert {k: float(v) for k, v in restored.lecam_ema.items()} == {
+        "real": 0.0, "fake": 0.0}
+
+
+def test_lecam_trackers_survive_save_and_restore(tmp_path):
+    cfg = get_config("goalcond", batch_size=8, k=4, horizon=8,
+                     g_hidden=(16,), d_hidden=(16,), lecam_weight=0.1)
+    state = create_train_state(cfg, device="cpu")
+    for _ in range(2):
+        state, _ = train_step_fused(cfg, state)
+    assert all(float(v) != 0.0 for v in state.lecam_ema.values())
+    checkpoint.save_checkpoint(str(tmp_path), state)
+    restored = checkpoint.restore_latest(
+        str(tmp_path), create_train_state(cfg, seed=3, device="cpu"))
+    for key, value in state.lecam_ema.items():
+        assert torch.equal(restored.lecam_ema[key], value)
+    # And the next step from both is the same step.
+    _, m = train_step_fused(cfg, state)
+    _, n = train_step_fused(cfg, restored)
+    assert all(torch.equal(m[key], n[key]) for key in m)
 
 
 def test_save_restore_round_trip_is_bitwise(tmp_path):

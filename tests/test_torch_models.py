@@ -116,14 +116,19 @@ def test_init_matches_flax_scale():
 
 
 def test_unported_knobs_raise():
-    """Model knobs raise where the modules are built.  bf16 compute is
+    """Every model knob is ported: the transformer family and spectral
+    norm build, and an unknown generator family raises ValueError where
+    the modules are built, with the JAX package's message.  bf16 compute is
     ported; an unknown compute dtype raises ValueError, as in the JAX
     package.  LR schedules are ported (their Adam chains take a schedule);
     an unknown schedule raises ValueError where the optimizers are built,
     with the JAX package's message."""
-    for kw in (dict(g_arch="transformer"), dict(d_spectral_norm=True)):
-        with pytest.raises(NotImplementedError):
-            build_models(get_config("goalcond", **kw))
+    g, d = build_models(get_config("goalcond", g_arch="transformer",
+                                   d_spectral_norm=True))
+    assert type(g.generator).__name__ == "TrajectoryTransformer"
+    assert type(d.discriminator.head).__name__ == "SNDense"
+    with pytest.raises(ValueError, match="unknown g_arch 'rnn'"):
+        build_models(get_config("goalcond", g_arch="rnn"))
     build_models(get_config("goalcond", compute_dtype="bf16"))
     with pytest.raises(ValueError, match="compute_dtype"):
         build_models(get_config("goalcond", compute_dtype="fp8"))
