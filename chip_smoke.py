@@ -27,7 +27,11 @@ Last comes the serving path on the vendored
 planning512 model (checkpoints_torch/, torch alone): its restore on the
 card against the CPU's, 16 scenes at 1000 candidates on the card against
 the CPU, two `cli serve --warmup` processes over pipes through the port's
-client, and a profile of a dispatch at buckets 1 and 16.  The env
+client, `cli serve --tcp` servers through its TCP transport (connection 0
+bitwise the pipe server, concurrent connections bitwise each alone,
+closed-loop load on the plain and the cross-batched server, admission
+control under a burst, --watch-best against a fresh server on the new
+weights), and a profile of a dispatch at buckets 1 and 16.  The env
 families close it: the vendored unicycle150k, reacher150k and
 quadrotor150k models (checkpoints_torch/) restored, planned and evaluated
 on the card against the CPU, arm3 planned at random weights, every
@@ -72,11 +76,14 @@ import functools
 import json
 import math
 import os
+import select
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -219,6 +226,24 @@ SERVE_REPEATS = 5  # timed round trips per bucket through the CLI server
 # At bucket 16 a dispatch may launch at most this many times the kernels
 # of a bucket-1 dispatch: the scenes are a batch axis, never a loop.
 SERVE_LAUNCH_RATIO = 1.25
+# TCP serving (`cli serve --tcp 0` subprocesses on planning512): connections
+# 1-4 driven at once against a fresh server one at a time; closed-loop load
+# of C concurrent single-request clients, each sending requests in turn
+# until TCP_LOAD_WINDOW_S has passed, on the plain and the cross-batched
+# server; a burst of ADMISSION_CLIENTS on a --cross-batch --max-pending
+# ADMISSION_MAX_PENDING server whose deadline is half the cross-batched
+# server's single-client latency, then as many clients with
+# plan(retries=ADMISSION_RETRIES); --watch-best polled every WATCH_POLL_S.
+TCP_CONNECTIONS = 4
+TCP_LOAD_CLIENTS = (1, 4, 16)
+TCP_LOAD_WINDOW_S = 3.5
+ADMISSION_CLIENTS = 32
+ADMISSION_MAX_PENDING = 4
+ADMISSION_RETRIES = 20
+WATCH_POLL_S = 0.25
+TCP_READY_S = 300  # a server's start, warm-up included
+LOCK_THREADS, LOCK_CALLS = 4, 12  # the dispatch lock's cost, in process
+HOP_CALLS = 32  # one client in process: handle_batch vs the batcher
 
 # The train loop on the recorded planning512 recipe at full width: steps
 # stay 150000, so the cosine LR is the recipe's.  Run A goes 0 -> 300 in
@@ -1243,10 +1268,12 @@ def _strip_latency(obj):
     return {k: v for k, v in obj.items() if k != "latency_ms"}
 
 
-def serve_session(torch, spawn):
-    """One CLI server over pipes: bucket round trips, a 16-request array
-    and a burst of 16 lines, a malformed line, stats and quit.  Returns
-    the answers (for the bitwise repeat), the served report and timings."""
+def serve_session(torch, spawn, pipes=True):
+    """One CLI server's session through ``spawn()``'s client: bucket round
+    trips, a 16-request array and a burst of 16 lines, a malformed line,
+    stats and quit; over ``pipes`` the served report after quit too (a TCP
+    server reports its total on SIGINT).  Returns the answers (for the
+    bitwise repeat), the lines, the stats and timings."""
     reqs = serve_requests(torch, SERVE_SCENES, 11)
     answers, latency, round_trip = [], {}, {}
     with spawn() as c:
@@ -1279,7 +1306,7 @@ def serve_session(torch, spawn):
     if "error" not in bad[0] or any("error" in r for r in burst):
         raise AssertionError("the malformed line's error is out of place")
     n_lines = len(answers) + SERVE_SCENES + 2
-    if served != [{"served": n_lines}]:
+    if served != ([{"served": n_lines}] if pipes else []):
         raise AssertionError(f"served report {served}, want {n_lines}")
     want_requests = (sum((1, 2, 4, 8, 16)) * (SERVE_REPEATS + 1)
                      + SERVE_SCENES)  # warmup, the round trips, the burst
@@ -1303,7 +1330,7 @@ def serve_planning512(torch):
     second = serve_session(torch, spawn)[0]
     if _strip_latency(first) != _strip_latency(second):
         raise AssertionError("two servers of one seed answered differently")
-    return {"phase": "serve_planning512", "workdir": PLANNING512,
+    return first, {"phase": "serve_planning512", "workdir": PLANNING512,
             "transport": "pipes, PlanningClient.spawn",
             "lines_served": n_lines, "stats": stats,
             "repeat_bitwise_but_latency": True,
@@ -1337,6 +1364,500 @@ def profile_serve(torch, ndiv_cuda, cfg, state):
         raise AssertionError(f"bucket 16 launches {ratio:.3f}x bucket 1's")
     return {"phase": "profile_serve", "launch_ratio_16_over_1": ratio,
             **{f"bucket_{b}": o for b, o in out.items()}}
+
+
+class CliTcpServer:
+    """``cli serve --workdir W --warmup --tcp 0 [flags]`` as a subprocess,
+    its stdout a pipe (the ``listening`` and ``served`` lines), its stderr
+    the smoke's."""
+
+    def __init__(self, workdir, *flags, extra=()):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ndivplanning_tpu_torch.cli", "serve",
+             "--workdir", workdir, "--warmup", "--tcp", "0", *flags, *extra],
+            stdout=subprocess.PIPE, text=True)
+        self.addr = None
+
+    def wait_ready(self):
+        """Wait for the ``{"listening": "host:port"}`` line."""
+        ready, _, _ = select.select([self.proc.stdout], [], [], TCP_READY_S)
+        line = self.proc.stdout.readline() if ready else ""
+        if not line:
+            raise AssertionError(f"a TCP server did not start (exit "
+                                 f"{self.proc.poll()})")
+        host, port = json.loads(line)["listening"].rsplit(":", 1)
+        self.addr = (host, int(port))
+        return self
+
+    def client(self):
+        from ndivplanning_tpu_torch.planning.client import PlanningClient
+
+        return PlanningClient.tcp(*self.addr, timeout=TCP_READY_S)
+
+    def stats(self):
+        with self.client() as c:
+            return c.stats()
+
+    def stop(self) -> int:
+        """SIGINT, then the ``{"served": N}`` line's N."""
+        self.proc.send_signal(signal.SIGINT)
+        out, _ = self.proc.communicate(timeout=60)
+        lines = [json.loads(line) for line in out.splitlines() if line]
+        if self.proc.returncode != 0 or not lines or set(lines[-1]) != {
+                "served"}:
+            raise AssertionError(f"TCP server ended {self.proc.returncode} "
+                                 f"with {lines}")
+        return lines[-1]["served"]
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.proc.stdout.close()
+
+
+def _p99(values):
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, math.ceil(0.99 * len(ordered)) - 1)]
+
+
+def _join(threads, what):
+    for t in threads:
+        t.join(timeout=TCP_READY_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{what}: a client thread hung")
+
+
+def _check_plan(r, where):
+    if (set(r) != {"best_traj", "best_score", "best_reached",
+                   "diverse_trajs", "latency_ms", "batch_size"}
+            or len(r["best_traj"]) != 32
+            or len(r["diverse_trajs"]) != SERVE_DIVERSE
+            or r["batch_size"] not in (1, 2, 4, 8, 16)
+            or not math.isfinite(r["best_score"])):
+        raise AssertionError(f"{where}: malformed answer {str(r)[:300]}")
+
+
+def tcp_connection_lines(torch):
+    """Connections 1-4's lines: a request, an array of 4, a request."""
+    reqs = serve_requests(torch, 4 * TCP_CONNECTIONS, 29)
+    return {i: [json.dumps(reqs[4 * i - 4]), json.dumps(reqs[4 * i - 4:4 * i]),
+                json.dumps(reqs[4 * i - 3])]
+            for i in range(1, TCP_CONNECTIONS + 1)}
+
+
+def drive_connections(server, lines, together):
+    """Connections 1-4 (opened in order; a ``stats`` round trip fixes each
+    one's id) send their lines, all at once or one connection at a time;
+    their answers."""
+    answers = {}
+    if together:
+        clients = {}
+        try:
+            for i in lines:
+                clients[i] = server.client()
+                clients[i].stats()
+            threads = [threading.Thread(target=lambda i=i: answers.update(
+                {i: [clients[i]._send_line(ln) for ln in lines[i]]}))
+                for i in lines]
+            for t in threads:
+                t.start()
+            _join(threads, "concurrent connections")
+        finally:
+            for c in clients.values():
+                c.close()
+    else:
+        for i in lines:
+            with server.client() as c:
+                c.stats()
+                answers[i] = [c._send_line(ln) for ln in lines[i]]
+    if sorted(answers) != sorted(lines):
+        raise AssertionError("a connection did not answer")
+    return answers
+
+
+def closed_loop(torch, server, n_clients, label):
+    """``n_clients`` concurrent single-request clients, each sending
+    requests in turn until TCP_LOAD_WINDOW_S has passed since they started
+    together: requests/s over the wall until the last answer, latency_ms
+    median and p99, and the stats' dispatches and requests over the run."""
+    reqs = serve_requests(torch, SERVE_SCENES, 23)
+    barrier = threading.Barrier(n_clients + 1)
+    answers, errors = {}, []
+    clients = [server.client() for _ in range(n_clients)]
+
+    def run(c_idx):
+        try:
+            out = []
+            barrier.wait(timeout=TCP_READY_S)
+            end = time.perf_counter() + TCP_LOAD_WINDOW_S
+            while time.perf_counter() < end:
+                out.append(clients[c_idx].plan(
+                    **reqs[(c_idx + len(out)) % SERVE_SCENES]))
+            answers[c_idx] = out
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    try:
+        before = server.stats()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(n_clients)]
+        for t in threads:
+            t.start()
+        barrier.wait(timeout=TCP_READY_S)
+        t0 = time.perf_counter()
+        _join(threads, label)
+        wall = time.perf_counter() - t0
+        after = server.stats()
+    finally:
+        for c in clients:
+            c.close()
+    if errors or len(answers) != n_clients:
+        raise AssertionError(f"{label}: {errors[:3]}")
+    flat = [r for a in answers.values() for r in a]
+    for r in flat:
+        _check_plan(r, label)
+    latency = [r["latency_ms"] for r in flat]
+    dispatches = after["dispatches"] - before["dispatches"]
+    requests = after["requests"] - before["requests"]
+    if requests != len(flat):
+        raise AssertionError(f"{label}: stats counted {requests} requests, "
+                             f"the clients {len(flat)}")
+    return {"clients": n_clients, "requests": requests,
+            "requests_per_s": len(flat) / wall, "wall_s": wall,
+            "window_s": TCP_LOAD_WINDOW_S,
+            "latency_ms_median": statistics.median(latency),
+            "latency_ms_p99": _p99(latency), "samples": len(latency),
+            "dispatches": dispatches,
+            "mean_dispatch_batch": requests / dispatches,
+            "batch_sizes": sorted({r["batch_size"] for r in flat})}
+
+
+def admission_burst(torch, server, deadline_ms):
+    """ADMISSION_CLIENTS clients each send one request at once: every
+    reply is a plan, an overload with retry_ms >= 1 or a deadline drop,
+    and the stats count the clients' sheds and drops; then as many
+    clients with plan(retries=ADMISSION_RETRIES) all get plans."""
+    reqs = serve_requests(torch, SERVE_SCENES, 31)
+
+    def burst(call):
+        barrier = threading.Barrier(ADMISSION_CLIENTS + 1)
+        replies, errors = {}, []
+        clients = [server.client() for _ in range(ADMISSION_CLIENTS)]
+
+        def run(i):
+            try:
+                barrier.wait(timeout=TCP_READY_S)
+                replies[i] = call(clients[i], reqs[i % SERVE_SCENES])
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        try:
+            before = server.stats()
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(ADMISSION_CLIENTS)]
+            for t in threads:
+                t.start()
+            barrier.wait(timeout=TCP_READY_S)
+            t0 = time.perf_counter()
+            _join(threads, "admission burst")
+            wall = time.perf_counter() - t0
+            after = server.stats()
+        finally:
+            for c in clients:
+                c.close()
+        if errors:
+            raise AssertionError(f"admission burst: {errors[:3]}")
+        deltas = {k: after[k] - before[k] for k in (
+            "shed_requests", "expired_requests", "requests", "dispatches")}
+        return list(replies.values()), deltas, wall
+
+    replies, deltas, wall = burst(lambda c, r: c._round_trip(r))
+    kinds = {"plan": 0, "overloaded": 0, "deadline_exceeded": 0}
+    for r in replies:
+        if "best_traj" in r:
+            _check_plan(r, "admission burst")
+            kinds["plan"] += 1
+        elif r.get("error") == "overloaded" and set(r) == {
+                "error", "retry_ms"} and r["retry_ms"] >= 1:
+            kinds["overloaded"] += 1
+        elif (r.get("error") == "deadline_exceeded"
+              and r["deadline_ms"] == round(deadline_ms, 1)
+              and r["waited_ms"] >= deadline_ms - 0.1):
+            kinds["deadline_exceeded"] += 1
+        else:
+            raise AssertionError(f"admission burst: reply {r}")
+    if (deltas["shed_requests"] != kinds["overloaded"]
+            or deltas["expired_requests"] != kinds["deadline_exceeded"]
+            or deltas["requests"] != kinds["plan"]):
+        raise AssertionError(f"admission burst: stats {deltas}, the "
+                             f"clients counted {kinds}")
+    retried, retry_deltas, retry_wall = burst(
+        lambda c, r: c.plan(**r, retries=ADMISSION_RETRIES))
+    for r in retried:
+        _check_plan(r, "retried burst")
+    if len(retried) != ADMISSION_CLIENTS:
+        raise AssertionError("a retrying client got no plan")
+    return {"clients": ADMISSION_CLIENTS,
+            "max_pending": ADMISSION_MAX_PENDING, "deadline_ms": deadline_ms,
+            "burst": {**kinds, "wall_s": wall, "stats_deltas": deltas},
+            "retries": {"retries": ADMISSION_RETRIES, "plans": len(retried),
+                        "wall_s": retry_wall, "stats_deltas": retry_deltas,
+                        "latency_ms_median": statistics.median(
+                            r["latency_ms"] for r in retried)}}
+
+
+def write_new_best(torch, workdir):
+    """A different best checkpoint in ``workdir``, as the train loop
+    writes one: the restored state with G and its EMA scaled by 1.01 at
+    the next step under best/, then the marker."""
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.train.loop import _write_best_marker
+    from ndivplanning_tpu_torch.utils import checkpoint
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    cfg = load_config(workdir).replace(workdir=workdir)
+    state = _load_state(cfg, "cpu")
+    with torch.no_grad():
+        for p in [*state.g.parameters(), *state.g_ema.parameters()]:
+            p.mul_(1.01)
+    state.step += 1
+    best = os.path.join(workdir, "best")
+    checkpoint.save_checkpoint(best, state)
+    _write_best_marker(best, "ema", cfg.track_best_metric, 0.9, state.step)
+    return state.step
+
+
+def lock_cost(torch, cfg, state):
+    """The dispatch lock in process: LOCK_THREADS threads, each making
+    LOCK_CALLS bucket-1 handle_batch calls at once, with the lock and with
+    a no-op in its place, in turns (lock, none, none, lock) after one
+    unrecorded run of 2 calls a thread (the threads' first cuBLAS
+    handles)."""
+    from ndivplanning_tpu_torch.planning import server as srv
+
+    reqs = serve_requests(torch, LOCK_THREADS, 37)
+    real = srv._DISPATCH_LOCK
+
+    def run(n_calls=LOCK_CALLS):
+        gens = [torch.Generator(device=state.rng.device).manual_seed(i)
+                for i in range(LOCK_THREADS)]
+        calls = []
+
+        def one(i):
+            for _ in range(n_calls):
+                t0 = time.perf_counter()
+                srv.handle_batch(cfg, state, [reqs[i]], gens[i],
+                                 n_diverse=SERVE_DIVERSE)
+                calls.append(time.perf_counter() - t0)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(LOCK_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        _join(threads, "lock cost")
+        wall = time.perf_counter() - t0
+        return {"requests_per_s": LOCK_THREADS * n_calls / wall,
+                "call_ms_median": statistics.median(calls) * 1e3,
+                "call_ms_max": max(calls) * 1e3}
+
+    out = {"lock": [], "no_lock": []}
+    run(2)
+    try:
+        for name in ("lock", "no_lock", "no_lock", "lock"):
+            srv._DISPATCH_LOCK = (real if name == "lock"
+                                  else contextlib.nullcontext())
+            out[name].append(run())
+    finally:
+        srv._DISPATCH_LOCK = real
+    return {"threads": LOCK_THREADS, "calls_each": LOCK_CALLS, **out}
+
+
+def batcher_hop(torch, cfg, state):
+    """One client in process, HOP_CALLS bucket-1 requests in turn: handle_batch
+    called on the client's thread ("direct"), the same request through a
+    _CrossBatcher (submit, then wait for its answer), and that again with
+    the interpreter's switch interval at 0.1 ms (5 ms by default); in turns
+    direct, batcher, batcher at 0.1 ms, and back, after one unrecorded
+    call of each.  ms a call: median and max of each run."""
+    from ndivplanning_tpu_torch.planning import server as srv
+
+    req = serve_requests(torch, 1, 43)[0]
+    gen = torch.Generator(device=state.rng.device).manual_seed(0)
+    batcher = srv._CrossBatcher(cfg, state)
+    default_interval = sys.getswitchinterval()
+
+    def direct():
+        return srv.handle_batch(cfg, state, [req], gen)[0]
+
+    def through():
+        p, = batcher.submit([req], time.perf_counter())
+        if not p.event.wait(timeout=TCP_READY_S):
+            raise AssertionError("the batcher never answered")
+        return p.result
+
+    arms = {"direct": (direct, default_interval),
+            "batcher": (through, default_interval),
+            "batcher_switch_0.1ms": (through, 1e-4)}
+
+    def run(name, n):
+        call, interval = arms[name]
+        sys.setswitchinterval(interval)
+        try:
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                r = call()
+                times.append((time.perf_counter() - t0) * 1e3)
+                _check_plan(r, f"batcher hop, {name}")
+        finally:
+            sys.setswitchinterval(default_interval)
+        return {"ms_median": statistics.median(times), "ms_max": max(times)}
+
+    out = {name: [] for name in arms}
+    try:
+        for name in arms:
+            run(name, 1)
+        for name in [*arms, *reversed(arms)]:
+            out[name].append(run(name, HOP_CALLS))
+    finally:
+        batcher.close()
+    return {"calls_each": HOP_CALLS,
+            "default_switch_interval_s": default_interval, **out}
+
+
+def serve_tcp_phase(torch, pipe_answers, cfg, state, smi, extra=()):
+    """`cli serve --tcp` on planning512 through ``PlanningClient.tcp``:
+    (a) connection 0's session bitwise the pipe server's, connections 1-4
+    at once bitwise each alone on a fresh server; (b) closed-loop load on
+    the plain and the cross-batched server; (c) admission control; (d)
+    --watch-best against a fresh server on the new weights.  Each of
+    (a)-(d) is emitted on its own line; returns the summary, with the
+    dispatch lock's cost and the batcher's hand-off measured in process
+    first."""
+    t_phase = time.perf_counter()
+    lock = lock_cost(torch, cfg, state)
+    hop = batcher_hop(torch, cfg, state)
+    tmp = tempfile.mkdtemp(prefix="serve_tcp_")
+    watch_dir = os.path.join(tmp, "planning512")
+    shutil.copytree(PLANNING512, watch_dir)
+    lines = tcp_connection_lines(torch)
+    r_watch = serve_requests(torch, 1, 41)[0]
+    try:
+        with contextlib.ExitStack() as stack:
+            def start(workdir, *flags):
+                server = CliTcpServer(workdir, *flags, extra=extra)
+                stack.callback(server.kill)
+                return server
+
+            t0 = time.perf_counter()
+            plain = start(PLANNING512)
+            fresh = start(PLANNING512)
+            cross = start(PLANNING512, "--cross-batch")
+            watched = start(watch_dir, "--cross-batch", "--watch-best",
+                            "--watch-poll", str(WATCH_POLL_S))
+            for server in (plain, fresh, cross, watched):
+                server.wait_ready()
+            start_s = time.perf_counter() - t0
+
+            # (a) Connection 0 against the pipe server, then 1-4 at once
+            # against a fresh server one connection at a time.
+            first, n_lines, _, _, _ = serve_session(torch, plain.client,
+                                                    pipes=False)
+            if _strip_latency(first) != _strip_latency(pipe_answers):
+                raise AssertionError("TCP connection 0 answered otherwise "
+                                     "than the pipe server")
+            together = drive_connections(plain, lines, together=True)
+            with fresh.client() as c:  # connection 0 of the fresh server
+                c.stats()
+            alone = drive_connections(fresh, lines, together=False)
+            for i in lines:
+                for r in together[i]:
+                    for one in (r if isinstance(r, list) else [r]):
+                        _check_plan(one, f"connection {i}")
+                if _strip_latency(together[i]) != _strip_latency(alone[i]):
+                    raise AssertionError(f"connection {i} answered otherwise "
+                                         "beside the others than alone")
+            emit({"phase": "serve_tcp_parity", "connection0_lines": n_lines,
+                  "bitwise_pipe_server_but_latency": True,
+                  "connections": TCP_CONNECTIONS,
+                  "lines_each": len(lines[1]),
+                  "concurrent_bitwise_alone_but_latency": True,
+                  "servers_start_s": start_s, "card": smi})
+
+            # (b) Closed-loop load.
+            load = {}
+            for name, server in (("plain", plain), ("cross_batch", cross)):
+                load[name] = {c: closed_loop(torch, server, c,
+                                             f"{name} C={c}")
+                              for c in TCP_LOAD_CLIENTS}
+            top = load["cross_batch"][TCP_LOAD_CLIENTS[-1]]
+            if top["dispatches"] >= top["requests"]:
+                raise AssertionError(f"cross-batching at C="
+                                     f"{TCP_LOAD_CLIENTS[-1]} made "
+                                     f"{top['dispatches']} dispatches for "
+                                     f"{top['requests']} requests")
+            emit({"phase": "serve_tcp_load", "closed_loop": True,
+                  "window_s": TCP_LOAD_WINDOW_S, "load": load,
+                  "card": smi})
+            deadline_ms = round(
+                load["cross_batch"][1]["latency_ms_median"] / 2, 1)
+            admit = start(PLANNING512, "--cross-batch", "--max-pending",
+                          str(ADMISSION_MAX_PENDING), "--deadline-ms",
+                          str(deadline_ms))
+
+            # (d) Watch-best: r, a new best checkpoint, the reload, r.
+            with watched.client() as c:
+                before = c._round_trip(r_watch)
+                t0 = time.perf_counter()
+                step = write_new_best(torch, watch_dir)
+                while c.stats()["auto_reloads"] != 1:
+                    if time.perf_counter() - t0 > 60:
+                        raise AssertionError("the watcher never reloaded")
+                    time.sleep(0.05)
+                reload_s = time.perf_counter() - t0
+                after = c._round_trip(r_watch)
+            reference = start(watch_dir, "--cross-batch")
+            admit.wait_ready()
+
+            # (c) Admission control.
+            admission = admission_burst(torch, admit, deadline_ms)
+            emit({"phase": "serve_tcp_admission", **admission, "card": smi})
+
+            reference.wait_ready()
+            with reference.client() as c:
+                want = [c._round_trip(r_watch) for _ in range(2)]
+            for r in (before, after, *want):
+                _check_plan(r, "watch-best")
+            if _strip_latency(after) != _strip_latency(want[1]):
+                raise AssertionError("after the reload the watched server "
+                                     "answered otherwise than a fresh one "
+                                     "on the new weights")
+            if _strip_latency(before) == _strip_latency(after):
+                raise AssertionError("the new weights changed nothing")
+            emit({"phase": "serve_tcp_watch_best", "poll_s": WATCH_POLL_S,
+                  "new_step": step, "write_to_reload_s": reload_s,
+                  "auto_reloads": 1,
+                  "bitwise_fresh_server_but_latency": True, "card": smi})
+
+            served = {name: server.stop() for name, server in (
+                ("plain", plain), ("cross_batch", cross),
+                ("admission", admit), ("watched", watched))}
+            for server in (fresh, reference):
+                server.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_plain = (n_lines + TCP_CONNECTIONS * (1 + len(lines[1]))
+                  + 2 * len(TCP_LOAD_CLIENTS)
+                  + sum(r["requests"] for r in load["plain"].values()))
+    if served["plain"] != want_plain:
+        raise AssertionError(f"plain server served {served['plain']}, "
+                             f"want {want_plain}")
+    return {"phase": "serve_tcp_planning512", "workdir": PLANNING512,
+            "transport": "TCP, PlanningClient.tcp", "served": served,
+            "dispatch_lock": lock, "batcher_hop": hop,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def _rows(workdir):
@@ -3792,7 +4313,10 @@ def main() -> int:
     reset(ndiv_cuda)
     emit({**serve_vs_cpu(torch, ndiv_cuda, p512_cfg, p512_state,
                          p512_cpu_state), "card": smi})
-    emit({**serve_planning512(torch), "card": smi})
+    pipe_answers, phase = serve_planning512(torch)
+    emit({**phase, "card": smi})
+    emit({**serve_tcp_phase(torch, pipe_answers, p512_cfg, p512_state, smi),
+          "card": smi})
     emit({**profile_serve(torch, ndiv_cuda, p512_cfg, p512_state),
           "card": smi})
     emit({**serve_families_phase(torch), "card": smi})

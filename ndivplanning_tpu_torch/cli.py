@@ -4,6 +4,7 @@
     python -m ndivplanning_tpu_torch.cli eval  --workdir runs/goalcond
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/planning512
     python -m ndivplanning_tpu_torch.cli serve --workdir checkpoints_torch/planning512 --warmup
+    python -m ndivplanning_tpu_torch.cli serve --workdir runs/goalcond --tcp 7421 --cross-batch --watch-best
     python -m ndivplanning_tpu_torch.cli eval  --workdir checkpoints_torch/quadrotor150k --mpc
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/unicycle150k --refine cem
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/quadrotor_distilled_ilqr --refine ilqr
@@ -39,7 +40,7 @@ def _not_ported(what: str) -> SystemExit:
                       "train and eval on the on-device sampler and on "
                       "recorded datasets, record-data and distill, one-shot "
                       "planning and every refiner, closed-loop MPC; plan "
-                      "and serve, unsharded)")
+                      "unsharded; serve over pipes and TCP)")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -150,12 +151,6 @@ def _check_ported(args) -> None:
              "--debug-nans": args.debug_nans}
     if args.cmd == "plan":
         flags["--sharded"] = args.sharded
-    elif args.cmd == "serve":
-        flags.update({"--tcp": args.tcp is not None,
-                      "--cross-batch": args.cross_batch,
-                      "--max-pending": bool(args.max_pending),
-                      "--deadline-ms": bool(args.deadline_ms),
-                      "--watch-best": args.watch_best})
     for flag, on in flags.items():
         if on:
             raise _not_ported(f"{args.cmd} {flag}")
@@ -318,15 +313,39 @@ def _parser() -> argparse.ArgumentParser:
                          help="write responses synchronously instead of "
                               "on a writer thread")
     serve_p.add_argument("--tcp", type=int, default=None, metavar="PORT",
-                         help="not ported yet")
-    serve_p.add_argument("--cross-batch", action="store_true",
-                         help="not ported yet")
-    serve_p.add_argument("--max-pending", type=int, default=0,
-                         help="not ported yet")
+                         help="serve the JSON-lines protocol over TCP on "
+                              "this port (0 = ephemeral) instead of "
+                              "stdin/stdout; every connection shares the "
+                              "loaded model")
+    serve_p.add_argument("--host", default="127.0.0.1",
+                         help="bind address for --tcp")
+    serve_p.add_argument("--max-pending", type=int, default=0, metavar="N",
+                         help="with --cross-batch: admission control, "
+                              "refuse new requests with {'error': "
+                              "'overloaded', 'retry_ms': ...} once N "
+                              "requests are queued or in flight "
+                              "(0 = unbounded, the default)")
     serve_p.add_argument("--deadline-ms", type=float, default=0.0,
-                         help="not ported yet")
+                         help="with --cross-batch: drop admitted requests "
+                              "that queued longer than this before dispatch "
+                              "({'error': 'deadline_exceeded'}); bounds "
+                              "served tail latency under overload "
+                              "(0 = no deadline)")
+    serve_p.add_argument("--cross-batch", action="store_true",
+                         help="with --tcp: coalesce requests ACROSS "
+                              "connections into shared dispatches (N "
+                              "concurrent single-request clients cost ~1 "
+                              "dispatch instead of N); latent draws are "
+                              "then the dispatcher's rather than "
+                              "per-connection")
     serve_p.add_argument("--watch-best", action="store_true",
-                         help="not ported yet")
+                         help="auto-reload: watch <workdir>/best and "
+                              "hot-swap the served weights whenever a "
+                              "training run writes a new best checkpoint "
+                              "(swaps counted as 'auto_reloads' in the "
+                              "stats line)")
+    serve_p.add_argument("--watch-poll", type=float, default=2.0,
+                         help="--watch-best poll interval in seconds")
     serve_p.add_argument("--warmup-mpc", action="store_true",
                          help="also dispatch a closed-loop batch of every "
                               "bucket before reading stdin (implies "
@@ -486,17 +505,54 @@ def main(argv=None) -> int:
         }))
         return 0
 
-    from ndivplanning_tpu_torch.planning.server import serve, warmup
+    from ndivplanning_tpu_torch.planning.server import (
+        BestWatcher,
+        serve,
+        serve_tcp,
+        warmup,
+    )
 
     state = _load_state(cfg, device)
     # `reload` line: load the workdir's (possibly newer) best checkpoint.
     reload_fn = (lambda: _load_state(cfg, device)) if cfg.workdir else None
+    watcher = None
+    if args.watch_best:
+        if reload_fn is None:
+            print("--watch-best needs a --workdir to watch", file=sys.stderr)
+            return 2
+        watcher = BestWatcher(
+            reload_fn, os.path.join(cfg.workdir, "best", "best_path.json"),
+            poll_s=args.watch_poll)
     if args.warmup or args.warmup_mpc:  # --warmup-mpc implies --warmup
         secs = warmup(cfg, state, refine=args.refine, mpc=args.warmup_mpc)
         print(f"[serve] warmup: every request bucket dispatched in "
               f"{secs:.1f} s", file=sys.stderr, flush=True)
+    if args.tcp is not None:
+        server = serve_tcp(cfg, state, host=args.host, port=args.tcp,
+                           refine=args.refine, overlap=not args.no_overlap,
+                           cross_batch=args.cross_batch, reload_fn=reload_fn,
+                           watcher=watcher,
+                           max_pending=args.max_pending or None,
+                           deadline_ms=args.deadline_ms or None)
+        host, port = server.server_address[:2]
+        # One readiness line on stdout: clients wait for it.
+        print(json.dumps({"listening": f"{host}:{port}"}), flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.shutdown()
+            server.server_close()
+            if watcher is not None:
+                watcher.stop()
+        print(json.dumps({"served": server.lines_served}))
+        return 0
     served = serve(cfg, state, refine=args.refine,
-                   overlap=not args.no_overlap, reload_fn=reload_fn)
+                   overlap=not args.no_overlap, reload_fn=reload_fn,
+                   watcher=watcher)
+    if watcher is not None:
+        watcher.stop()
     print(json.dumps({"served": served}))
     return 0
 

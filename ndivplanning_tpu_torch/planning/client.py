@@ -1,24 +1,28 @@
 """Programmatic client of the planning server's JSON-lines protocol; the port's own copy of ``ndivplanning_tpu/planning/client.py``.
 
 The server (``planning/server.py``) answers one JSON line per request
-line over the stdin/stdout of a ``cli serve`` process.  This module owns
-that transport, frames the protocol and maps error replies to exceptions:
+line over the stdin/stdout of a ``cli serve`` process or over a TCP
+connection to ``cli serve --tcp PORT``.  This module owns that transport,
+frames the protocol and maps error replies to exceptions:
 
-    with PlanningClient.spawn(["--workdir", "checkpoints_torch/planning512"]) as c:
-        resp = c.plan(start=[0.1, 0.1], goal=[0.9, 0.9])
+    with PlanningClient.tcp("127.0.0.1", 7421) as c:
+        resp = c.plan(start=[0.1, 0.1], goal=[0.9, 0.9], retries=20)
         paths = c.plan_batch(requests)          # one server dispatch
         episode = c.mpc(start=[0.1, 0.1], goal=[0.9, 0.9])   # closed loop
 
-It needs the standard library only.  The TCP transport and the client's
-retries of shed requests come with the torch server's ``serve_tcp`` and
-raise ``NotImplementedError`` until then.
+    with PlanningClient.spawn(["--workdir", "checkpoints_torch/planning512"]) as c:
+        ...   # owns a `cli serve` subprocess over pipes
+
+It needs the standard library only.
 """
 
 from __future__ import annotations
 
 import json
+import socket
 import subprocess
 import sys
+import time
 from typing import IO, Any
 
 
@@ -31,18 +35,30 @@ class ServerError(RuntimeError):
     """
 
 
+class Overloaded(ServerError):
+    """The server shed the request at admission (`{"error": "overloaded",
+    "retry_ms": N}`) or at its queueing deadline (`{"error":
+    "deadline_exceeded"}`).  ``retry_ms`` carries the server's drain
+    estimate (0 when the reply had none)."""
+
+    def __init__(self, message: str, retry_ms: int = 0):
+        super().__init__(message)
+        self.retry_ms = int(retry_ms)
+
+
 class PlanningClient:
     """One protocol connection: a writable line sink + readable source.
 
     Not thread-safe: the protocol answers in request order on one
-    stream, so interleaved writers would mis-pair responses.
+    stream, so interleaved writers would mis-pair responses.  Open one
+    client per thread (the TCP server runs a thread per connection).
     """
 
     def __init__(self, reader: IO[str], writer: IO[str],
                  _owned: tuple = ()):
         self._reader = reader
         self._writer = writer
-        self._owned = _owned  # child processes to end with us
+        self._owned = _owned  # child processes and sockets to end with us
         self._closed = False
 
     # -- constructors ----------------------------------------------------
@@ -50,10 +66,11 @@ class PlanningClient:
     @classmethod
     def tcp(cls, host: str = "127.0.0.1", port: int = 7421,
             timeout: float | None = 600.0) -> "PlanningClient":
-        """Connect to a ``cli serve --tcp`` server: not ported yet."""
-        raise NotImplementedError(
-            "PlanningClient.tcp: serve_tcp (--tcp) is not ported to the "
-            "torch server yet")
+        """Connect to a running ``cli serve --tcp`` server.  ``timeout``
+        bounds the connect and every protocol read (None waits forever)."""
+        sock = socket.create_connection((host, port), timeout=timeout)
+        return cls(sock.makefile("r", encoding="utf-8"),
+                   sock.makefile("w", encoding="utf-8"), _owned=(sock,))
 
     @classmethod
     def spawn(cls, serve_args: list[str], python: str = sys.executable,
@@ -89,27 +106,37 @@ class PlanningClient:
     @staticmethod
     def _raise_for_error(resp: Any) -> None:
         if isinstance(resp, dict) and "error" in resp:
-            raise ServerError(resp["error"])
+            err = resp["error"]
+            if err in ("overloaded", "deadline_exceeded"):
+                raise Overloaded(err, resp.get("retry_ms", 0))
+            raise ServerError(err)
 
     def plan(self, start, goal, obstacles=None, *, mpc: bool = False,
              retries: int = 0, **extra) -> dict:
         """Plan one scene; returns the response dict (``best_traj``,
         ``best_score``, ..., or with ``mpc=True`` a closed-loop episode's
         ``path``, ``reached``, ``collided``, ``n_replans``, ...).  Raises
-        :class:`ServerError` on an error reply.  Retrying shed requests
-        (``retries > 0``) comes with ``serve_tcp``."""
-        if retries:
-            raise NotImplementedError(
-                "PlanningClient.plan(retries=...): the overload path comes "
-                "with serve_tcp, which is not ported to the torch server yet")
+        :class:`ServerError` on an error reply, its subclass
+        :class:`Overloaded` for a shed one.  With ``retries > 0`` a shed
+        request is sent again, up to ``retries`` times, after sleeping the
+        reply's ``retry_ms`` as given, or 50 ms when it has none (a
+        deadline shed)."""
         req = {"start": list(start), "goal": list(goal), **extra}
         if obstacles is not None:
             req["obstacles"] = [list(o) for o in obstacles]
         if mpc:
             req["mpc"] = True
-        resp = self._round_trip(req)
-        self._raise_for_error(resp)
-        return resp
+        for attempt in range(max(int(retries), 0) + 1):
+            resp = self._round_trip(req)
+            try:
+                self._raise_for_error(resp)
+            except Overloaded as e:
+                if attempt >= retries:
+                    raise
+                time.sleep((e.retry_ms if e.retry_ms > 0 else 50) / 1000.0)
+                continue
+            return resp
+        raise AssertionError("unreachable")
 
     def plan_batch(self, requests: list[dict], *,
                    raise_on_error: bool = True) -> list[dict]:
@@ -122,6 +149,7 @@ class PlanningClient:
         if raise_on_error:
             for i, r in enumerate(resp):
                 if isinstance(r, dict) and "error" in r:
+                    # A shed position keeps its Overloaded type and hint.
                     try:
                         self._raise_for_error(r)
                     except ServerError as e:
@@ -168,9 +196,9 @@ class PlanningClient:
 
     def close(self) -> list:
         """Send `quit`, let a spawned server finish and release the
-        transport; returns the JSON lines the server wrote after `quit`
-        (the CLI's ``{"served": N}``).  Idempotent: a second call
-        returns []."""
+        transport; returns the JSON lines a spawned server wrote after
+        `quit` (the CLI's ``{"served": N}``; [] over TCP).  Idempotent: a
+        second call returns []."""
         if self._closed:
             return []
         self._closed = True
@@ -181,6 +209,8 @@ class PlanningClient:
             pass  # transport already gone; still release resources
         tail = ""
         for proc in self._owned:
+            if not isinstance(proc, subprocess.Popen):
+                continue
             try:
                 tail, _ = proc.communicate(timeout=10)
             except subprocess.TimeoutExpired:
@@ -190,7 +220,8 @@ class PlanningClient:
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     proc.wait()
-        for f in (self._reader, self._writer):
+        sockets = [s for s in self._owned if isinstance(s, socket.socket)]
+        for f in (self._reader, self._writer, *sockets):
             try:
                 f.close()
             except Exception:  # noqa: BLE001

@@ -29,9 +29,14 @@ parse time and run, after the plain ones, as bucketed
 are parsed and validated on the host; a chunk goes to the device as one
 stacked copy and its answers come back as one.
 
-Not ported yet, each raising ``NotImplementedError`` with its name:
-``serve_tcp``, the cross-connection batcher and the best-checkpoint
-watcher.
+Network serving (:func:`serve_tcp`) speaks the same protocol over TCP,
+one connection per thread, each dispatch holding one process-wide lock
+around its device work so that connections interleave a dispatch at a
+time.  :class:`_CrossBatcher` plans requests of many connections in
+shared dispatches, with admission control (``max_pending``) and a
+queueing deadline (``deadline_ms``); :class:`BestWatcher` hot-swaps the
+weights when a training run writes a new best checkpoint.  Nothing of the
+JAX server is left unported here.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import select
 import sys
 import threading
 import time
+import traceback
 from typing import IO, Callable
 
 import torch
@@ -69,12 +75,27 @@ MPC_CANDIDATES = 256
 # The refinements a server plans with, the JAX server's.
 REFINES = ("none", *REFINERS)
 
-# Process-level serving counters, answered on a ``stats`` line.  The keys
-# are the JAX server's; the ones of unported paths stay 0.
+# Process-level serving counters, answered on a ``stats`` line (the JAX
+# server's keys): updated by every dispatch path, read by any connection.
 _STATS_LOCK = threading.Lock()
 SERVING_STATS = {"dispatches": 0, "requests": 0, "mpc_requests": 0,
                  "padded_slots": 0, "auto_reloads": 0, "started_at": None,
                  "shed_requests": 0, "expired_requests": 0}
+
+
+# One dispatch's device work at a time in the process: eager launches from
+# several connection threads would otherwise interleave one by one on the
+# stream, where the JAX server interleaves whole dispatches.
+_DISPATCH_LOCK = threading.Lock()
+
+
+def _record_load_control(shed: int = 0, expired: int = 0) -> None:
+    """Admission-control counters: requests refused at the queue's door
+    (``overloaded``) and requests dropped at dispatch time for waiting past
+    their queueing deadline (``deadline_exceeded``)."""
+    with _STATS_LOCK:
+        SERVING_STATS["shed_requests"] += shed
+        SERVING_STATS["expired_requests"] += expired
 
 
 def _record_dispatch(n_real: int, bucket: int, mpc: bool) -> None:
@@ -110,30 +131,86 @@ def serving_stats() -> dict:
     }
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the torch server "
-                               "yet")
-
-
 def check_refine(refine: str) -> None:
     if refine not in REFINES:
         raise ValueError(f"unknown refine={refine!r}; choose from "
                          f"{list(REFINES)}")
 
 
-def serve_tcp(*args, **kwargs):
-    raise _not_ported("serve_tcp (--tcp)")
-
-
-class _CrossBatcher:
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("_CrossBatcher (--cross-batch, --max-pending, "
-                          "--deadline-ms)")
-
-
 class BestWatcher:
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("BestWatcher (--watch-best)")
+    """Auto-reload: watch a best-checkpoint marker and hot-load its weights.
+
+    A daemon thread polls the marker file's ``(st_mtime_ns, st_size)``
+    every ``poll_s`` seconds; on a change it calls ``reload_fn`` (the
+    loader of the ``reload`` line), publishes the new state under a
+    version counter and calls the registered ``on_swap`` callbacks (the
+    cross-connection dispatcher).  Serving loops apply the swap at burst
+    boundaries.  Swaps are counted as ``auto_reloads``.
+    """
+
+    def __init__(self, reload_fn, marker_path: str, poll_s: float = 2.0):
+        self._reload = reload_fn
+        self._marker = marker_path
+        self._poll = poll_s
+        self._lock = threading.Lock()
+        self._state = None
+        self._version = 0
+        self._callbacks: list = []
+        self._stop = threading.Event()
+        self._last_sig = self._sig()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="best-watcher")
+        self._thread.start()
+
+    def _sig(self):
+        try:
+            st = os.stat(self._marker)
+        except OSError:
+            return None
+        return (st.st_mtime_ns, st.st_size)
+
+    def current(self):
+        """``(version, latest state or None)``: consumers remember the
+        version they applied and read again when it moves."""
+        with self._lock:
+            return self._version, self._state
+
+    def on_swap(self, fn) -> None:
+        """Register a callback called with each newly loaded state."""
+        with self._lock:
+            self._callbacks.append(fn)
+
+    def check_now(self) -> bool:
+        """One poll and load (the thread's body; public so that tests poll
+        deterministically).  True if the state was swapped."""
+        sig = self._sig()
+        if sig is None or sig == self._last_sig:
+            return False
+        try:
+            new_state = self._reload()
+        except Exception:  # noqa: BLE001 — keep watching
+            traceback.print_exc(file=sys.stderr)
+            return False  # _last_sig stays: the next poll tries again
+        if new_state is None:
+            return False  # a restore that found nothing: try again too
+        self._last_sig = sig
+        with self._lock:
+            self._state = new_state
+            self._version += 1
+            callbacks = list(self._callbacks)
+        for fn in callbacks:
+            fn(new_state)
+        with _STATS_LOCK:
+            SERVING_STATS["auto_reloads"] += 1
+        return True
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._poll):
+            self.check_now()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
 
 
 def _condition_for(cfg: Config, scenes: Scene) -> torch.Tensor:
@@ -290,10 +367,12 @@ def handle_batch(cfg: Config, state: TrainState, requests: list,
     def dispatch_plan(scene_b: Scene, bucket: int,
                       chunk_idx: list[int]) -> None:
         _record_dispatch(len(chunk_idx), bucket, mpc=False)
-        z = latents(bucket).to(device)
-        result = _serve_plan_program(cfg, state, _to_device(scene_b, device),
-                                     z, n_diverse, refine)
-        best_traj, best_score, best_reached, diverse = _fetch(result)
+        with _DISPATCH_LOCK:
+            z = latents(bucket).to(device)
+            result = _serve_plan_program(cfg, state,
+                                         _to_device(scene_b, device), z,
+                                         n_diverse, refine)
+            best_traj, best_score, best_reached, diverse = _fetch(result)
         answer(chunk_idx, bucket, lambda j: {
             "best_traj": best_traj[j].tolist(),
             "best_score": float(best_score[j]),
@@ -303,10 +382,11 @@ def handle_batch(cfg: Config, state: TrainState, requests: list,
     def dispatch_mpc(scene_b: Scene, bucket: int,
                      chunk_idx: list[int]) -> None:
         _record_dispatch(len(chunk_idx), bucket, mpc=True)
-        z = mpc_latents(bucket).to(device)
-        result = _serve_mpc_program(cfg, state, _to_device(scene_b, device),
-                                    z)
-        path, reached, collided = _fetch_mpc(result)
+        with _DISPATCH_LOCK:
+            z = mpc_latents(bucket).to(device)
+            result = _serve_mpc_program(cfg, state,
+                                        _to_device(scene_b, device), z)
+            path, reached, collided = _fetch_mpc(result)
         answer(chunk_idx, bucket, lambda j: {
             "path": path[j].tolist(), "reached": float(reached[j]),
             "collided": float(collided[j]), "n_replans": result.n_replans})
@@ -522,15 +602,231 @@ class _ResponseWriter:
 _WRITER_DONE = object()
 
 
+class _Pending:
+    """One request in flight through the :class:`_CrossBatcher`."""
+
+    __slots__ = ("req", "arrival", "event", "result")
+
+    def __init__(self, req: dict, arrival: float):
+        self.req = req
+        self.arrival = arrival
+        self.event = threading.Event()
+        self.result: dict | list | None = None
+
+
+class _CrossBatcher:
+    """Cross-connection dynamic batching for :func:`serve_tcp`.
+
+    Every connection's requests go through one dispatcher thread, which
+    drains whatever is queued, across connections, into shared
+    :func:`handle_batch` calls: while dispatch N runs, new arrivals queue
+    and ride dispatch N+1 together; an idle server adds no delay.  Answers
+    complete one by one through ``handle_batch``'s ``on_progress``, so one
+    client's closed-loop episode holds back no other client's plan.  The
+    dispatcher owns the latent stream: one generator seeded with ``seed``
+    on the state's device (per-connection seeds do not apply here).
+
+    Admission control: ``max_pending`` bounds the requests admitted and
+    not yet answered (queued or in flight); past it a burst is refused
+    whole with ``{"error": "overloaded", "retry_ms": n}``, ``n`` an
+    estimate of when the queue will have drained.  ``deadline_ms`` bounds
+    how long an admitted request may queue: at dispatch time an older one
+    is answered ``{"error": "deadline_exceeded", "waited_ms": w,
+    "deadline_ms": d}``.  None (or 0) disables either.
+    """
+
+    def __init__(self, cfg: Config, state: TrainState, *,
+                 n_diverse: int = 4, refine: str = "none", seed: int = 0,
+                 max_batch: int = BUCKETS[-1],
+                 max_pending: int | None = None,
+                 deadline_ms: float | None = None):
+        check_refine(refine)
+        self._cfg = cfg
+        self._state = state
+        self._n_diverse = n_diverse
+        self._refine = refine
+        self._generator = torch.Generator(
+            device=state.rng.device).manual_seed(seed)
+        self._max = max_batch
+        self._max_pending = max_pending
+        self._deadline_s = (None if not deadline_ms
+                            else float(deadline_ms) / 1000.0)
+        self._pending_n = 0
+        self._pending_lock = threading.Lock()
+        # A 0.7/0.3 moving average of the dispatch time: the shed reply's
+        # retry_ms hint.
+        self._ema_dispatch_s = 0.05
+        self._q: "queue.Queue[list[_Pending] | None]" = queue.Queue()
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="cross-batcher")
+        self._thread.start()
+
+    def _retry_ms_hint(self) -> int:
+        with self._pending_lock:
+            n = self._pending_n
+        dispatches_ahead = max(-(-n // self._max), 1)
+        return max(int(dispatches_ahead * self._ema_dispatch_s * 1000), 1)
+
+    def submit(self, reqs: list[dict], arrival: float) -> list[_Pending]:
+        """Queue one connection's burst as a unit: it may share a dispatch
+        with other bursts but is never split between admission and
+        refusal.  After :meth:`close` a submit fails at once."""
+        pendings = [_Pending(r, arrival) for r in reqs]
+        if not pendings:
+            return pendings
+        if self._closed:
+            self._fail(pendings, "server shutting down", counted=False)
+            return pendings
+        with self._pending_lock:
+            # A burst past max_pending is still admitted when nothing is
+            # pending (the dispatcher splits it into buckets): refused, a
+            # plan_batch larger than the budget could never be served.
+            over = (self._max_pending is not None
+                    and self._pending_n > 0
+                    and self._pending_n + len(pendings) > self._max_pending)
+            if not over:
+                self._pending_n += len(pendings)
+        if over:
+            retry = self._retry_ms_hint()
+            _record_load_control(shed=len(pendings))
+            for p in pendings:
+                p.result = {"error": "overloaded", "retry_ms": retry}
+                p.event.set()
+            return pendings
+        self._q.put(pendings)
+        if self._closed and not self._thread.is_alive():
+            # close() raced the put and the dispatcher is gone: fail what
+            # is left here.
+            while True:
+                try:
+                    rest = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if rest is not None:
+                    self._fail(rest, "server shutting down")
+        return pendings
+
+    def set_state(self, state: TrainState) -> None:
+        """Swap the served weights (a ``reload`` line or the watcher): a
+        reference swap; a dispatch in flight finishes on the old state."""
+        self._state = state
+
+    def close(self) -> None:
+        """Stop the dispatcher after the bursts queued before the call;
+        anything queued after it is failed, never left waiting."""
+        self._closed = True
+        self._q.put(None)
+        self._thread.join(timeout=30)
+
+    def _complete(self, p: _Pending, result) -> None:
+        """Finish one admitted request: set its result and release its
+        admission slot, exactly once (the check and the release under the
+        lock, so that no completion path can release a slot twice)."""
+        with self._pending_lock:
+            if p.event.is_set():
+                return
+            if p.result is None:
+                p.result = result
+            self._pending_n -= 1
+            p.event.set()
+
+    def _fail(self, pendings: list[_Pending], msg: str,
+              counted: bool = True) -> None:
+        for p in pendings:
+            if counted:
+                self._complete(p, {"error": msg})
+            else:  # refused before admission: no slot to release
+                if p.result is None:
+                    p.result = {"error": msg}
+                p.event.set()
+
+    def _run(self) -> None:
+        while True:
+            first = self._q.get()
+            if first is None:
+                # Shut down: fail whatever is still queued.
+                while True:
+                    try:
+                        rest = self._q.get_nowait()
+                    except queue.Empty:
+                        return
+                    if rest is not None:
+                        self._fail(rest, "server shutting down")
+            batch = list(first)
+            while len(batch) < self._max:
+                try:
+                    more = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if more is None:
+                    self._q.put(None)  # exit after this batch
+                    break
+                batch.extend(more)
+            if self._deadline_s is not None:
+                now = time.perf_counter()
+                live = []
+                n_expired = 0
+                for p in batch:
+                    waited = now - p.arrival
+                    if waited > self._deadline_s:
+                        n_expired += 1
+                        self._complete(p, {
+                            "error": "deadline_exceeded",
+                            "waited_ms": round(waited * 1000.0, 1),
+                            "deadline_ms": round(self._deadline_s * 1000.0,
+                                                 1)})
+                    else:
+                        live.append(p)
+                if n_expired:
+                    _record_load_control(expired=n_expired)
+                batch = live
+            if batch:
+                self._dispatch(batch)
+
+    def _dispatch(self, batch: list[_Pending]) -> None:
+        out: list = [None] * len(batch)
+        done = [False] * len(batch)
+
+        def progress() -> None:
+            for i, p in enumerate(batch):
+                if not done[i] and out[i] is not None:
+                    done[i] = True
+                    self._complete(p, out[i])
+
+        t0 = time.perf_counter()
+        try:
+            handle_batch(self._cfg, self._state, [p.req for p in batch],
+                         self._generator, n_diverse=self._n_diverse,
+                         refine=self._refine,
+                         arrivals=[p.arrival for p in batch],
+                         on_progress=progress, out=out)
+            progress()
+            self._ema_dispatch_s = (0.7 * self._ema_dispatch_s
+                                    + 0.3 * (time.perf_counter() - t0))
+        except Exception as e:  # noqa: BLE001 — the dispatcher keeps serving
+            traceback.print_exc(file=sys.stderr)
+            for i, p in enumerate(batch):
+                if not done[i]:
+                    done[i] = True
+                    self._complete(p, out[i] if out[i] is not None else
+                                   {"error": f"{type(e).__name__}: {e}"})
+
+
 def serve(cfg: Config, state: TrainState, stdin: IO[str] = sys.stdin,
-          stdout: IO[str] = sys.stdout, seed: int = 0, refine: str = "none",
-          overlap: bool = True, reload_fn=None) -> int:
+          stdout: IO[str] = sys.stdout, seed: int = 0,
+          max_coalesce: int = BUCKETS[-1], refine: str = "none",
+          overlap: bool = True, batcher: _CrossBatcher | None = None,
+          reload_fn=None, watcher: BestWatcher | None = None) -> int:
     """Blocking request loop; returns the number of lines answered.
 
     Latents are drawn from one generator seeded with ``seed`` on the
     state's device, so two servers with one seed answer one request
-    sequence alike.  ``reload_fn`` returns a fresh state for a ``reload``
-    line (or None when there is no checkpoint).  ``overlap`` writes
+    sequence alike; with a ``batcher`` its dispatcher plans instead, from
+    its own stream.  Up to ``max_coalesce`` lines waiting together are
+    one burst.  ``reload_fn`` returns a fresh state for a ``reload`` line
+    (or None when there is no checkpoint); a ``watcher``'s newest state
+    replaces the served one at each burst's start.  ``overlap`` writes
     responses on a thread of their own (:class:`_ResponseWriter`)."""
     check_refine(refine)
     generator = torch.Generator(device=state.rng.device).manual_seed(seed)
@@ -538,7 +834,8 @@ def serve(cfg: Config, state: TrainState, stdin: IO[str] = sys.stdin,
     writer = _ResponseWriter(stdout, overlap)
     try:
         n = _serve_loop(cfg, state, source, writer, generator, reload_fn,
-                        refine)
+                        refine, max_coalesce=max_coalesce, batcher=batcher,
+                        watcher=watcher)
     except BaseException:
         # Stop the writer without letting a second write error hide the
         # loop's own, and without hanging on a wedged pipe.
@@ -551,11 +848,112 @@ def serve(cfg: Config, state: TrainState, stdin: IO[str] = sys.stdin,
     return n
 
 
+def serve_tcp(cfg: Config, state: TrainState, host: str = "127.0.0.1",
+              port: int = 0, seed: int = 0, refine: str = "none",
+              overlap: bool = True, max_coalesce: int = BUCKETS[-1],
+              cross_batch: bool = False, reload_fn=None,
+              watcher: BestWatcher | None = None,
+              max_pending: int | None = None,
+              deadline_ms: float | None = None):
+    """Network serving: the JSON-lines protocol over TCP.
+
+    Returns a ``ThreadingTCPServer`` already bound (``port=0`` takes an
+    ephemeral port: read ``server.server_address``) but not serving; the
+    caller runs ``serve_forever()`` and, to stop, ``shutdown()`` and
+    ``server_close()``.  ``server.lines_served`` sums the lines answered
+    on every connection.
+
+    Each connection runs :func:`serve`, its own burst coalescing
+    included, on the shared state and on the state's device; connection
+    ``i`` (in the order the handlers start) draws from ``seed + i``.  A
+    dispatch holds ``_DISPATCH_LOCK`` around its device work, so
+    connections interleave one dispatch at a time and each connection's
+    answers do not depend on the others.  With ``cross_batch`` a shared
+    :class:`_CrossBatcher` plans the requests of all connections in shared
+    dispatches instead, with ``max_pending`` and ``deadline_ms`` as its
+    admission control.  ``quit`` (or EOF) closes only its connection.
+    """
+    import itertools
+    import socketserver
+
+    conn_counter = itertools.count()
+    batcher = (_CrossBatcher(cfg, state, refine=refine, seed=seed,
+                             max_pending=max_pending,
+                             deadline_ms=deadline_ms)
+               if cross_batch else None)
+    if watcher is not None and batcher is not None:
+        watcher.on_swap(batcher.set_state)
+
+    class _Handler(socketserver.StreamRequestHandler):
+        def handle(self):
+            conn_id = next(conn_counter)
+            server._handler_threads.add(threading.current_thread())
+            # Text views of the socket: _LineSource reads its fd raw.
+            reader = self.connection.makefile("r", encoding="utf-8")
+            writer = self.connection.makefile("w", encoding="utf-8")
+            try:
+                n = serve(cfg, state, stdin=reader, stdout=writer,
+                          seed=seed + conn_id, refine=refine,
+                          overlap=overlap, max_coalesce=max_coalesce,
+                          batcher=batcher, reload_fn=reload_fn,
+                          watcher=watcher)
+                with server._lock:
+                    server.lines_served += n
+            except (BrokenPipeError, ConnectionResetError):
+                pass  # the client went away; nobody to answer
+            finally:
+                for f in (reader, writer):
+                    try:
+                        f.close()
+                    except OSError:
+                        pass
+                server._handler_threads.discard(threading.current_thread())
+
+    class _Server(socketserver.ThreadingTCPServer):
+        # Daemon handlers: a hung client never blocks the process's exit.
+        allow_reuse_address = True
+        daemon_threads = True
+
+        def server_close(self):
+            super().server_close()
+            # ThreadingMixIn joins no daemon handler, so a live
+            # connection's lines_served would race the caller's read of
+            # the total: give each live handler 2 s.  getattr: on a failed
+            # bind socketserver calls this from __init__, before the
+            # attributes exist, and the bind's own error must surface.
+            for t in list(getattr(self, "_handler_threads", ())):
+                if t is not threading.current_thread():
+                    t.join(timeout=2.0)
+            if batcher is not None:
+                batcher.close()
+
+    try:
+        server = _Server((host, port), _Handler)
+    except BaseException:
+        if batcher is not None:
+            batcher.close()
+        raise
+    server.lines_served = 0
+    server._lock = threading.Lock()
+    server._handler_threads = set()
+    return server
+
+
 def _serve_loop(cfg: Config, state: TrainState, source: _LineSource,
                 writer: _ResponseWriter, generator: torch.Generator,
-                reload_fn=None, refine: str = "none") -> int:
+                reload_fn=None, refine: str = "none",
+                max_coalesce: int = BUCKETS[-1],
+                batcher: _CrossBatcher | None = None,
+                watcher: BestWatcher | None = None) -> int:
     n = 0
     stop = False
+    # Start from the watcher's newest state (a connection opened after a
+    # swap serves the new weights) and look again at every burst.
+    watch_ver = -1
+    if watcher is not None:
+        watch_ver, w_state = watcher.current()
+        if w_state is not None:
+            state = w_state
 
     def process_segment(seg_lines: list[str], t_arrive: float) -> None:
         """Parse, dispatch and write one reload-free run of burst lines."""
@@ -614,16 +1012,31 @@ def _serve_loop(cfg: Config, state: TrainState, source: _LineSource,
                 next_unit += 1
 
         if flat:
-            handle_batch(cfg, state, flat, generator, refine=refine,
-                         arrivals=[t_arrive] * len(flat),
-                         on_progress=flush_ready, out=answers)
+            if batcher is not None:
+                # The shared dispatcher plans the burst, perhaps beside
+                # other connections' requests; answers are waited for in
+                # protocol order, the only order they can be written in.
+                for i, p in enumerate(batcher.submit(flat, t_arrive)):
+                    p.event.wait()
+                    answers[i] = p.result
+                    flush_ready()
+            else:
+                handle_batch(cfg, state, flat, generator, refine=refine,
+                             arrivals=[t_arrive] * len(flat),
+                             on_progress=flush_ready, out=answers)
         flush_ready()
 
     while not stop:
         first = source.readline()
         if first == "":
             break
-        lines = [first] + source.drain(BUCKETS[-1] - 1)
+        if watcher is not None:
+            ver, w_state = watcher.current()
+            if ver != watch_ver:
+                watch_ver = ver
+                if w_state is not None:
+                    state = w_state
+        lines = [first] + source.drain(max_coalesce - 1)
         # One arrival stamp for the burst: every line was in the pipe when
         # the loop woke.
         t_arrive = time.perf_counter()
@@ -650,6 +1063,8 @@ def _serve_loop(cfg: Config, state: TrainState, source: _LineSource,
                                         "found"}
                 else:
                     state = new_state
+                    if batcher is not None:
+                        batcher.set_state(new_state)
                     payload = {"reloaded": True,
                                "step": int(new_state.step)}
             writer.push(payload)

@@ -114,13 +114,7 @@ def test_unported_subcommands_exit_with_their_name(cmd):
     (["plan", "--refine", "trajopt", "--sharded"], "--sharded"),
     (["plan", "--sharded"], "--sharded"),
     (["plan", "--refine", "ilqr", "--sharded"], "--sharded"),
-    (["serve", "--refine", "grad", "--tcp", "0"], "--tcp"),
     (["plan", "--profile-dir", "prof"], "--profile-dir"),
-    (["serve", "--tcp", "0"], "--tcp"),
-    (["serve", "--cross-batch"], "--cross-batch"),
-    (["serve", "--max-pending", "4"], "--max-pending"),
-    (["serve", "--deadline-ms", "50"], "--deadline-ms"),
-    (["serve", "--watch-best"], "--watch-best"),
     (["plan", "--refine", "cem+trajopt", "--sharded"], "--sharded"),
     (["train", "--profile-dir", "prof"], "--profile-dir"),
     (["plan", "--refine", "grad", "--sharded"], "--sharded"),
@@ -338,14 +332,6 @@ def test_bad_preset_names_the_valid_presets(tmp_path):
               "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown config field 'bogus'"):
         main(["plan", "--set", "bogus=1", "--device", "cpu"])
-
-
-def test_client_tcp_and_retries_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="serve_tcp"):
-        PlanningClient.tcp("127.0.0.1", 7421)
-    c = PlanningClient(None, None)
-    with pytest.raises(NotImplementedError, match="serve_tcp"):
-        c.plan(start=[0.1, 0.1], goal=[0.9, 0.9], retries=2)
 
 
 MPC_KEYS = {"eval_mpc_success_rate", "eval_mpc_collision_rate",

@@ -410,8 +410,7 @@ def test_two_servers_with_one_seed_answer_alike():
 
 def test_unported_paths_raise_with_their_name():
     """Every refiner of the JAX server is ported; an unknown one is a
-    ValueError naming it, and the unported serving paths name
-    themselves."""
+    ValueError naming it."""
     cfg = _cfg()
     state = _state(cfg)
     assert srv.REFINES == ("none", "cem", "grad", "trajopt", "ilqr",
@@ -421,12 +420,8 @@ def test_unported_paths_raise_with_their_name():
     with pytest.raises(ValueError, match="bogus"):
         serve(cfg, state, stdin=io.StringIO("quit\n"),
               stdout=io.StringIO(), refine="bogus")
-    with pytest.raises(NotImplementedError, match="serve_tcp"):
-        srv.serve_tcp(cfg, state)
-    with pytest.raises(NotImplementedError, match="--cross-batch"):
-        srv._CrossBatcher(cfg, state)
-    with pytest.raises(NotImplementedError, match="--watch-best"):
-        srv.BestWatcher(lambda: None, "best_path.json")
+    with pytest.raises(ValueError, match="bogus"):
+        srv._CrossBatcher(cfg, state, refine="bogus")
 
 
 # Closed-loop serving in the parity tests at a smaller episode (both
