@@ -69,6 +69,7 @@ The last line is the device summary.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -439,7 +440,14 @@ TF_PLAN_SCENES = 4  # the transformer's plan against the CPU: 4 x 1000
 TF_PLAN_TAUS_TOL = {"f32": 1e-5, "bf16": BF16_METRIC_RTOL}
 
 
+_T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``at_s``, the run's seconds so
+    far when it ends."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.monotonic() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1998,8 +2006,11 @@ def train_loop_phase(torch, ndiv_cuda):
     rows_a, rows_b = _rows(run_a), _rows(run_b)
 
     def tail(rows):
+        # The compile row is each process's own (B's first ends at the
+        # resume point).
         return [{k: v for k, v in r.items() if k not in clocks}
-                for r in rows if r["step"] >= LOOP_RESUME_AT]
+                for r in rows if r["step"] >= LOOP_RESUME_AT
+                and r.get("kind") != "compile"]
 
     if tail(rows_a) != tail(rows_b):
         raise AssertionError("run B's metric rows from the resume on differ "
@@ -3632,6 +3643,327 @@ def stabilisers_phase(torch, ndiv_cuda):
             "phase_s": time.perf_counter() - t0}, launches
 
 
+TOOLS_STEPS = 12  # the profiled goalcond run: joint launches to find
+TOOLS_NAN_STEPS = 5
+TOOLS_EXPORT_BATCHES = (1, 4)
+# The smoke's trajopt budget in the export: its program unrolls every Adam
+# step (about 6000 nodes a step), so the recipe's 60 would not fit the
+# run; the CLI exports the full budget.
+TOOLS_TRAJOPT_STEPS = 1
+
+
+def trace_warp_launches(path) -> dict:
+    """The warp kernel's launches by mode among a Chrome trace's device
+    events (the name the ``kernels`` line gives them)."""
+    import re
+
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    counts = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        m = re.search(r"ndiv_warp_kernel<\s*(\d+)\s*,", e.get("name", ""))
+        if m:
+            name = f"ndiv_{WARP_MODES[m.group(1)]}"
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def cli_in_process(args) -> dict:
+    """The port's CLI ``main`` in this process, its stdout (the JSON line)
+    captured; the last line as JSON."""
+    import io
+
+    from ndivplanning_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(args)
+    if rc:
+        raise AssertionError(f"cli {' '.join(args)} returned {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def tools_train_profiled(tmp):
+    """``train --profile-dir`` (the CLI's main, in process) on goalcond at
+    full width against the same run untraced: the same last metrics, the
+    trace holding the joint warp kernel, and the step time with and
+    without the profiler."""
+    every = [f"--set=log_every={TOOLS_STEPS // 2}",
+             f"--set=eval_every={TOOLS_STEPS}", "--set=checkpoint_every=0"]
+    runs = {}
+    for name in ("plain", "profiled"):
+        args = ["train", "--preset", "goalcond", "--steps", str(TOOLS_STEPS),
+                "--workdir", os.path.join(tmp, name), *every]
+        if name == "profiled":
+            args += ["--profile-dir", os.path.join(tmp, "prof")]
+        t0 = time.perf_counter()
+        runs[name] = {"out": cli_in_process(args),
+                      "run_s": time.perf_counter() - t0}
+    (trace,) = os.listdir(os.path.join(tmp, "prof"))
+    path = os.path.join(tmp, "prof", trace)
+    found = trace_warp_launches(path)
+    if not found.get("ndiv_joint"):
+        raise AssertionError(f"the profiled train run's trace names no "
+                             f"ndiv_joint warp kernel: {found}")
+
+    def last(name):
+        return {k: v for k, v in runs[name]["out"]["last"].items()
+                if k != "steps_per_sec"}
+
+    if last("plain") != last("profiled"):
+        raise AssertionError("the profiled train run's metrics differ from "
+                             "the plain run's")
+    step_ms = {name: 1e3 / runs[name]["out"]["last"]["steps_per_sec"]
+               for name in runs}
+    return {"steps": TOOLS_STEPS, "trace_bytes": os.path.getsize(path),
+            "trace_warp_launches": found,
+            "step_ms_plain": step_ms["plain"],
+            "step_ms_profiled": step_ms["profiled"],
+            "trace_overhead": step_ms["profiled"] / step_ms["plain"],
+            "run_s": {n: r["run_s"] for n, r in runs.items()}}
+
+
+def tools_debug_nans(torch):
+    """``--debug-nans``' switch on goalcond at full width: a step fed NaN
+    trajectories raises FloatingPointError; a clean run of
+    ``TOOLS_NAN_STEPS`` is bitwise the same run without it."""
+    from ndivplanning_tpu_torch.data.tasks import make_task
+    from ndivplanning_tpu_torch.train.loop import train
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.train.step import train_step_impl
+    from ndivplanning_tpu_torch.utils.config import get_config
+    from ndivplanning_tpu_torch.utils.profiling import enable_nan_debugging
+
+    cfg = get_config("goalcond", steps=TOOLS_NAN_STEPS, log_every=0,
+                     eval_every=0, checkpoint_every=0)
+    state = create_train_state(cfg, device="cuda")
+    batch = make_task(cfg).sample(state.rng, cfg.batch_size)
+    batch = dataclasses.replace(batch, real_traj=torch.full_like(
+        batch.real_traj, float("nan")))
+    try:
+        enable_nan_debugging(True)
+        try:
+            train_step_impl(cfg, state, batch)
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("--debug-nans: a NaN batch did not raise")
+        debug, _ = train(cfg, workdir="", echo=False, device="cuda")
+    finally:
+        enable_nan_debugging(False)
+    plain, _ = train(cfg, workdir="", echo=False, device="cuda")
+    values = check_states_bitwise(torch, debug, plain,
+                                  "--debug-nans against a plain run")
+    return {"nan_batch_raised": raised, "clean_steps": TOOLS_NAN_STEPS,
+            "clean_run_bitwise_values": values}
+
+
+def tools_cli(torch, tmp):
+    """doctor, viz, viz --mpc and curves through the CLI on the card, four
+    processes at once (each mostly host start-up)."""
+    import importlib.util
+
+    def doctor():
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m",
+                               "ndivplanning_tpu_torch.cli", "doctor"],
+                              capture_output=True, text=True, timeout=600)
+        report = json.loads(done.stdout)
+        probe = report.get("backend_probe", {})
+        if done.returncode or not report.get("healthy") or (
+                probe.get("device_name") != torch.cuda.get_device_name(0)):
+            raise AssertionError(f"doctor exited {done.returncode}: {report}")
+        return {"rc": done.returncode, "probe": probe,
+                "ndiv_kernels": report["ndiv_kernels"],
+                "process_s": time.perf_counter() - t0}
+
+    def png(name, args):
+        path = os.path.join(tmp, f"{name}.png")
+        t0 = time.perf_counter()
+        row = cli_json([*args, "--out", path])
+        if os.path.getsize(path) < 1000:
+            raise AssertionError(f"{name}: {path} is nearly empty")
+        return {**row, "png_bytes": os.path.getsize(path),
+                "process_s": time.perf_counter() - t0}
+
+    jobs = {"doctor": doctor,
+            "viz": functools.partial(png, "viz", [
+                "viz", "--workdir", PLANNING512]),
+            "viz_mpc": functools.partial(png, "viz_mpc", [
+                "viz", "--workdir", PLANNING512, "--mpc"]),
+            "curves": functools.partial(png, "curves", [
+                "curves", "--workdir", os.path.join(tmp, "profiled")])}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in jobs.items()}
+        out = {name: f.result() for name, f in futures.items()}
+    out["renderer"] = ("matplotlib" if importlib.util.find_spec("matplotlib")
+                       else "pillow")
+    return out
+
+
+def start_tools_export() -> tuple:
+    """Start the planning512 export bundle in a subprocess on the card
+    (:func:`tools_export_worker`) while the phases before the tools phase
+    run: tracing and loading are host work on one core.  Returns (process,
+    its directory); the process is killed at exit if it still runs."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    log = open(os.path.join(out_dir, "export.log"), "w", encoding="utf-8")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.tools_export_worker(sys.argv[1]))", out_dir],
+        stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    atexit.register(shutil.rmtree, out_dir, True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out_dir
+
+
+def tools_export_worker(out_dir) -> int:
+    """The export subprocess: planning512 restored by the CLI's loader on
+    the card, ``export_bundle`` with trajopt at ``TOOLS_TRAJOPT_STEPS``
+    Adam steps into ``<out_dir>/bundle``, then each artifact loaded back and
+    held bitwise against the eager program on the same draws at
+    ``TOOLS_EXPORT_BATCHES``, and the trajopt program's growth: its export
+    and load again at twice the steps.  Its rows go to
+    ``<out_dir>/export.json``."""
+    import torch
+
+    # One core: the phases that run beside it keep the others.
+    torch.set_num_threads(1)
+
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.data.scenes import random_scene_batch
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+    from ndivplanning_tpu_torch.train.state import gen_params
+    from ndivplanning_tpu_torch.utils import export
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    cfg = load_config(PLANNING512).replace(
+        workdir=PLANNING512, trajopt_steps=TOOLS_TRAJOPT_STEPS)
+    state = _load_state(cfg, torch.device("cuda"))
+    bundle = os.path.join(out_dir, "bundle")
+    t0 = time.perf_counter()
+    manifest = export.export_bundle(cfg, state, bundle)
+    bundle_s = time.perf_counter() - t0
+    programs = {
+        "planner": export.planner_program(cfg, state),
+        "cem_planner": export.cem_program(cfg, state),
+        "trajopt_planner": export.trajopt_program(cfg, state),
+        "mpc_controller": export.mpc_program(cfg, state)}
+    rows = {}
+    for name in manifest["artifacts"]:
+        entry = manifest[name]
+        t0 = time.perf_counter()
+        call = export.load_exported(os.path.join(bundle, entry["file"]))
+        load_s = time.perf_counter() - t0
+        checked = []
+        for b in TOOLS_EXPORT_BATCHES:
+            gen = torch.Generator(device="cuda").manual_seed(100 + b)
+            scenes = random_scene_batch(gen, b)
+            conds = _condition_for(cfg, scenes)
+            if name == "generator":
+                z = torch.randn((b, 16, cfg.latent_dim), generator=gen,
+                                device="cuda")
+                with torch.no_grad():
+                    want = (gen_params(cfg, state)(conds, z),)
+                got = (call(conds, z),)
+            else:
+                seeds = torch.arange(b) + 7
+                fn, shape = programs[name]
+                want = fn(scenes, conds, export.draw_noise(seeds, shape,
+                                                           "cuda"))
+                got = call(conds, scenes.start, scenes.goal,
+                           scenes.obstacles, scenes.obstacle_mask, seeds)
+            if len(got) != len(want) or not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"export: {name} at batch {b} differs "
+                                     "from the eager program")
+            checked.append(b)
+        rows[name] = {"bytes": entry["bytes"], "export_s": entry["export_s"],
+                      "load_s": load_s, "bitwise_at_batches": checked}
+    # The unrolled trajopt program at twice the steps: the slope of its
+    # export and load seconds and bytes in the Adam steps, from which the
+    # CLI's full budget (cfg.trajopt_steps) is extrapolated.
+    steps = 2 * TOOLS_TRAJOPT_STEPS
+    path = os.path.join(out_dir, f"trajopt_{steps}.pt2")
+    t0 = time.perf_counter()
+    nbytes = export.export_trajopt_planner(
+        cfg.replace(trajopt_steps=steps), state, path)
+    grown = {"adam_steps": steps, "bytes": nbytes,
+             "export_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    export.load_exported(path)
+    grown["load_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "export.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"bundle_s": bundle_s,
+                   "trajopt_adam_steps": TOOLS_TRAJOPT_STEPS,
+                   "device": manifest["device"], "artifacts": rows,
+                   "trajopt_at_more_steps": grown,
+                   "ilqr_planner": manifest["ilqr_planner"]["reason"]}, f)
+    return 0
+
+
+def tools_export(export_job) -> dict:
+    """The export subprocess's report (:func:`start_tools_export`); raises
+    if it failed."""
+    proc, job_dir = export_job
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited_s = time.perf_counter() - t0
+    if rc:
+        with open(os.path.join(job_dir, "export.log"), encoding="utf-8") as f:
+            raise AssertionError(f"the export subprocess exited {rc}: "
+                                 f"{f.read()[-3000:]}")
+    with open(os.path.join(job_dir, "export.json"), encoding="utf-8") as f:
+        return {**json.load(f), "waited_s": waited_s}
+
+
+def tools_phase(torch, ndiv_cuda, smi, export_job):
+    """The port's own tools on the card: ``train --profile-dir`` (its trace
+    names the ndiv_joint warp kernel), ``--debug-nans`` (a NaN batch raises,
+    a clean run is bitwise the plain one), ``doctor``, ``viz``, ``viz
+    --mpc`` and ``curves``, and the planning512 export bundle, written,
+    loaded back and held bitwise against the eager programs by
+    ``export_job`` while earlier phases ran.  Returns (phase, launches of
+    the in-process runs)."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        reset(ndiv_cuda)
+        phase = {"phase": "tools",
+                 "train_profiled": tools_train_profiled(tmp)}
+        phase["debug_nans"] = tools_debug_nans(torch)
+        launches = launched(ndiv_cuda)
+        phase["cli"] = tools_cli(torch, tmp)
+        phase["export"] = tools_export(export_job)
+    finally:
+        shutil.rmtree(tmp)
+    phase.update(launches=launches, phase_s=time.perf_counter() - t0,
+                 card=smi)
+    return phase, launches
+
+
+def tools_only() -> int:
+    """``python3 chip_smoke.py tools``: the device, the build and the tools
+    phase alone (a development run)."""
+    import torch
+
+    from ndivplanning_tpu_torch.ops import ndiv_cuda
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    smi = nvidia_smi_line()
+    ndiv_cuda.build()
+    ndiv_cuda.load()
+    export_job = start_tools_export()
+    emit(tools_phase(torch, ndiv_cuda, smi, export_job)[0])
+    return 0
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -4161,6 +4493,9 @@ def main() -> int:
                           for kern in ("fwd", "bwd", "joint")},
               "card": smi})
 
+    # The tools phase's export bundle, traced by a subprocess on one core
+    # while the phases from here on run.
+    export_job = start_tools_export()
     # 8f. The train loop and its eval on the planning512 recipe at full
     # width, the CLI's train and eval, and the frozen suite on the restored
     # planning512 model on the card against the CPU.
@@ -4209,6 +4544,11 @@ def main() -> int:
     # recipes at full width, then the transformer through the CLI.
     phase, path_launches["stabilisers"] = stabilisers_phase(torch, ndiv_cuda)
     emit({**phase, "card": smi})
+    # 8l. The port's tools: the profiler, NaN debugging, doctor, the plots
+    # and the export bundle on the planning512 model.
+    phase, path_launches["tools"] = tools_phase(torch, ndiv_cuda, smi,
+                                                export_job)
+    emit(phase)
 
     # 9. Kernel times on the first imagecond step's inputs, every route,
     # beside the tile kernel's (one tiling, the same in every layout).
@@ -4328,4 +4668,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tools_only() if sys.argv[1:] == ["tools"] else main())

@@ -11,12 +11,17 @@
     python -m ndivplanning_tpu_torch.cli record-data --preset planning --out runs/p512.npz
     python -m ndivplanning_tpu_torch.cli train --workdir runs/p512 --dataset runs/p512.npz --epochs 30
     python -m ndivplanning_tpu_torch.cli distill --workdir checkpoints_torch/quadrotor150k --planner mpc
+    python -m ndivplanning_tpu_torch.cli train --preset goalcond --profile-dir runs/prof --debug-nans
+    python -m ndivplanning_tpu_torch.cli viz --workdir checkpoints_torch/planning512 --out plan.png
+    python -m ndivplanning_tpu_torch.cli curves --workdir runs/goalcond --out curves.png
+    python -m ndivplanning_tpu_torch.cli export --workdir checkpoints_torch/planning512 --out bundle/
+    python -m ndivplanning_tpu_torch.cli doctor
 
 Every command runs on the CUDA card unless ``--device cpu`` is given.  A
 ``--workdir`` holding a recorded ``config.json`` is the base config; eval,
-plan and serve prefer its ``best/`` checkpoint.  The JAX CLI's other
-subcommands and options exit with a message naming them: they are not
-ported yet.
+plan, serve, viz and export prefer its ``best/`` checkpoint.
+``--profile-dir`` traces any of them with ``torch.profiler``.  ``plan
+--sharded`` exits with a message naming it: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,15 +37,10 @@ import torch
 
 from ndivplanning_tpu_torch.utils.device import resolve_device
 
-NOT_PORTED_COMMANDS = ("viz", "export", "doctor", "curves")
-
 
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to the torch CLI yet (ported: "
-                      "train and eval on the on-device sampler and on "
-                      "recorded datasets, record-data and distill, one-shot "
-                      "planning and every refiner, closed-loop MPC; plan "
-                      "unsharded; serve over pipes and TCP)")
+                      "every command and option but plan --sharded)")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -58,9 +58,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--div-shards", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the CUDA card)")
-    p.add_argument("--profile-dir", default=None, help="not ported yet")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (Chrome/Perfetto "
+                        "JSON) of the command into this directory")
     p.add_argument("--debug-nans", action="store_true",
-                   help="not ported yet")
+                   help="raise FloatingPointError on the first non-finite "
+                        "value: anomaly mode in the backward, a check of "
+                        "every step's, plan's and eval leg's tensors")
     p.add_argument("--set", action="append", default=[], dest="set_overrides",
                    metavar="FIELD=VALUE",
                    help="generic Config field override, typed from the "
@@ -147,13 +151,20 @@ def _load_state(cfg, device, prefer_best: bool = True):
 
 
 def _check_ported(args) -> None:
-    flags = {"--profile-dir": args.profile_dir is not None,
-             "--debug-nans": args.debug_nans}
-    if args.cmd == "plan":
-        flags["--sharded"] = args.sharded
-    for flag, on in flags.items():
-        if on:
-            raise _not_ported(f"{args.cmd} {flag}")
+    if args.cmd == "plan" and args.sharded:
+        raise _not_ported("plan --sharded")
+
+
+def _maybe_profiled(args, fn):
+    """Run ``fn`` under a ``torch.profiler`` trace when ``--profile-dir``
+    is set (every command but doctor and curves).  A profiler that fails
+    raises: the command exits non-zero instead of running untraced."""
+    if not args.profile_dir:
+        return fn()
+    from ndivplanning_tpu_torch.utils.profiling import trace
+
+    with trace(args.profile_dir):
+        return fn()
 
 
 def _plan_mpc(cfg, state, device, args) -> dict:
@@ -206,13 +217,45 @@ def _parser() -> argparse.ArgumentParser:
 
     parser = argparse.ArgumentParser(prog="ndivplanning_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in NOT_PORTED_COMMANDS:
-        sub.add_parser(name, add_help=False, help="not ported yet")
-    names = ("train", "eval", "plan", "serve", "record-data", "distill")
+    doc = sub.add_parser(
+        "doctor",
+        help="environment diagnosis: versions, nvcc, the NDiv kernels' "
+             "library, the native host plane, and a timeout-bounded probe "
+             "of the card in a subprocess (never hangs)")
+    doc.add_argument("--no-probe", action="store_true",
+                     help="skip the subprocess probe (host introspection "
+                          "only)")
+    doc.add_argument("--probe-timeout", type=float, default=120.0,
+                     help="seconds before the probe is declared hung")
+    doc.add_argument("--probe-cpu", action="store_true",
+                     help="probe the CPU instead of the CUDA card")
+    cur = sub.add_parser(
+        "curves",
+        help="render a two-panel PNG training report (losses + "
+             "frozen-suite eval curves) from a run's metrics.jsonl")
+    cur.add_argument("--workdir", required=True,
+                     help="run directory containing metrics.jsonl")
+    cur.add_argument("--out", default="curves.png", help="output PNG path")
+    names = ("train", "eval", "plan", "serve", "record-data", "distill",
+             "viz", "export")
     for name in names:
         _add_common(sub.add_parser(name))
-    train_p, eval_p, plan_p, serve_p, record_p, distill_p = (
-        sub.choices[name] for name in names)
+    (train_p, eval_p, plan_p, serve_p, record_p, distill_p, viz_p,
+     export_p) = (sub.choices[name] for name in names)
+    viz_p.add_argument("--out", default="plan.png", help="output PNG path")
+    viz_p.add_argument("--mpc", action="store_true",
+                       help="render one closed-loop MPC episode (executed "
+                            "path colored by time, replan points marked) "
+                            "instead of open-loop candidates")
+    viz_p.add_argument("--mpc-steps", type=int, default=64)
+    viz_p.add_argument("--mpc-replan", type=int, default=8)
+    viz_p.add_argument("--mpc-candidates", type=int, default=256)
+    export_p.add_argument("--out", required=True,
+                          help="output directory of the torch.export "
+                               "deployment bundle (.pt2 programs and "
+                               "manifest.json)")
+    export_p.add_argument("--n-candidates", type=int, default=None)
+    export_p.add_argument("--n-diverse", type=int, default=8)
     train_p.add_argument("--dataset", default=None,
                          help="train from a recorded .npz dataset "
                               "(record-data) instead of the on-device task "
@@ -305,7 +348,7 @@ def _parser() -> argparse.ArgumentParser:
     plan_p.add_argument("--mpc-episodes", type=int, default=1,
                         help="episodes to run, as one batch")
     plan_p.add_argument("--sharded", action="store_true",
-                        help="not ported yet")
+                        help="the sharded planner (not ported yet)")
     serve_p.add_argument("--warmup", action="store_true",
                          help="run one dispatch of every request bucket "
                               "before reading stdin")
@@ -353,16 +396,111 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _curves(args) -> int:
+    from ndivplanning_tpu_torch.utils.viz import plot_run_curves
+
+    metrics_path = os.path.join(args.workdir, "metrics.jsonl")
+    if not os.path.exists(metrics_path):
+        print(f"error: no metrics.jsonl in {args.workdir!r} (pass a train "
+              "run's --workdir)", file=sys.stderr)
+        return 2
+    with open(metrics_path, encoding="utf-8") as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    _, n_train, n_eval = plot_run_curves(
+        rows, path=args.out,
+        title=os.path.basename(os.path.normpath(args.workdir)))
+    print(json.dumps({"out": args.out, "train_rows": n_train,
+                      "eval_rows": n_eval}))
+    return 0
+
+
+def _viz(cfg, device, args) -> dict:
+    """``viz``: the diverse top-8 of a plan of one random scene (scene from
+    ``seed + 3``, latents from ``seed + 4``), or with ``--mpc`` one
+    closed-loop episode of it."""
+    from ndivplanning_tpu_torch.data.scenes import random_scene
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+    from ndivplanning_tpu_torch.utils import viz
+
+    state = _load_state(cfg, device)
+    scene = random_scene(
+        torch.Generator(device=device).manual_seed(cfg.seed + 3))
+    condition = _condition_for(cfg, scene)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed + 4)
+    if args.mpc:
+        from ndivplanning_tpu_torch.planning.mpc import mpc_rollout
+
+        r = mpc_rollout(cfg, state, scene, condition, generator,
+                        total_steps=args.mpc_steps,
+                        replan_every=args.mpc_replan,
+                        n_candidates=args.mpc_candidates)
+        viz.plot_mpc_episode(scene, r.positions, reached=r.reached,
+                             collided=r.collided,
+                             replan_every=args.mpc_replan, path=args.out,
+                             title=f"{cfg.name}: MPC {args.mpc_steps} steps, "
+                                   f"{r.n_replans} replans")
+        return {"out": args.out, "reached": float(r.reached),
+                "collided": float(r.collided), "n_replans": r.n_replans}
+    from ndivplanning_tpu_torch.planning.planner import plan
+
+    result = plan(cfg, state, scene, condition, generator, n_diverse=8)
+    viz.plot_trajectories(
+        scene, result.taus[result.diverse_idx],
+        result.scores[result.diverse_idx], path=args.out,
+        title=f"{cfg.name}: diverse top-8 of {result.scores.shape[0]} "
+              "candidates", highlight=result.best_traj)
+    return {"out": args.out, "best_score": float(result.best_score)}
+
+
 def main(argv=None) -> int:
     parser = _parser()
     args, extra = parser.parse_known_args(argv)
-    if args.cmd in NOT_PORTED_COMMANDS:
-        raise _not_ported(f"the {args.cmd!r} subcommand")
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    if args.cmd == "doctor":
+        from ndivplanning_tpu_torch.utils.doctor import doctor_report
+
+        report = doctor_report(
+            probe=not args.no_probe, probe_timeout_s=args.probe_timeout,
+            probe_platform="cpu" if args.probe_cpu else None)
+        print(json.dumps(report, indent=1))
+        # 0 when healthy (or the probe skipped); 3 = the card is unhealthy,
+        # apart from 2 = bad usage.
+        return 0 if report.get("healthy", True) else 3
+    if args.cmd == "curves":
+        return _curves(args)
     _check_ported(args)
     cfg = _build_config(args)
     device = resolve_device(args.device)
+    if args.debug_nans:
+        from ndivplanning_tpu_torch.utils.profiling import (
+            enable_nan_debugging,
+        )
+
+        enable_nan_debugging(True)
+    return _maybe_profiled(args, lambda: _run(args, cfg, device))
+
+
+def _run(args, cfg, device) -> int:
+    """The commands that build a config and run on ``device``."""
+    if args.cmd == "viz":
+        print(json.dumps(_viz(cfg, device, args)))
+        return 0
+
+    if args.cmd == "export":
+        from ndivplanning_tpu_torch.utils.export import export_bundle
+
+        manifest = export_bundle(cfg, _load_state(cfg, device), args.out,
+                                 n_candidates=args.n_candidates,
+                                 n_diverse=args.n_diverse)
+        print(json.dumps({
+            "out": args.out, "step": manifest["step"],
+            "device": manifest["device"],
+            "generator_bytes": manifest["generator"]["bytes"],
+            "planner_bytes": manifest["planner"]["bytes"],
+            "export_s": {name: manifest[name]["export_s"]
+                         for name in manifest["artifacts"]}}))
+        return 0
 
     if args.cmd == "record-data":
         if args.from_planner:

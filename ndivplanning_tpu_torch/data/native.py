@@ -18,8 +18,11 @@ import os
 import subprocess
 import tempfile
 import threading
+import time
 
 import numpy as np
+
+from ndivplanning_tpu_torch.utils.compile_guard import record_compile
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -36,21 +39,32 @@ _lock = threading.Lock()
 _lib = None
 
 
+def library_path() -> str:
+    """Where :func:`build` puts the library of the current source, compiler
+    and flags."""
+    with open(_SRC, "rb") as f:
+        src = f.read()
+    digest = hashlib.sha256(
+        src + " ".join((_cxx(), *CXX_FLAGS)).encode()).hexdigest()
+    return os.path.join(_BUILD_DIR, f"libndivhost_{digest[:16]}.so")
+
+
+def _cxx() -> str:
+    return os.environ.get("CXX", "g++")
+
+
 def build() -> str:
     """Compile ``native/ndiv_host.cc`` (once per source and flags hash);
     returns the library's path.  Raises ``RuntimeError`` with the
     compiler's output when the build fails."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    cxx = os.environ.get("CXX", "g++")
-    digest = hashlib.sha256(
-        src + " ".join((cxx, *CXX_FLAGS)).encode()).hexdigest()
-    path = os.path.join(_BUILD_DIR, f"libndivhost_{digest[:16]}.so")
+    cxx = _cxx()
+    path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(_BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
+    t0 = time.perf_counter()
     try:
         try:
             proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, _SRC],
@@ -65,6 +79,8 @@ def build() -> str:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    record_compile("native_build", os.path.basename(path),
+                   time.perf_counter() - t0)
     return path
 
 

@@ -72,7 +72,14 @@ def _anchor(base: tuple, device: torch.device) -> torch.Tensor:
 
 def anchor(params, like: torch.Tensor) -> torch.Tensor:
     """The arm's base as a ``[2]`` float32 tensor on ``like``'s device,
-    copied there once per device: a copy a step would wait on the host."""
+    copied there once per device: a copy a step would wait on the host.
+    Traced (``like`` a fake tensor) it is made by fills, since a traced
+    scan body may hold no tensor constant."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(like):
+        return torch.stack([like.new_full((), b, dtype=torch.float32)
+                            for b in params.base])
     return _anchor(params.base, like.device)
 
 

@@ -51,6 +51,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
 
 import torch
 
@@ -60,6 +61,7 @@ from ndivplanning_tpu_torch.ops.ndiv import (
     ndiv_loss_reference,
 )
 from ndivplanning_tpu_torch.ops.pairwise import pairwise_l2
+from ndivplanning_tpu_torch.utils.compile_guard import record_compile
 
 _MAX_KP = 1024
 _SUBLANE = 8
@@ -191,12 +193,17 @@ def ndiv_bwd_plain(z: torch.Tensor, x: torch.Tensor, alpha: float,
 # ------------------------------------------------------------------ build
 
 
-def build() -> tuple[str, str]:
-    """Compile ``csrc/ndiv.cu`` (once per source hash); returns (library path, nvcc log)."""
+def library_path() -> str:
+    """Where :func:`build` puts the library of the current source and flags."""
     with open(_SRC, "rb") as f:
         src = f.read()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    path = os.path.join(_BUILD_DIR, f"libndiv_{digest[:16]}.so")
+    return os.path.join(_BUILD_DIR, f"libndiv_{digest[:16]}.so")
+
+
+def build() -> tuple[str, str]:
+    """Compile ``csrc/ndiv.cu`` (once per source hash); returns (library path, nvcc log)."""
+    path = library_path()
     if os.path.exists(path):
         return path, ""
     from torch.utils.cpp_extension import CUDA_HOME
@@ -206,6 +213,7 @@ def build() -> tuple[str, str]:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(
             [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS, "-o", tmp,
@@ -216,6 +224,8 @@ def build() -> tuple[str, str]:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    record_compile("cuda_build", os.path.basename(path),
+                   time.perf_counter() - t0)
     return path, proc.stdout + proc.stderr
 
 

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ndivplanning_tpu_torch.envs.registry import get_env
-from ndivplanning_tpu_torch.envs.rollout import ScoreWeights
+from ndivplanning_tpu_torch.envs.rollout import ScoreWeights, time_loop
 from ndivplanning_tpu_torch.envs.types import Scene
 from ndivplanning_tpu_torch.planning.planner import (
     nan_safe,
@@ -29,6 +29,7 @@ from ndivplanning_tpu_torch.planning.planner import (
 )
 from ndivplanning_tpu_torch.train.state import TrainState, gen_params
 from ndivplanning_tpu_torch.utils.config import Config
+from ndivplanning_tpu_torch.utils.profiling import check_finite
 
 
 class MPCResult(NamedTuple):
@@ -74,16 +75,23 @@ def _episodes(cfg: Config, state: TrainState, scenes: Scene,
         wp_idx = torch.clamp(torch.arange(n_exec, device=device),
                              max=horizon - 1)
         slice_ = taus[rows, best].index_select(1, wp_idx)  # [B, n, S]
-        for j in range(n_exec):
-            wp = slice_[:, j, None, :]  # [B, 1, S]
+
+        def execute(env_state, wp, scenes):
+            wp = wp[:, None, :]  # [B, 1, S]
             a = (wp if cfg.rollout_mode == "actions"
                  else api.waypoint_control(params, env_state, wp))
             env_state, _ = api.step(params, scenes, env_state, a)
-            positions.append(env_state.pos[:, 0])
-    return MPCResult(positions=torch.stack(positions, dim=1),
-                     final_state=env_state, reached=env_state.done[:, 0],
-                     collided=env_state.collided[:, 0],
-                     n_replans=len(starts))
+            return env_state, (env_state.pos[:, 0],)
+
+        env_state, (executed,) = time_loop(execute, env_state,
+                                           slice_.movedim(1, 0), (1,), scenes)
+        positions.append(executed)  # [B, n, 2]
+    result = MPCResult(positions=torch.cat(positions, dim=1),
+                       final_state=env_state, reached=env_state.done[:, 0],
+                       collided=env_state.collided[:, 0],
+                       n_replans=len(starts))
+    check_finite("closed-loop episode", {"positions": result.positions})
+    return result
 
 
 def _one(result: MPCResult) -> MPCResult:

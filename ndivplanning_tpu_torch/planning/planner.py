@@ -16,6 +16,7 @@ from ndivplanning_tpu_torch.envs.types import Scene
 from ndivplanning_tpu_torch.ops.pairwise import pairwise_l2
 from ndivplanning_tpu_torch.train.state import TrainState, gen_params
 from ndivplanning_tpu_torch.utils.config import Config
+from ndivplanning_tpu_torch.utils.profiling import check_finite
 
 
 class PlanResult(NamedTuple):
@@ -115,12 +116,14 @@ def select_plan(taus: torch.Tensor, results, n_diverse: int) -> PlanResult:
     sel_scores = nan_safe(results.score)  # +inf: out of both picks
     best = torch.argmin(sel_scores, dim=1, keepdim=True)  # [B, 1]
     diverse_idx = _diverse_top_m(taus.flatten(2), sel_scores, n_diverse)
-    return PlanResult(
+    result = PlanResult(
         best_traj=_take(taus, best)[:, 0],
         best_score=torch.gather(results.score, 1, best)[:, 0],
         best_reached=torch.gather(results.reached, 1, best)[:, 0],
         diverse_idx=diverse_idx, diverse_trajs=_take(taus, diverse_idx),
         scores=results.score, taus=taus)
+    check_finite("plan", result)
+    return result
 
 
 def _take(taus: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

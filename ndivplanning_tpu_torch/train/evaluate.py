@@ -32,6 +32,7 @@ from ndivplanning_tpu_torch.ops.ndiv import ndiv_loss
 from ndivplanning_tpu_torch.ops.pairwise import pairwise_l2
 from ndivplanning_tpu_torch.train.state import TrainState, gen_params
 from ndivplanning_tpu_torch.utils.config import Config
+from ndivplanning_tpu_torch.utils.profiling import check_finite
 
 # Frozen eval protocol: the suite and the eval latents come from FIXED
 # seeds, independent of cfg.seed and the training step, so numbers from
@@ -279,4 +280,5 @@ def _evaluate_impl(cfg: Config, state: TrainState, z: torch.Tensor,
         hit = F.one_hot(bins, n_modes).amax(dim=1)  # [B, n_modes]
         out["eval_mode_coverage"] = torch.mean(
             hit.sum(dim=-1).float() / n_modes)
+    check_finite("eval", out)
     return out

@@ -12,8 +12,11 @@ dataset, which a marker file in the workdir vouches for on resume.
 
 The port runs in one process.  A config with ``dp_shards * div_shards >
 1`` trains over its global batch without a mesh, as the unsharded step
-does; the JAX loop routes it to the sharded step.  The JAX loop's compile
-row (``kind="compile"``) has no counterpart yet.
+does; the JAX loop routes it to the sharded step.  :func:`train` ends its
+metrics with a ``kind="compile"`` row: the programs the run compiled
+(``utils/compile_guard.py``: the CUDA kernels' and the host plane's
+builds and ``torch.compile`` graphs), as the JAX loop counts its XLA
+programs.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ndivplanning_tpu_torch.train.step import (
     train_step_impl,
 )
 from ndivplanning_tpu_torch.utils import checkpoint as ckpt
+from ndivplanning_tpu_torch.utils.compile_guard import start_compile_count
 from ndivplanning_tpu_torch.utils.config import Config, save_config
 from ndivplanning_tpu_torch.utils.metrics import MetricsWriter, host_floats
 
@@ -297,6 +301,8 @@ def train(cfg: Config, num_steps: Optional[int] = None,
     _check_one_process()
     num_steps = cfg.steps if num_steps is None else num_steps
     workdir = cfg.workdir if workdir is None else workdir
+    # Every program this run compiles, set-up included (logged at the end).
+    compile_rec, stop_compile_count = start_compile_count()
 
     state = create_train_state(cfg, device=device)
     if restore and workdir:
@@ -326,11 +332,14 @@ def train(cfg: Config, num_steps: Optional[int] = None,
             last = host_floats({k: v[-1] for k, v in metrics.items()})
             step = target
             obs.at_boundary(state, step, chunk, last)
+        stop_compile_count()
+        writer.write(step, compile_rec.row(), kind="compile")
         obs.final_save(state)
     except KeyboardInterrupt:
         obs.interrupt_save(state, adam_lead)
         raise
     finally:
+        stop_compile_count()
         writer.close()
     return state, obs.history
 

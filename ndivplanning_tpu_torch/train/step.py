@@ -45,6 +45,7 @@ from ndivplanning_tpu_torch.train.state import (
     lr_schedule,
 )
 from ndivplanning_tpu_torch.utils.config import Config
+from ndivplanning_tpu_torch.utils.profiling import check_finite, nan_debugging
 
 _F32_TINY = torch.finfo(torch.float32).tiny
 
@@ -363,6 +364,7 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
         r1 = torch.mean(torch.sum(torch.square(g_traj.float()), dim=(1, 2)))
         d_loss = d_loss + 0.5 * cfg.r1_weight * r1
         metrics["d_r1"] = r1.detach()
+    check_finite("train step: D's forward", {"d_loss": d_loss})
     d_grads = torch.autograd.grad(d_loss, list(state.d.parameters()))
     state.d_opt.step(state.d, world_sum_(list(d_grads)))
     if reset_due(cfg, state.step):
@@ -428,6 +430,7 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
         dfloor = F.relu(cfg.div_floor - mpd)
         g_total = g_total + cfg.div_floor_weight * dfloor
         metrics["g_divfloor"] = dfloor.detach()
+    check_finite("train step: G's forward", {"g_total": g_total})
     g_grads = torch.autograd.grad(g_total, list(state.g.parameters()))
     state.g_opt.step(state.g, world_sum_(list(g_grads)))
 
@@ -462,6 +465,16 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
             * cfg.ada_step, 0.0, cfg.ada_p_max)
         metrics["ada_p"] = ada_p
     state.ada = {"r": ada_r, "p": ada_p}
+    g_sched = lr_schedule(cfg, cfg.g_lr)
+    if callable(g_sched):
+        # The LR of this step's G update (one a step, so its position is
+        # the step), made on the device by a fill: no copy, no host wait.
+        metrics["g_lr"] = torch.full((), g_sched(state.step),
+                                     device=real.device)
+    if nan_debugging():
+        check_finite("train step", {**metrics, **{
+            f"{net}.{name}": p for net in ("g", "d")
+            for name, p in getattr(state, net).named_parameters()}})
     state.step += 1
     return state, metrics
 

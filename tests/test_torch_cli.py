@@ -3,8 +3,10 @@
 The client spawns ``python -m ndivplanning_tpu_torch.cli serve`` over
 pipes, as a deployment would; ``plan`` runs the committed planning512 and
 env-family models at full width (1000 candidates), and arm3 goes from
-``train`` to ``serve`` in action mode.  Every subcommand and option of
-the JAX CLI that the port lacks exits with a message naming it.
+``train`` to ``serve`` in action mode.  The tools (viz, curves, export,
+doctor, --profile-dir, --debug-nans) run on the CPU at a small size; plan
+--sharded, the one option the port lacks, exits with a message naming
+it.
 """
 
 import json
@@ -104,33 +106,177 @@ def test_cli_plan_on_planning512(capsys):
     assert out["best_reached"] in (0.0, 1.0) and out["best_score"] > 0
 
 
+def _small_run(tmp_path, capsys) -> str:
+    """A goalcond run of 5 steps (its metrics, config and checkpoint)."""
+    run = str(tmp_path / "run")
+    _cli_json(capsys, ["train", *TRAIN_ARGS, "--steps", "5", "--workdir",
+                       run])
+    return run
+
+
+def _tool_case(cmd, tmp_path, capsys):
+    """Each tool subcommand on the CPU at a small size."""
+    if cmd == "doctor":
+        assert main(["doctor", "--no-probe"]) == 0
+        report = json.loads(capsys.readouterr().out)
+        assert "healthy" not in report and report["torch"]
+        return
+    run = _small_run(tmp_path, capsys)
+    out = str(tmp_path / "out")
+    if cmd == "curves":
+        row = _cli_json(capsys, ["curves", "--workdir", run, "--out",
+                                 out + ".png"])
+        # 5-step run: train rows at 5 and its compile row; an eval at 5.
+        assert (row["train_rows"], row["eval_rows"]) == (2, 1)
+        assert os.path.getsize(out + ".png") > 1000
+    elif cmd == "viz":
+        row = _cli_json(capsys, ["viz", "--workdir", run, "--out",
+                                 out + ".png", "--set", "n_candidates=16",
+                                 "--device", "cpu"])
+        assert row["out"] == out + ".png" and math.isfinite(
+            row["best_score"])
+        assert os.path.getsize(out + ".png") > 1000
+    else:
+        row = _cli_json(capsys, ["export", "--workdir", run, "--out", out,
+                                 "--set", "n_candidates=16", "--set",
+                                 "trajopt_steps=1", "--device", "cpu"])
+        assert row["device"] == "cpu" and row["step"] == 5
+        with open(os.path.join(out, "manifest.json"), encoding="utf-8") as f:
+            manifest = json.load(f)
+        assert manifest["planner"]["n_candidates"] == 16
+        assert all(os.path.exists(os.path.join(out, manifest[a]["file"]))
+                   for a in manifest["artifacts"])
+
+
 @pytest.mark.parametrize("cmd", ["viz", "export", "doctor", "curves"])
-def test_unported_subcommands_exit_with_their_name(cmd):
-    with pytest.raises(SystemExit, match=f"'{cmd}' subcommand is not ported"):
-        main([cmd, "--preset", "goalcond"])
+def test_tool_subcommands_run_on_the_cpu(cmd, tmp_path, capsys):
+    _tool_case(cmd, tmp_path, capsys)
+
+
+def _flag_case(name, tmp_path, capsys):
+    """Run one command with --profile-dir or --debug-nans; returns its
+    printed JSON (or None for the server)."""
+    prof = str(tmp_path / "prof")
+    if name == "serve_debug_nans":
+        with PlanningClient.spawn([*_serve_args(tmp_path), "--refine", "ilqr",
+                                   "--set", "ilqr_iters=1",
+                                   "--debug-nans"]) as c:
+            assert math.isfinite(c.plan(start=[0.1, 0.1],
+                                        goal=[0.9, 0.9])["best_score"])
+        return None
+    if name in ("train_dataset_profile", "record_data_profile"):
+        data = str(tmp_path / "rec.npz")
+        args = ["record-data", *TRAIN_ARGS, "--out", data, "--n-examples",
+                "16"]
+        if name == "train_dataset_profile":
+            _cli_json(capsys, args)
+            args = ["train", *TRAIN_ARGS, "--workdir", str(tmp_path / "run"),
+                    "--dataset", data, "--eval-fraction", "0"]
+        return _cli_json(capsys, [*args, "--profile-dir", prof]), prof
+    if name == "train_profile":
+        return _cli_json(capsys, ["train", *TRAIN_ARGS, "--steps", "2",
+                                  "--profile-dir", prof]), prof
+    run = _small_run(tmp_path, capsys)
+    if name == "plan_profile":
+        return _cli_json(capsys, ["plan", "--workdir", run, "--set",
+                                  "n_candidates=16", "--device", "cpu",
+                                  "--profile-dir", prof]), prof
+    if name == "eval_trajopt_profile":
+        return _cli_json(capsys, ["eval", "--workdir", run, "--planner",
+                                  "trajopt", "--suite-size", "2", "--set",
+                                  "trajopt_steps=2", "--set",
+                                  "n_candidates=16", "--device", "cpu",
+                                  "--profile-dir", prof]), prof
+    if name == "eval_debug_nans":
+        return _cli_json(capsys, ["eval", "--workdir", run, "--suite-size",
+                                  "16", "--device", "cpu",
+                                  "--debug-nans"]), None
+    assert name == "distill_debug_nans"
+    return _cli_json(capsys, ["distill", "--workdir", run, "--device", "cpu",
+                              "--planner", "oneshot", "--scenes-per-round",
+                              "16", "--epochs", "1", "--suite-size", "16",
+                              "--distill-workdir", str(tmp_path / "d"),
+                              "--debug-nans"]), None
+
+
+FLAG_CASES = ["plan_profile", "train_profile", "eval_trajopt_profile",
+              "serve_debug_nans", "eval_debug_nans", "record_data_profile",
+              "distill_debug_nans", "train_dataset_profile"]
+
+
+@pytest.mark.parametrize("name", FLAG_CASES)
+def test_profile_dir_and_debug_nans_run_on_the_cpu(name, tmp_path, capsys):
+    """--profile-dir writes a trace of the command, which runs as without
+    it; --debug-nans runs a clean command through."""
+    from ndivplanning_tpu_torch.utils.profiling import enable_nan_debugging
+
+    try:
+        result = _flag_case(name, tmp_path, capsys)
+    finally:
+        enable_nan_debugging(False)
+    if result is None:
+        return
+    out, prof = result
+    assert out and all(math.isfinite(v) for v in out.values()
+                       if isinstance(v, float))
+    if prof is not None:
+        (trace,) = os.listdir(prof)
+        with open(os.path.join(prof, trace), encoding="utf-8") as f:
+            assert json.load(f)["traceEvents"]
 
 
 @pytest.mark.parametrize("args,flag", [
-    (["plan", "--refine", "trajopt", "--sharded"], "--sharded"),
-    (["plan", "--sharded"], "--sharded"),
-    (["plan", "--refine", "ilqr", "--sharded"], "--sharded"),
-    (["plan", "--profile-dir", "prof"], "--profile-dir"),
-    (["plan", "--refine", "cem+trajopt", "--sharded"], "--sharded"),
-    (["train", "--profile-dir", "prof"], "--profile-dir"),
-    (["plan", "--refine", "grad", "--sharded"], "--sharded"),
-    (["eval", "--planner", "trajopt", "--profile-dir", "prof"],
-     "--profile-dir"),
-    (["serve", "--refine", "ilqr", "--debug-nans"], "--debug-nans"),
-    (["eval", "--debug-nans"], "--debug-nans"),
-    (["record-data", "--out", "x.npz", "--profile-dir", "prof"],
-     "--profile-dir"),
-    (["distill", "--debug-nans"], "--debug-nans"),
-    (["train", "--dataset", "x.npz", "--profile-dir", "prof"],
-     "--profile-dir"),
+    pytest.param(["plan", "--refine", "trajopt", "--sharded"], "--sharded",
+                 id="args0---sharded"),
+    pytest.param(["plan", "--sharded"], "--sharded", id="args1---sharded"),
+    pytest.param(["plan", "--refine", "ilqr", "--sharded"], "--sharded",
+                 id="args2---sharded"),
+    pytest.param(["plan", "--refine", "cem+trajopt", "--sharded"],
+                 "--sharded", id="args4---sharded"),
+    pytest.param(["plan", "--refine", "grad", "--sharded"], "--sharded",
+                 id="args6---sharded"),
 ])
 def test_unported_flags_exit_with_their_name(args, flag):
     with pytest.raises(SystemExit, match=re.escape(f"{flag} is not ported")):
         main([*args, "--device", "cpu"])
+
+
+def test_viz_command(tmp_path, capsys):
+    out = tmp_path / "plan.png"
+    rc = main(["viz", "--preset", "pointmass2d", "--batch-size", "4", "--k",
+               "4", "--workdir", str(tmp_path), "--out", str(out),
+               "--device", "cpu"])
+    assert rc == 0
+    assert out.exists() and out.stat().st_size > 1000
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["out"] == str(out)
+
+
+def test_viz_mpc_and_curves(tmp_path, capsys):
+    wd = str(tmp_path / "run")
+    rc = main(["train", "--preset", "pointmass2d", "--batch-size", "8",
+               "--k", "4", "--steps", "60", "--set", "eval_every=30",
+               "--set", "eval_suite_scenes=32", "--workdir", wd,
+               "--device", "cpu"])
+    assert rc == 0
+    capsys.readouterr()
+    png = str(tmp_path / "ep.png")
+    rc = main(["viz", "--workdir", wd, "--out", png, "--mpc",
+               "--mpc-steps", "8", "--mpc-replan", "4",
+               "--mpc-candidates", "8", "--device", "cpu"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["out"] == png and out["n_replans"] == 2
+    assert os.path.exists(png)
+    curves = str(tmp_path / "curves.png")
+    rc = main(["curves", "--workdir", wd, "--out", curves])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["train_rows"] > 0 and os.path.exists(curves)
+    # A missing metrics.jsonl is a usage error, not a traceback.
+    rc = main(["curves", "--workdir", str(tmp_path / "nope"),
+               "--out", curves])
+    assert rc == 2
 
 
 TRAIN_ARGS = ["--preset", "goalcond", "--batch-size", "8", "--k", "4",
@@ -160,7 +306,7 @@ def test_cli_train_writes_its_run_and_resumes(tmp_path, capsys):
     with open(os.path.join(run, "metrics.jsonl"), encoding="utf-8") as f:
         rows = [json.loads(line) for line in f]
     assert [(r["step"], r.get("kind", "train")) for r in rows] == [
-        (5, "train"), (10, "train"), (10, "eval")]
+        (5, "train"), (10, "train"), (10, "eval"), (10, "compile")]
     # Resume from the run's own config and checkpoint to a larger --steps.
     out = _cli_json(capsys, ["train", "--workdir", run, "--steps", "15",
                              "--device", "cpu"])

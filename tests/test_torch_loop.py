@@ -82,7 +82,12 @@ def test_train_loop_boundaries_and_artifacts(tmp_path):
     assert [h["step"] for h in history] == [5, 10, 15, 17]
     rows = _rows(cfg.workdir)
     kinds = {r.get("kind", "train") for r in rows}
-    assert kinds == {"train", "eval"}  # no compile row: not ported
+    assert kinds == {"train", "eval", "compile"}
+    (compile_row,) = [r for r in rows if r.get("kind") == "compile"]
+    assert compile_row["step"] == 17
+    assert set(compile_row) == {"step", "wall_s", "kind", "compiles",
+                                "cuda_builds", "native_builds",
+                                "dynamo_graphs", "compile_secs"}
     assert [r["step"] for r in rows if r.get("kind") == "eval"] == [10, 17]
     assert os.path.isdir(os.path.join(cfg.workdir, "checkpoints"))
     assert ckpt.all_steps(cfg.workdir) == [10, 17]
@@ -359,8 +364,10 @@ def test_resumed_run_is_bitwise_the_uninterrupted_one(tmp_path):
     clocks = ("wall_s", "steps_per_sec")
 
     def rows(run):
+        # The compile row is each call's own (B's first ends at step 4).
         return [{k: v for k, v in r.items() if k not in clocks}
-                for r in _rows(run) if r["step"] >= 4]
+                for r in _rows(run)
+                if r["step"] >= 4 and r.get("kind") != "compile"]
 
     assert rows(run_a) == rows(run_b)
     assert len(rows(run_a)) == 4  # train and eval rows at 4 and 6
