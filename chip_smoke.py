@@ -61,10 +61,18 @@ width, twice, bitwise equal, one ndiv_joint a step, one step against the
 CPU; remat bitwise the recipe without it; the D restart on its step; and
 the transformer through `cli train`, `cli eval` and `cli plan`, its plan
 against the CPU's.
-Each phase prints one JSON line; any failure raises and exits non-zero.
-The last line is the device summary.
+The candidate-sharded planners (parallel/sharded_plan.py): the six on
+one NCCL rank bitwise the unsharded card planners, on two gloo ranks
+sharing the card bitwise alike and against the unsharded planners, and
+`cli plan --sharded` bitwise `cli plan`.
+Each phase prints one JSON line with its wall seconds (``phase_s``); a
+failure first prints ``{"phase": <the numbered phase>, "error": ...}``,
+then raises and exits non-zero.  Before the last line, a ``smoke_s``
+line names the five slowest phases; the last line is the device
+summary.
 
     python3 chip_smoke.py            # from the repository root, one card
+    python3 chip_smoke.py sharded_plan   # the sharded planners alone
 """
 
 from __future__ import annotations
@@ -370,6 +378,43 @@ REFINE_PROFILE_STEPS = 1
 REFINE_STEP_FIELD = {"grad": "grad_refine_steps",
                      "trajopt": "trajopt_steps", "ilqr": "ilqr_iters",
                      "cem+trajopt": "trajopt_steps"}
+# The candidate-sharded planners (phase 8m, parallel/sharded_plan.py), on
+# the models the smoke plans with: the plain planner on planning512 at
+# 1000 candidates, CEM on cem_phase's unicycle150k, each refiner on the
+# first model of its REFINE_MODELS pair, all on refine_plan_vs_cpu's scene.
+# (a) One NCCL rank on a 1x1 mesh at the default budgets, bitwise the
+# unsharded card planner: the plain planner and CEM from one generator
+# seed, the refiners on refine_plan_vs_cpu's noise (its card plans, kept
+# from the refine phase, are the reference).  (b) Two gloo ranks sharing
+# the card on a (2, 1) mesh: the plain planner and CEM at the default
+# budget, the refiners cut to SHARDED_CUT_STEPS Adam steps or iLQR
+# iterations; the ranks bitwise alike, and against the unsharded card
+# planner at the same budget and noise: the best index equal and every
+# score within SERVE_RTOL/ATOL (plain, CEM), the best score and the curve
+# within refine_plan_vs_cpu's form of allowance for the refiners: twice
+# the sum of the unsharded planner's own moves plus SERVE_RTOL/ATOL, here
+# under G's weights one ulp up and one ulp down.  A shard's rows go
+# through another cuBLAS kernel than the whole set's (at M = 31 against 62
+# every candidate of G moved by up to an ulp on an H100, nothing after G
+# did), and a line search or an elite turns that ulp into a path; the
+# noise one ulp off moves G's outputs less than that.  (c)
+# `cli plan --sharded` on planning512: mesh 1x1, best_score bitwise `cli
+# plan`'s.  The gather of the plain planner's candidates is timed on
+# both.  The phase's budget: SHARDED_BUDGET_S (reported, not held: host
+# clocks spread 1.5x run to run).
+SHARDED_MODELS = {"plan": "planning512", "cem": "unicycle150k",
+                  **{r: pair[0] for r, pair in REFINE_MODELS.items()}}
+SHARDED_CUT_STEPS = 2
+SHARDED_SEED = 29  # refine_plan_vs_cpu's noise seed
+SHARDED_GATHER_REPEATS = 20
+SHARDED_BUDGET_S = 75
+# refine_plan_vs_cpu's scene (start, goal, obstacles), also phase 8m's.
+REFINE_SCENE = ([0.1, 0.1], [0.9, 0.9], [[0.5, 0.5, 0.12], [0.3, 0.7, 0.08]])
+# CPU reference work that needs no card (the refiners' CPU plans, the MPC
+# suites' CPU episodes) runs in CPU_WORKERS spawned processes of
+# CPU_WORKER_THREADS torch threads each while its phase's card work runs.
+CPU_WORKERS = 4
+CPU_WORKER_THREADS = 2
 # Their eval_ndiv, card against CPU: fine-tuning left the hinge nearly
 # inactive (quadrotor_distilled's total ~9e-5 on an NVIDIA H100), so the
 # card's 1e-7 moves of G's samples move the small total by 3.3e-4 of
@@ -441,14 +486,58 @@ TF_PLAN_TAUS_TOL = {"f32": 1e-5, "bf16": BF16_METRIC_RTOL}
 
 
 _T0 = time.monotonic()
+# The clock at the last phase line, each phase name's seconds (summed over
+# its lines), and main()'s numbered phase running now.
+_LAST_LINE = [_T0]
+_PHASE_S: dict = {}
+_SECTION = ["start"]
 
 
 def emit(obj) -> None:
     """One JSON line; a phase's line carries ``at_s``, the run's seconds so
-    far when it ends."""
+    far when it ends, and ``phase_s``, its wall seconds since the previous
+    phase line (where the phase does not time itself)."""
     if "phase" in obj:
-        obj = {**obj, "at_s": round(time.monotonic() - _T0, 1)}
+        now = time.monotonic()
+        since = now - _LAST_LINE[0]
+        _LAST_LINE[0] = now
+        _PHASE_S[obj["phase"]] = _PHASE_S.get(obj["phase"], 0.0) + since
+        obj = {"phase_s": round(since, 2), **obj,
+               "at_s": round(now - _T0, 1)}
     print(json.dumps(obj), flush=True)
+
+
+def section(name: str) -> None:
+    """Enter main()'s numbered phase ``name``: a failure from here on is
+    reported under it."""
+    _SECTION[0] = name
+
+
+def summary_line() -> dict:
+    """The run's wall seconds and its five slowest phases (seconds from
+    the phase lines, summed by name)."""
+    slowest = sorted(_PHASE_S.items(), key=lambda kv: -kv[1])[:5]
+    return {"smoke_s": round(time.monotonic() - _T0, 1),
+            "slowest_phases": [[name, round(sec, 1)] for name, sec in slowest]}
+
+
+def reporting_failure(entry) -> int:
+    """``entry()``; an exception first prints ``{"phase": <the numbered
+    phase>, "error": <type and message>}`` and is raised on: the run
+    exits non-zero."""
+    try:
+        return entry()
+    except BaseException as e:
+        print(json.dumps({"phase": _SECTION[0],
+                          "error": f"{type(e).__name__}: {e}"[:4000]}),
+              flush=True)
+        raise
+
+
+def timed(fn, *args):
+    """``(fn(*args), its wall seconds)``."""
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
 
 
 def nvidia_smi_line() -> str:
@@ -1575,7 +1664,9 @@ def admission_burst(torch, server, deadline_ms):
             for c in clients:
                 c.close()
         if errors:
-            raise AssertionError(f"admission burst: {errors[:3]}")
+            raise AssertionError(f"admission burst: {len(errors)} of "
+                                 f"{ADMISSION_CLIENTS} clients failed, "
+                                 f"{errors[:3]}")
         deltas = {k: after[k] - before[k] for k in (
             "shed_requests", "expired_requests", "requests", "dispatches")}
         return list(replies.values()), deltas, wall
@@ -2598,17 +2689,63 @@ def mpc_dispatch_times(torch, cfg, state, suite, profiled):
     return out
 
 
+def mpc_suite_latents(torch, cfg):
+    """The suite's latents as evaluate_fixed_mpc draws them, its first
+    MPC_CPU_SCENES scenes' (on the CPU)."""
+    from ndivplanning_tpu_torch.train.evaluate import (
+        EVAL_SUITE_SEED,
+        EVAL_SUITE_SIZE,
+    )
+
+    return torch.randn((EVAL_SUITE_SIZE, MPC_EPISODE["total_steps"]
+                        // MPC_EPISODE["replan_every"],
+                        MPC_EPISODE["n_candidates"], cfg.latent_dim),
+                       generator=torch.Generator().manual_seed(
+                           EVAL_SUITE_SEED + 2))[:MPC_CPU_SCENES]
+
+
+def cpu_mpc_episodes(name, moved: bool):
+    """In a CPU worker: mpc_phase's CPU episodes of ``name``, its latents
+    one ulp up with ``moved``: (reached, collided) as numpy, seconds."""
+    import torch
+
+    from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
+    from ndivplanning_tpu_torch.train.evaluate import make_eval_suite
+
+    cfg, cpu_state = load_model(name, "cpu")
+    z = mpc_suite_latents(torch, cfg)
+    suite = make_eval_suite(cfg, device="cpu").map(
+        lambda t: t[:MPC_CPU_SCENES])
+    t0 = time.perf_counter()
+    out = mpc_rollout_batch(cfg, cpu_state, suite.scenes, suite.conditions,
+                            z=ulp_up(torch, z) if moved else z,
+                            **MPC_EPISODE)
+    return out.reached.numpy(), out.collided.numpy(), (
+        time.perf_counter() - t0)
+
+
 def mpc_phase(torch, ndiv_cuda):
     """Closed-loop MPC on the three family models: evaluate_fixed_mpc on the
     card over the 512-scene suite beside JAX's recorded success; the card
     against the CPU on the first MPC_CPU_SCENES scenes with the suite's
     own CPU-drawn latents, within twice the CPU's own outcome changes
     under a one-ulp move of its latents (at least 1); dispatch times,
-    launches and busy share at B = 1 and 128."""
+    launches and busy share at B = 1 and 128.  The CPU's episodes run in
+    cpu_workers while the card's do."""
+    with cpu_workers() as cpu_pool:
+        cpu_runs = {(name, moved): cpu_pool.submit(cpu_mpc_episodes, name,
+                                                   moved)
+                    for name in FAMILY_MODELS for moved in (False, True)}
+        return mpc_on_card(torch, ndiv_cuda, cpu_runs)
+
+
+def mpc_on_card(torch, ndiv_cuda, cpu_runs):
+    """mpc_phase's card work, against ``cpu_runs`` (futures of
+    cpu_mpc_episodes by model and move)."""
+    import types
+
     from ndivplanning_tpu_torch.planning.mpc import mpc_rollout_batch
     from ndivplanning_tpu_torch.train.evaluate import (
-        EVAL_SUITE_SEED,
-        EVAL_SUITE_SIZE,
         evaluate_fixed_mpc,
         make_eval_suite,
     )
@@ -2616,19 +2753,14 @@ def mpc_phase(torch, ndiv_cuda):
     out = {}
     for name, (env, step) in FAMILY_MODELS.items():
         workdir = os.path.join("checkpoints_torch", name)
-        cfg, state, cpu_state, _ = checkpoint_restore(torch, workdir, step)
+        cfg, state, _, _ = checkpoint_restore(torch, workdir, step)
         reset(ndiv_cuda)
         t0 = time.perf_counter()
         card_eval = evaluate_fixed_mpc(cfg, state, **MPC_EPISODE)
         eval_s = time.perf_counter() - t0
         if launched(ndiv_cuda):
             raise AssertionError(f"{name} MPC launched {launched(ndiv_cuda)}")
-        # The suite's latents as evaluate_fixed_mpc draws them.
-        z = torch.randn((EVAL_SUITE_SIZE, MPC_EPISODE["total_steps"]
-                         // MPC_EPISODE["replan_every"],
-                         MPC_EPISODE["n_candidates"], cfg.latent_dim),
-                        generator=torch.Generator().manual_seed(
-                            EVAL_SUITE_SEED + 2))[:MPC_CPU_SCENES]
+        z = mpc_suite_latents(torch, cfg)
         suite = make_eval_suite(cfg, device="cpu").map(
             lambda t: t[:MPC_CPU_SCENES])
         card_suite = suite.map(lambda t: t.cuda())
@@ -2637,13 +2769,11 @@ def mpc_phase(torch, ndiv_cuda):
                                  **MPC_EPISODE)
         card = card._replace(reached=card.reached.cpu(),
                              collided=card.collided.cpu())
-        t0 = time.perf_counter()
-        cpu = mpc_rollout_batch(cfg, cpu_state, suite.scenes,
-                                suite.conditions, z=z, **MPC_EPISODE)
-        cpu_s = time.perf_counter() - t0
-        moved = mpc_rollout_batch(cfg, cpu_state, suite.scenes,
-                                  suite.conditions, z=ulp_up(torch, z),
-                                  **MPC_EPISODE)
+        cpu, moved = (types.SimpleNamespace(
+            reached=torch.from_numpy(r), collided=torch.from_numpy(c),
+            seconds=sec) for r, c, sec in (cpu_runs[name, m].result()
+                                           for m in (False, True)))
+        cpu_s = cpu.seconds
         own = outcome_differs(cpu, moved)
         got = outcome_differs(card, cpu)
         allowed = max(2 * own, 1)
@@ -2731,7 +2861,31 @@ def mpc_serve_phase(torch):
 def cem_phase(torch, ndiv_cuda):
     """plan_cem on unicycle150k at the default budget, the card against the
     CPU on the same CPU-drawn noise; its ms, launches and busy share; the
-    planner ladder (cli eval --planner cem and oneshot) on 128 scenes."""
+    planner ladder (cli eval --planner cem and oneshot) on 128 scenes, in
+    subprocesses while the rest runs."""
+    with ThreadPoolExecutor(2) as pool:
+        ladder_jobs = {planner: pool.submit(cem_rung, planner)
+                       for planner in ("cem", "oneshot")}
+        phase = cem_in_process(torch, ndiv_cuda)
+        return {**phase, "ladder": {planner: job.result() for planner, job
+                                    in ladder_jobs.items()}}
+
+
+def cem_rung(planner) -> dict:
+    """`cli eval --planner` on CEM_LADDER_SCENES suite scenes of
+    CEM_WORKDIR in a subprocess, with its wall seconds."""
+    t0 = time.perf_counter()
+    rung = cli_json(["eval", "--workdir", CEM_WORKDIR, "--planner", planner,
+                     "--suite-size", str(CEM_LADDER_SCENES)])
+    rung["process_s"] = time.perf_counter() - t0
+    if (rung["eval_planner"] != planner
+            or rung["eval_plan_n_scenes"] != CEM_LADDER_SCENES):
+        raise AssertionError(f"cli eval --planner {planner}: {rung}")
+    return rung
+
+
+def cem_in_process(torch, ndiv_cuda) -> dict:
+    """cem_phase's in-process part."""
     from ndivplanning_tpu_torch.envs.types import Scene
     from ndivplanning_tpu_torch.planning.cem import cem_population, plan_cem
     from ndivplanning_tpu_torch.planning.server import _condition_for
@@ -2777,23 +2931,6 @@ def cem_phase(torch, ndiv_cuda):
         call()
         ms.append((time.perf_counter() - t0) * 1e3)
     prof = profile(torch, call, 3)
-    ladder = {}
-    for planner in ("cem", "oneshot"):
-        t0 = time.perf_counter()
-        done = subprocess.run(
-            [sys.executable, "-m", "ndivplanning_tpu_torch.cli", "eval",
-             "--workdir", CEM_WORKDIR, "--planner", planner, "--suite-size",
-             str(CEM_LADDER_SCENES)], capture_output=True, text=True,
-            timeout=600)
-        if done.returncode:
-            raise AssertionError(f"cli eval --planner {planner} exited "
-                                 f"{done.returncode}: {done.stderr[-2000:]}")
-        ladder[planner] = json.loads(done.stdout.strip().splitlines()[-1])
-        ladder[planner]["process_s"] = time.perf_counter() - t0
-        if (ladder[planner]["eval_planner"] != planner
-                or ladder[planner]["eval_plan_n_scenes"] != CEM_LADDER_SCENES):
-            raise AssertionError(f"cli eval --planner {planner}: "
-                                 f"{ladder[planner]}")
     return {"phase": "cem", "workdir": CEM_WORKDIR, "population": n,
             "elite": elite, "iters": iters,
             "best_score_card": best, "best_score_cpu": cpu_best,
@@ -2804,7 +2941,7 @@ def cem_phase(torch, ndiv_cuda):
             "repeat_bitwise": True, "plan_ms_median": statistics.median(ms),
             "plan_ms": ms,
             "profile": {k: v for k, v in prof.items() if k != "top_kernels"},
-            "top_kernels": prof["top_kernels"][:3], "ladder": ladder}
+            "top_kernels": prof["top_kernels"][:3]}
 
 
 def distilled_phase(torch, ndiv_cuda):
@@ -2847,66 +2984,109 @@ def model_step(name: str) -> int:
     return {**FAMILY_MODELS, **DISTILLED_MODELS}[name][1]
 
 
-def cli_json(args, timeout=600) -> dict:
-    """Run the port's CLI in a subprocess; its last stdout line as JSON."""
+def cli_json(args, timeout=600, env=None) -> dict:
+    """Run the port's CLI in a subprocess (``env``: its environment, by
+    default this process's); its last stdout line as JSON."""
     done = subprocess.run([sys.executable, "-m", "ndivplanning_tpu_torch.cli",
                            *args], capture_output=True, text=True,
-                          timeout=timeout)
+                          timeout=timeout, env=env)
     if done.returncode:
         raise AssertionError(f"cli {' '.join(args)} exited "
                              f"{done.returncode}: {done.stderr[-2000:]}")
     return json.loads(done.stdout.strip().splitlines()[-1])
 
 
-def refine_plan_vs_cpu(torch, ndiv_cuda, refine, name):
+# Each refiner's card plan in refine_plan_vs_cpu, by refiner: phase 8m's
+# unsharded reference on the same noise.
+CARD_REFINED = {}
+
+
+def _cpu_worker_init() -> None:
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+@contextlib.contextmanager
+def cpu_workers():
+    """A pool of CPU_WORKERS spawned processes for CPU-only work."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init) as pool:
+        yield pool
+
+
+def refine_noise(torch, cfg, refine):
+    """refine_plan_vs_cpu's CPU-drawn noise, ``[1, *noise_shape]``."""
+    from ndivplanning_tpu_torch.planning.refine import noise_shape
+
+    return torch.randn((1, *noise_shape(cfg, refine)),
+                       generator=torch.Generator().manual_seed(29))
+
+
+def cpu_refined_plan(refine, name, direction):
+    """In a CPU worker: refine_plan_vs_cpu's CPU plan of ``refine`` on
+    ``name``, its noise moved one ulp toward ``direction`` (0: not moved):
+    (the best score, the curve as numpy, the plan's seconds)."""
+    import torch
+
+    from ndivplanning_tpu_torch.envs.types import Scene
+    from ndivplanning_tpu_torch.planning.refine import plan_refined_batch
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+
+    cfg, cpu_state = load_model(name, "cpu")
+    scenes = Scene.stack([Scene.create(*REFINE_SCENE, device="cpu")])
+    noise = refine_noise(torch, cfg, refine)
+    if direction:
+        noise = torch.nextafter(noise, torch.full_like(noise, direction))
+    t0 = time.perf_counter()
+    result, curve = plan_refined_batch(cfg, cpu_state, scenes,
+                                       _condition_for(cfg, scenes), refine,
+                                       noise=noise)
+    return float(result.best_score[0]), curve.numpy(), (
+        time.perf_counter() - t0)
+
+
+def refine_plan_vs_cpu(torch, ndiv_cuda, refine, name, cpu_plans):
     """One plan of ``refine`` on ``name`` at its default budget on the card
     and on the CPU from one set of CPU-drawn noise (REFINE_MODELS' rule),
     no NDiv launch, the union contract; its wall time; and profiles of the
-    plan cut to REFINE_PROFILE_STEPS steps and to twice as many.  (The card
-    tests hold a refined plan bitwise run to run.)"""
+    plan cut to REFINE_PROFILE_STEPS steps and to twice as many.  The CPU
+    plans are ``cpu_plans``, futures of ``cpu_refined_plan`` by direction.
+    (The card tests hold a refined plan bitwise run to run.)"""
     from ndivplanning_tpu_torch.envs.types import Scene
-    from ndivplanning_tpu_torch.planning.refine import (
-        noise_shape,
-        plan_refined_batch,
-    )
+    from ndivplanning_tpu_torch.planning.refine import plan_refined_batch
     from ndivplanning_tpu_torch.planning.server import _condition_for
 
     workdir = os.path.join("checkpoints_torch", name)
-    cfg, state, cpu_state, _ = checkpoint_restore(torch, workdir,
-                                                  model_step(name))
-    scenes = Scene.stack([Scene.create(
-        [0.1, 0.1], [0.9, 0.9], [[0.5, 0.5, 0.12], [0.3, 0.7, 0.08]],
-        device="cpu")])
-    conds = _condition_for(cfg, scenes)
-    noise = torch.randn((1, *noise_shape(cfg, refine)),
-                        generator=torch.Generator().manual_seed(29))
-    card_scenes, card_conds = scenes.map(lambda t: t.cuda()), conds.cuda()
+    cfg, state, _, _ = checkpoint_restore(torch, workdir, model_step(name))
+    card_scenes = Scene.stack([Scene.create(*REFINE_SCENE, device="cuda")])
+    card_conds = _condition_for(cfg, card_scenes)
+    noise = refine_noise(torch, cfg, refine)
 
     def card_plan(c=cfg):
         return plan_refined_batch(c, state, card_scenes, card_conds, refine,
                                   noise=noise.cuda())
-
-    def cpu_plan(nz):
-        return plan_refined_batch(cfg, cpu_state, scenes, conds, refine,
-                                  noise=nz)
 
     reset(ndiv_cuda)
     t0 = time.perf_counter()
     card, card_curve = card_plan()
     best = float(card.best_score[0])
     plan_s = time.perf_counter() - t0
+    CARD_REFINED[refine] = (card, card_curve)
     if launched(ndiv_cuda):
         raise AssertionError(f"{refine} launched {launched(ndiv_cuda)}")
-    t0 = time.perf_counter()
-    cpu, cpu_curve = cpu_plan(noise)
-    cpu_s = time.perf_counter() - t0
-    cpu_best = float(cpu.best_score[0])
+    cpu_best, cpu_curve, cpu_s = cpu_plans[0.0].result()
+    cpu_curve = torch.from_numpy(cpu_curve)
     own = {"best": [], "curve": []}
     for direction in (math.inf, -math.inf):
-        moved, moved_curve = cpu_plan(torch.nextafter(
-            noise, torch.full_like(noise, direction)))
-        own["best"].append(abs(float(moved.best_score[0]) - cpu_best))
-        own["curve"].append(float((moved_curve - cpu_curve).abs().max()))
+        moved_best, moved_curve, _ = cpu_plans[direction].result()
+        own["best"].append(abs(moved_best - cpu_best))
+        own["curve"].append(float((torch.from_numpy(moved_curve)
+                                   - cpu_curve).abs().max()))
     curve = card_curve.cpu()
     allowed = {"best": 2 * sum(own["best"]) + SERVE_RTOL * abs(cpu_best)
                + SERVE_ATOL,
@@ -2960,37 +3140,37 @@ def refine_phase(torch, ndiv_cuda):
     CPU on its first model (refine_plan_vs_cpu), `cli plan --refine` on
     its second, `cli serve --refine` for trajopt (a burst) and iLQR (one
     request), and the planner ladder (`cli eval --planner` beside oneshot
-    on REFINE_LADDER_SCENES suite scenes)."""
+    on REFINE_LADDER_SCENES suite scenes).  The subprocesses and the CPU
+    plans (cpu_workers) run while the card's plans do."""
     from ndivplanning_tpu_torch.planning.client import PlanningClient
 
-    plans, served = {}, {}
-    for refine, (name, _) in REFINE_MODELS.items():
-        t0 = time.perf_counter()
-        plans[refine] = refine_plan_vs_cpu(torch, ndiv_cuda, refine, name)
-        plans[refine]["check_s"] = time.perf_counter() - t0
-        print(f"[refine] {refine} on {name}: {plans[refine]['check_s']:.1f} "
-              "s", file=sys.stderr, flush=True)
     reqs = serve_requests(torch, 4, 31)
-    for refine, (name, n) in REFINE_SERVE.items():
-        t0 = time.perf_counter()
-        with PlanningClient.spawn(["--workdir", os.path.join(
-                "checkpoints_torch", name), "--refine", refine]) as c:
-            answers = (c.send_lines([json.dumps(r) for r in reqs[:n]])
-                       if n > 1 else [c.plan(**reqs[0])])
-            report = c.close()
-        for r in answers:
-            if (r.get("batch_size") != n or "best_traj" not in r
-                    or not math.isfinite(r["best_score"])):
-                raise AssertionError(f"serve --refine {refine}: "
-                                     f"{str(r)[:300]}")
-        if report != [{"served": n}]:
-            raise AssertionError(f"serve --refine {refine}: {report}")
-        served[refine] = {"model": name, "requests": n,
-                          "latency_ms": [r["latency_ms"] for r in answers],
-                          "process_s": time.perf_counter() - t0}
+
+    def serve_refined():
+        served = {}
+        for refine, (name, n) in REFINE_SERVE.items():
+            t0 = time.perf_counter()
+            with PlanningClient.spawn(["--workdir", os.path.join(
+                    "checkpoints_torch", name), "--refine", refine]) as c:
+                answers = (c.send_lines([json.dumps(r) for r in reqs[:n]])
+                           if n > 1 else [c.plan(**reqs[0])])
+                report = c.close()
+            for r in answers:
+                if (r.get("batch_size") != n or "best_traj" not in r
+                        or not math.isfinite(r["best_score"])):
+                    raise AssertionError(f"serve --refine {refine}: "
+                                         f"{str(r)[:300]}")
+            if report != [{"served": n}]:
+                raise AssertionError(f"serve --refine {refine}: {report}")
+            served[refine] = {"model": name, "requests": n,
+                              "latency_ms": [r["latency_ms"]
+                                             for r in answers],
+                              "process_s": time.perf_counter() - t0}
+        return served
+
     # The CLI's plans and the ladder's evals, REFINE_CLI_WORKERS processes
     # at a time (each is host-bound on one core; their process_s is under
-    # that sharing).
+    # that sharing, and the in-process plans' beside them).
     jobs = {("plan", refine): ["plan", "--workdir", os.path.join(
         "checkpoints_torch", cli_name), "--refine", refine]
         for refine, (_, cli_name) in REFINE_MODELS.items()}
@@ -3005,8 +3185,25 @@ def refine_phase(torch, ndiv_cuda):
         out = cli_json(args)
         return {**out, "process_s": time.perf_counter() - t0}
 
-    with ThreadPoolExecutor(REFINE_CLI_WORKERS) as pool:
-        done = dict(zip(jobs, pool.map(run, jobs.values())))
+    plans = {}
+    with ThreadPoolExecutor(REFINE_CLI_WORKERS) as pool, \
+            ThreadPoolExecutor(1) as side, cpu_workers() as cpu_pool:
+        cpu_plans = {refine: {d: cpu_pool.submit(cpu_refined_plan, refine,
+                                                 name, d)
+                              for d in (0.0, math.inf, -math.inf)}
+                     for refine, (name, _) in REFINE_MODELS.items()}
+        running = {key: pool.submit(run, args) for key, args in jobs.items()}
+        served_job = side.submit(serve_refined)
+        for refine, (name, _) in REFINE_MODELS.items():
+            t0 = time.perf_counter()
+            plans[refine] = refine_plan_vs_cpu(torch, ndiv_cuda, refine, name,
+                                               cpu_plans[refine])
+            plans[refine]["check_s"] = time.perf_counter() - t0
+            print(f"[refine] {refine} on {name}: "
+                  f"{plans[refine]['check_s']:.1f} s", file=sys.stderr,
+                  flush=True)
+        done = {key: job.result() for key, job in running.items()}
+        served = served_job.result()
     cli_plans, ladder = {}, {}
     for refine, (_, cli_name) in REFINE_MODELS.items():
         out = done["plan", refine]
@@ -3089,26 +3286,32 @@ def dataset_phase(torch, ndiv_cuda):
     if rec["kept"] + rec["dropped"] != DATASET_EXAMPLES or not rec["kept"]:
         raise AssertionError(f"cli record-data: {rec}")
     save_config(cfg.replace(workdir=cli_run), cli_run)
-    t0 = time.perf_counter()
-    trained = cli_json(["train", "--workdir", cli_run, "--dataset", npz,
-                        "--epochs", str(DATASET_EPOCHS), "--eval-fraction",
-                        str(DATASET_EVAL_FRACTION)])
-    process_s["train"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cli_eval = cli_json(["eval", "--workdir", cli_run, "--dataset", npz])
-    process_s["eval"] = time.perf_counter() - t0
-    if not cli_eval or not all(k.startswith("eval_") and math.isfinite(v)
-                               for k, v in cli_eval.items()):
-        raise AssertionError(f"cli eval --dataset: {cli_eval}")
+    # The CLI's train and eval run in their subprocesses while the
+    # in-process runs do, in this process's environment as it is now.
+    env = dict(os.environ)
+
+    def cli_train_eval_dataset():
+        t0 = time.perf_counter()
+        trained = cli_json(["train", "--workdir", cli_run, "--dataset", npz,
+                            "--epochs", str(DATASET_EPOCHS),
+                            "--eval-fraction", str(DATASET_EVAL_FRACTION)],
+                           env=env)
+        process_s["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_eval = cli_json(["eval", "--workdir", cli_run, "--dataset", npz],
+                            env=env)
+        process_s["eval"] = time.perf_counter() - t0
+        return trained, cli_eval
+
+    side = ThreadPoolExecutor(1)
+    cli_job = side.submit(cli_train_eval_dataset)
+    side.shutdown(wait=False)
 
     ds, held = train_eval_split(ArrayDataset.from_npz(npz),
                                 DATASET_EVAL_FRACTION, seed=cfg.seed)
     per_epoch = ds.size // cfg.batch_size
     steps, resume_steps = (DATASET_EPOCHS * per_epoch,
                            DATASET_RESUME_AT * per_epoch)
-    if trained["final_step"] != steps:
-        raise AssertionError(f"cli train --dataset: {trained}, want step "
-                             f"{steps}")
     legs = 2 if cfg.g_ema_decay > 0 else 1
 
     def points(n):
@@ -3152,6 +3355,13 @@ def dataset_phase(torch, ndiv_cuda):
     values = check_states_bitwise(torch, state_a, state_b,
                                   "resident and streaming runs")
     check_states_bitwise(torch, state_a, state_c, "the resumed run")
+    trained, cli_eval = cli_job.result()
+    if trained["final_step"] != steps:
+        raise AssertionError(f"cli train --dataset: {trained}, want step "
+                             f"{steps}")
+    if not cli_eval or not all(k.startswith("eval_") and math.isfinite(v)
+                               for k, v in cli_eval.items()):
+        raise AssertionError(f"cli eval --dataset: {cli_eval}")
     check_states_bitwise(torch, state_a, ckpt.restore_latest(
         cli_run, loop.create_train_state(cfg)), "cli train --dataset")
     clocks = ("wall_s", "steps_per_sec")
@@ -3562,39 +3772,37 @@ def recipe_run(torch, ndiv_cuda, preset, name, overrides, make_task):
     return row, a
 
 
-def transformer_cli(torch, tmp):
-    """The tuned transformer recipe through the CLI on the card: `cli train`
-    (goalcond, 100 steps), then `cli eval` and a 1000-candidate `cli plan`
-    on its run at once, in subprocesses, and meanwhile its checkpoint
-    restored on the card and on the CPU, planned against each other as
-    family_plan_vs_cpu holds the family models."""
-    from ndivplanning_tpu_torch.cli import _load_state
-    from ndivplanning_tpu_torch.utils.config import load_config
-
+def transformer_cli_runs(tmp):
+    """The tuned transformer recipe through the CLI on the card, in
+    subprocesses: `cli train` (goalcond, 100 steps) into ``tmp``, then
+    `cli eval` and a 1000-candidate `cli plan` on its run at once.  Each
+    one's last line and wall seconds."""
     sets = [f"--set={k}={v}" for k, v in TF_RECIPE.items() if k != "steps"]
     sets += [f"--set={k}={CLI_EVERY}"
              for k in ("log_every", "eval_every", "checkpoint_every")]
-    t0 = time.perf_counter()
-    final = cli_json(["train", "--preset", "goalcond", "--steps",
-                      str(TF_CLI_STEPS), "--workdir", tmp, *sets])
-    train_s = time.perf_counter() - t0
-    if final["final_step"] != TF_CLI_STEPS:
-        raise AssertionError(f"cli train transformer: {final}")
+    trained = timed(cli_json, ["train", "--preset", "goalcond", "--steps",
+                               str(TF_CLI_STEPS), "--workdir", tmp, *sets])
+    if trained[0]["final_step"] != TF_CLI_STEPS:
+        raise AssertionError(f"cli train transformer: {trained[0]}")
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(timed, cli_json, args) for args in (
+            ["eval", "--workdir", tmp], ["plan", "--workdir", tmp])]
+        return (trained, *(r.result() for r in runs))
 
-    def job(args):
-        t1 = time.perf_counter()
-        return cli_json(args), time.perf_counter() - t1
+
+def transformer_cli(torch, tmp, runs):
+    """transformer_cli_runs' ``runs`` (the run in ``tmp``), and its
+    checkpoint restored on the card and on the CPU, planned against each
+    other as family_plan_vs_cpu holds the family models."""
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.utils.config import load_config
 
     cfg = load_config(tmp).replace(workdir=tmp)
-    with ThreadPoolExecutor(2) as pool:
-        runs = [pool.submit(job, args) for args in (
-            ["eval", "--workdir", tmp], ["plan", "--workdir", tmp])]
-        # The card against the CPU in this process meanwhile.
-        state, cpu_state = _load_state(cfg, "cuda"), _load_state(cfg, "cpu")
-        vs_cpu = family_plan_vs_cpu(
-            torch, cfg, state, cpu_state, seed=41, n_scenes=TF_PLAN_SCENES,
-            taus_tol=TF_PLAN_TAUS_TOL[cfg.compute_dtype])
-        (ev, eval_s), (planned, plan_s) = (r.result() for r in runs)
+    state, cpu_state = _load_state(cfg, "cuda"), _load_state(cfg, "cpu")
+    vs_cpu = family_plan_vs_cpu(
+        torch, cfg, state, cpu_state, seed=41, n_scenes=TF_PLAN_SCENES,
+        taus_tol=TF_PLAN_TAUS_TOL[cfg.compute_dtype])
+    (final, train_s), (ev, eval_s), (planned, plan_s) = runs
     if not ev or not all(k.startswith("eval_") and math.isfinite(v)
                          for k, v in ev.items()):
         raise AssertionError(f"cli eval transformer: {ev}")
@@ -3618,24 +3826,30 @@ def stabilisers_phase(torch, ndiv_cuda):
 
     t0 = time.perf_counter()
     rows, finals = [], {}
-    for preset, recipes in (("imagecond", STAB_IMAGECOND),
-                            ("goalcond", STAB_GOALCOND)):
-        for name, overrides in recipes.items():
-            row, finals[name] = recipe_run(torch, ndiv_cuda, preset, name,
-                                           overrides, make_task)
-            rows.append(row)
-    remat_values = check_states_bitwise(torch, finals["remat"], finals["r1"],
-                                        "remat against the R1 recipe")
-    launches = {"joint": sum(r["launches"]["joint"] for r in rows)}
-    shapes = check_path_shapes(torch, ndiv_cuda, [
-        IMAGECOND_SHAPE if r["preset"] == "imagecond" else GOALCOND_SHAPE
-        for r in rows])
-    recipes_s = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tf_")
-    try:
-        cli = transformer_cli(torch, tmp)
-    finally:
-        shutil.rmtree(tmp)
+    # The transformer's `cli train`, `eval` and `plan` run in their
+    # subprocesses meanwhile.
+    with ThreadPoolExecutor(1) as side:
+        trained = side.submit(transformer_cli_runs, tmp)
+        try:
+            for preset, recipes in (("imagecond", STAB_IMAGECOND),
+                                    ("goalcond", STAB_GOALCOND)):
+                for name, overrides in recipes.items():
+                    row, finals[name] = recipe_run(torch, ndiv_cuda, preset,
+                                                   name, overrides, make_task)
+                    rows.append(row)
+            remat_values = check_states_bitwise(
+                torch, finals["remat"], finals["r1"],
+                "remat against the R1 recipe")
+            launches = {"joint": sum(r["launches"]["joint"] for r in rows)}
+            shapes = check_path_shapes(torch, ndiv_cuda, [
+                IMAGECOND_SHAPE if r["preset"] == "imagecond"
+                else GOALCOND_SHAPE for r in rows])
+            recipes_s = time.perf_counter() - t0
+            cli = transformer_cli(torch, tmp, trained.result())
+        finally:
+            trained.exception()  # the run ends before its directory goes
+            shutil.rmtree(tmp, ignore_errors=True)
     return {"phase": "stabilisers", "steps": TRAIN_STEPS, "runs": rows,
             "remat_bitwise_r1_values": remat_values,
             "path_shapes_checked": shapes, "launches": launches,
@@ -3946,6 +4160,335 @@ def tools_phase(torch, ndiv_cuda, smi, export_job):
     return phase, launches
 
 
+def sharded_inputs(torch, planner, cfg, device):
+    """refine_plan_vs_cpu's scene and condition on ``device``, and the CPU-
+    drawn noise of ``planner`` (``[n, zdim]`` latents for the plain
+    planner) at ``cfg``'s default budget."""
+    from ndivplanning_tpu_torch.envs.types import Scene
+    from ndivplanning_tpu_torch.planning.refine import noise_shape
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+
+    scene = Scene.create(*REFINE_SCENE, device=device)
+    shape = ((cfg.n_candidates, cfg.latent_dim) if planner == "plan"
+             else noise_shape(cfg, planner))
+    noise = torch.randn(shape, generator=torch.Generator().manual_seed(
+        SHARDED_SEED))
+    return scene, _condition_for(cfg, scene), noise
+
+
+def sharded_cut(cfg, planner):
+    """``cfg`` with a refiner's steps cut to SHARDED_CUT_STEPS (8m (b))."""
+    if planner in REFINE_STEP_FIELD:
+        return cfg.replace(**{REFINE_STEP_FIELD[planner]: SHARDED_CUT_STEPS})
+    return cfg
+
+
+def unsharded_planner(planner, cfg, state, scene, condition, generator=None,
+                      noise=None):
+    """The port's unsharded single-scene ``planner``: a PlanResult, or
+    (PlanResult, curve) for a refiner."""
+    from ndivplanning_tpu_torch.envs.types import Scene
+    from ndivplanning_tpu_torch.planning.planner import PlanResult, plan
+    from ndivplanning_tpu_torch.planning.refine import plan_refined_batch
+
+    if planner == "plan":
+        return plan(cfg, state, scene, condition, generator,
+                    z=None if noise is None else noise[None])
+    result, curve = plan_refined_batch(
+        cfg, state, Scene.stack([scene]), condition[None], planner,
+        noise=None if noise is None else noise[None], generator=generator)
+    return PlanResult(*(f[0] for f in result)), curve[0]
+
+
+def sharded_factory(planner):
+    from ndivplanning_tpu_torch.parallel.sharded_plan import BY_REFINE
+
+    return BY_REFINE["none" if planner == "plan" else planner]
+
+
+def plan_out(out, to_host=False):
+    """A planner's output as (PlanResult, curve or None), on the host as
+    numpy with ``to_host``."""
+    from ndivplanning_tpu_torch.planning.planner import PlanResult
+
+    result, curve = (out, None) if isinstance(out, PlanResult) else out
+    if to_host:
+        result = PlanResult(*(f.cpu().numpy() for f in result))
+        curve = None if curve is None else curve.cpu().numpy()
+    return result, curve
+
+
+def same_bits(a, b) -> bool:
+    """Two plan_out outputs (torch or numpy) bitwise equal, curve too."""
+    import numpy as np
+
+    def eq(x, y):
+        return np.array_equal(np.asarray(x), np.asarray(y)) and (
+            np.asarray(x).dtype == np.asarray(y).dtype)
+    return all(eq(x, y) for x, y in zip(a[0], b[0])) and (
+        (a[1] is None and b[1] is None) or eq(a[1], b[1]))
+
+
+def load_model(name, device="cuda"):
+    """A vendored model's recorded config and its state, through the CLI's
+    loader (the checkpoint phases hold it bitwise against the CPU's)."""
+    from ndivplanning_tpu_torch.cli import _load_state
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    workdir = os.path.join("checkpoints_torch", name)
+    cfg = load_config(workdir).replace(workdir=workdir)
+    return cfg, _load_state(cfg, device)
+
+
+def time_gather(torch, mesh, n, horizon, dim):
+    """Wall ms of one gather of the plain planner's candidate set (taus
+    ``[1, n, H, S]``, scores, reached; this rank's rows) over ``mesh``,
+    median of SHARDED_GATHER_REPEATS, synchronised; and its bytes."""
+    from ndivplanning_tpu_torch.parallel.sharded_plan import CandidateSplit
+
+    part = CandidateSplit(mesh).part(n)
+    rows = (torch.randn((1, part.size, horizon, dim), device="cuda"),
+            torch.randn((1, part.size), device="cuda"),
+            torch.ones((1, part.size), device="cuda"))
+    ms = []
+    for _ in range(SHARDED_GATHER_REPEATS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        part.gather(*rows)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"ms_median": statistics.median(ms[1:]), "ms_first": ms[0],
+            "bytes_gathered": 4 * n * (horizon * dim + 2)}
+
+
+def g_one_ulp(torch, state, direction):
+    """A copy of ``state`` with every weight of G and its EMA one float32
+    ulp toward ``direction``: its candidates move by about what another
+    GEMM kernel's summation order moves them."""
+    moved = clone_state(torch, state)
+    with torch.no_grad():
+        for p in (*moved.g.parameters(), *moved.g_ema.parameters()):
+            p.copy_(torch.nextafter(p, torch.full_like(p, direction)))
+    return moved
+
+
+def sharded_plan_worker(noises):
+    """One of two gloo ranks sharing the card: every planner of
+    SHARDED_MODELS on a (2, 1) mesh at phase 8m (b)'s budgets, on the
+    parent's noise; its wall seconds, and the gather timed.  numpy out."""
+    import torch
+
+    from ndivplanning_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(dp=2, div=1)
+    out, seconds = {}, {}
+    for planner, name in SHARDED_MODELS.items():
+        cfg, state = load_model(name)
+        cfg = sharded_cut(cfg, planner)
+        scene, condition, _ = sharded_inputs(torch, planner, cfg, "cuda")
+        fn, _ = sharded_factory(planner)(cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[planner] = plan_out(fn(state, scene, condition,
+                                   noise=torch.from_numpy(
+                                       noises[planner]).cuda()), True)
+        seconds[planner] = time.perf_counter() - t0
+        if planner == "plan":
+            gather = time_gather(torch, mesh, cfg.n_candidates, cfg.horizon,
+                                 cfg.state_dim)
+    return out, seconds, gather
+
+
+def sharded_plan_phase(torch, ndiv_cuda, smi):
+    """Phase 8m: the candidate-sharded planners on the card, (a) one NCCL
+    rank bitwise the unsharded planners, (b) two gloo ranks sharing the
+    card, (c) `cli plan --sharded` (see SHARDED_MODELS)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ndivplanning_tpu_torch.parallel import make_mesh
+    from ndivplanning_tpu_torch.parallel.spawn import run_ranks
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    models = {name: load_model(name) for name in set(SHARDED_MODELS.values())}
+    noises = {p: sharded_inputs(torch, p, models[name][0], "cpu")[2].numpy()
+              for p, name in SHARDED_MODELS.items()}
+    cli_args = ["plan", "--workdir", PLANNING512]
+    # The two ranks and the two CLI processes run while (a) does.
+    with ThreadPoolExecutor(3) as pool:
+        spawned = pool.submit(timed, functools.partial(
+            run_ranks, sharded_plan_worker, 2, tmp, noises, cuda_device=0,
+            timeout=600))
+        cli = {key: pool.submit(cli_json, args, 300) for key, args in (
+            ("sharded", [*cli_args, "--sharded"]), ("plain", cli_args))}
+
+        # (a) One NCCL rank, the default budgets.
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh(dp=1, div=1)
+            # The group's first collective sets up NCCL's communicator:
+            # the gather's first call takes it, ahead of the timed plans.
+            pcfg = models[SHARDED_MODELS["plan"]][0]
+            gather_one = time_gather(torch, mesh, pcfg.n_candidates,
+                                     pcfg.horizon, pcfg.state_dim)
+            one = {}
+            reset(ndiv_cuda)
+            for planner, name in SHARDED_MODELS.items():
+                cfg, state = models[name]
+                scene, condition, noise = sharded_inputs(torch, planner, cfg,
+                                                         "cuda")
+                fn, _ = sharded_factory(planner)(cfg, mesh)
+                if planner in ("plan", "cem"):
+                    def gen():
+                        return torch.Generator(device="cuda").manual_seed(
+                            SHARDED_SEED)
+                    t0 = time.perf_counter()
+                    want = plan_out(unsharded_planner(
+                        planner, cfg, state, scene, condition, gen()))
+                    torch.cuda.synchronize()
+                    unsharded_s = time.perf_counter() - t0
+                    args = dict(generator=gen())
+                elif planner in CARD_REFINED:
+                    card, card_curve = CARD_REFINED[planner]
+                    want = (type(card)(*(f[0] for f in card)), card_curve[0])
+                    unsharded_s, args = None, dict(noise=noise.cuda())
+                else:  # phase 8m alone: no refine phase ran before it
+                    t0 = time.perf_counter()
+                    want = plan_out(unsharded_planner(
+                        planner, cfg, state, scene, condition,
+                        noise=noise.cuda()))
+                    torch.cuda.synchronize()
+                    unsharded_s = time.perf_counter() - t0
+                    args = dict(noise=noise.cuda())
+                t0 = time.perf_counter()
+                got = plan_out(fn(state, scene, condition, **args))
+                torch.cuda.synchronize()
+                sharded_s = time.perf_counter() - t0
+                one[planner] = {"model": name, "sharded_s": sharded_s,
+                                "unsharded_s": unsharded_s,
+                                "best_score": float(got[0].best_score),
+                                "n": int(got[0].scores.shape[0])}
+                if not same_bits(plan_out(got, True), plan_out(want, True)):
+                    raise AssertionError(f"sharded {planner} on one rank "
+                                         "differs from the unsharded plan")
+            if launched(ndiv_cuda):
+                raise AssertionError(f"the sharded planners launched "
+                                     f"{launched(ndiv_cuda)}")
+        finally:
+            dist.destroy_process_group()
+        cli = {key: f.result() for key, f in cli.items()}
+        ((rank0, rank0_s, gather_two), (rank1, _, _)), two_s = (
+            spawned.result())
+
+    # (b) The two ranks alike, and against the unsharded card planner.
+    two, failures = {}, []
+    for planner, name in SHARDED_MODELS.items():
+        cfg, state = models[name]
+        cfg = sharded_cut(cfg, planner)
+        scene, condition, noise = sharded_inputs(torch, planner, cfg, "cuda")
+        if not same_bits(rank0[planner], rank1[planner]):
+            raise AssertionError(f"sharded {planner}: the two ranks differ")
+        got, got_curve = rank0[planner]
+
+        def ref(st=state, nz=noise):
+            return plan_out(unsharded_planner(planner, cfg, st, scene,
+                                              condition, noise=nz.cuda()),
+                            True)
+        want, want_curve = ref()
+        row = {"model": name, "rank_s": rank0_s[planner],
+               "bitwise_unsharded": same_bits(rank0[planner],
+                                              (want, want_curve)),
+               "best_score": float(got.best_score),
+               "best_score_unsharded": float(want.best_score)}
+        if planner in ("plan", "cem"):
+            best = int(np.argmin(np.where(np.isfinite(got.scores),
+                                          got.scores, np.inf)))
+            want_best = int(np.argmin(np.where(np.isfinite(want.scores),
+                                               want.scores, np.inf)))
+            gap = float(np.abs(got.scores - want.scores).max())
+            bound = np.abs(got.scores - want.scores) <= (
+                SERVE_RTOL * np.abs(want.scores) + SERVE_ATOL)
+            if best != want_best or not bound.all():
+                failures.append(f"{planner}: best {best} vs {want_best}, "
+                                f"score gap {gap}")
+            row.update(best_index=best, score_gap=gap)
+        else:
+            def own_moves(moved_plans):
+                own = {"best": 0.0, "curve": 0.0}
+                for moved, moved_curve in moved_plans:
+                    own["best"] += abs(float(moved.best_score)
+                                       - float(want.best_score))
+                    own["curve"] += float(np.abs(moved_curve
+                                                 - want_curve).max())
+                return own
+
+            def allowance(own):
+                return {"best": 2 * own["best"] + SERVE_RTOL * abs(float(
+                    want.best_score)) + SERVE_ATOL,
+                    "curve": 2 * own["curve"] + SERVE_RTOL * float(
+                        np.abs(want_curve).max()) + SERVE_ATOL}
+            ends = (math.inf, -math.inf)
+            # Checked: twice the plan's own moves under G's weights one
+            # ulp off.  Printed beside it: refine_plan_vs_cpu's allowance,
+            # the own moves under the noise one ulp off.
+            own = own_moves(ref(st=g_one_ulp(torch, state, end))
+                            for end in ends)
+            own_noise = own_moves(ref(nz=torch.nextafter(
+                noise, torch.full_like(noise, end))) for end in ends)
+            allowed, allowed_noise = allowance(own), allowance(own_noise)
+            gaps = {"best": abs(float(got.best_score)
+                                - float(want.best_score)),
+                    "curve": float(np.abs(got_curve - want_curve).max())}
+            failures += [f"{planner}: {key} gap {gap}, allowed "
+                         f"{allowed[key]}" for key, gap in gaps.items()
+                         if not gap <= allowed[key]]
+            row.update(steps=SHARDED_CUT_STEPS, gaps=gaps, allowed=allowed,
+                       own_moves_g_one_ulp=own,
+                       allowed_noise_one_ulp=allowed_noise,
+                       own_moves_noise_one_ulp=own_noise,
+                       within_noise_one_ulp={
+                           key: gap <= allowed_noise[key]
+                           for key, gap in gaps.items()})
+        two[planner] = row
+    if failures:
+        raise AssertionError(f"sharded planners on two ranks against the "
+                             f"unsharded ones: {failures}; {two}")
+
+    # (c) The CLI.
+    if cli["sharded"].get("mesh") != "1x1" or (
+            cli["sharded"]["best_score"] != cli["plain"]["best_score"]):
+        raise AssertionError(f"cli plan --sharded {cli['sharded']} vs cli "
+                             f"plan {cli['plain']}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    return {"phase": "sharded_plan", "one_rank": {
+        "backend": "nccl", "mesh": "1x1", "bitwise_unsharded": True,
+        "planners": one, "gather": gather_one},
+        "two_ranks": {"backend": "gloo", "mesh": "2x1",
+                      "cut_steps": SHARDED_CUT_STEPS, "planners": two,
+                      "gather": gather_two, "spawn_s": two_s},
+        "cli": cli, "ndiv_launches": 0, "budget_s": SHARDED_BUDGET_S,
+        "within_budget": phase_s <= SHARDED_BUDGET_S, "phase_s": phase_s,
+        "card": smi}
+
+
+def sharded_plan_only() -> int:
+    """``python3 chip_smoke.py sharded_plan``: the device and phase 8m
+    alone (a development run)."""
+    import torch
+
+    from ndivplanning_tpu_torch.ops import ndiv_cuda
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    emit(sharded_plan_phase(torch, ndiv_cuda, nvidia_smi_line()))
+    return 0
+
+
 def tools_only() -> int:
     """``python3 chip_smoke.py tools``: the device, the build and the tools
     phase alone (a development run)."""
@@ -3994,6 +4537,7 @@ def main() -> int:
     )
     from ndivplanning_tpu_torch.utils.config import get_config
 
+    section("1. device")
     # 1. Device.
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -4002,6 +4546,7 @@ def main() -> int:
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    section("2. build")
     # 2. Build.
     t0 = time.perf_counter()
     _, log = ndiv_cuda.build()
@@ -4010,6 +4555,7 @@ def main() -> int:
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})
 
+    section("3. kernel_check")
     # 3. Every kernel route against its plain version.
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -4024,6 +4570,7 @@ def main() -> int:
         if not n:
             raise AssertionError(f"{key} kernel never launched")
 
+    section("3b. train_step_vs_cpu")
     # 3b. One small train step per preset on the card against the CPU port
     # (plain NDiv).
     for preset, extra in (("goalcond", {}), ("imagecond", {"image_size": 16})):
@@ -4052,6 +4599,7 @@ def main() -> int:
         emit({"phase": "train_step_vs_cpu", "preset": preset,
               "cuda": ref["cuda"], "cpu": ref["cpu"]})
 
+    section("4. goalcond")
     # 4. Goalcond main path: train, plan, evaluate, each with the counts
     # set to 0 just before it and read just after.
     path_launches = {}
@@ -4127,6 +4675,7 @@ def main() -> int:
     emit({"phase": "kernel_times_goalcond", "shape": list(GOALCOND_SHAPE),
           "kernels": goal_times, "card": smi})
 
+    section("5. imagecond_train")
     # 5. Imagecond main path: 20 steps through the default route.
     icfg = get_config("imagecond")
     istate = create_train_state(icfg, seed=0)
@@ -4149,6 +4698,7 @@ def main() -> int:
           "step_ms_median": statistics.median(istep_ms),
           "step_ms_first": istep_ms[0]})
 
+    section("6. imagecond_routes")
     # 6. One imagecond step from one state, batch and z under each other
     # NDiv route, against the default route's.
     route_gen = torch.Generator(device="cuda")
@@ -4215,6 +4765,7 @@ def main() -> int:
           "default_route_repeats_bitwise": repeat_bitwise,
           "routes": routes_out})
 
+    section("6b. imagecond_k64_packed")
     # 6b. The slice's own path: one full-width imagecond step at k=64 under
     # the packed route (ndiv_fwd + ndiv_bwd on the warp kernel at kp = 64),
     # against the same step on the tile kernel: params bitwise equal.
@@ -4242,6 +4793,7 @@ def main() -> int:
               prof["ndiv_kernels_ms_per_call"],
           "profiler_wall_ms_per_step": prof["wall_ms_per_call"]})
 
+    section("7. imagecond_plan")
     # 7. Image-conditioned planning on a rasterised scene.
     iscene = Scene.create([0.1, 0.1], [0.9, 0.9],
                           [[0.5, 0.5, 0.12], [0.35, 0.65, 0.08],
@@ -4267,6 +4819,7 @@ def main() -> int:
           **profile(torch, lambda: plan(icfg, istate, iscene, image,
                                         iplan_gen), 3)})
 
+    section("8. sharded_ndiv_ranks")
     # 8. The pod_dp path.  First the sharded call site's per-rank function
     # for virtual ranks, against the unsharded kernel.
     for (dp, div), (b, k, dz, dx) in VIRTUAL_RANKS:
@@ -4277,6 +4830,7 @@ def main() -> int:
               **check_virtual_ranks(torch, ndiv_cuda, sharded, z, x, dp,
                                     div)})
 
+    section("8b. pod_dp_train")
     # 8b. pod_dp at full width through make_sharded_train_step on a 1x1
     # mesh of one NCCL rank (the one cut: 8 chips to 1).
     tmpdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -4329,6 +4883,7 @@ def main() -> int:
         torch, ndiv_cuda, mesh)
     emit(routes_phase)
 
+    section("8c. pod_dp_two_ranks")
     # 8c. Two ranks on the card (gloo) against the 1x1 run, f32 and bf16.
     runs = [(dtype, dp, div) for dtype in ("f32", "bf16")
             for dp, div in TWO_RANK_MESHES]
@@ -4353,6 +4908,7 @@ def main() -> int:
                            pcfg)[0])
     emit(profile_step(torch, lambda: pstep(pstate), "pod_dp"))
 
+    section("8d. kernel_times_pod_dp")
     # 8d. The sharded call site and ndiv_joint at pod_dp's per-rank shape,
     # on inputs away from the hinge's kinks: the call site (loss and both
     # grads) against its plain version, the "jnp" row-block strategy.
@@ -4450,6 +5006,7 @@ def main() -> int:
     dist.destroy_process_group()
     shutil.rmtree(tmpdir)
 
+    section("8e. kernel_times_k64")
     # 8e. fwd and bwd at k=64 (the warp kernel at kp = 64) and the joint
     # there (the tile kernel) at imagecond's widths, on inputs away from the
     # hinge's kinks: times of the kernel, of the tile kernel and of the
@@ -4496,20 +5053,25 @@ def main() -> int:
     # The tools phase's export bundle, traced by a subprocess on one core
     # while the phases from here on run.
     export_job = start_tools_export()
+    section("8f. train_loop, cli_train_eval, eval_planning512")
     # 8f. The train loop and its eval on the planning512 recipe at full
     # width, the CLI's train and eval, and the frozen suite on the restored
-    # planning512 model on the card against the CPU.
-    phase, loop_launches = train_loop_phase(torch, ndiv_cuda)
-    emit({**phase, "card": smi})
+    # planning512 model on the card against the CPU.  The CLI's train and
+    # eval run in subprocesses while the loop does.
+    with ThreadPoolExecutor(1) as side:
+        cli_run = side.submit(cli_train_eval, torch)
+        phase, loop_launches = train_loop_phase(torch, ndiv_cuda)
+        emit({**phase, "card": smi})
+        emit({**cli_run.result(), "card": smi})
     for run, launches in loop_launches.items():
         path_launches[f"train_loop_{run}"] = launches
-    emit({**cli_train_eval(torch), "card": smi})
     p512_cfg, p512_state, p512_cpu_state, p512_phase = checkpoint_restore(
         torch, PLANNING512, PLANNING512_STEP)
     phase, path_launches["eval_planning512"] = eval_planning512_phase(
         torch, ndiv_cuda, p512_cfg, p512_state, p512_cpu_state)
     emit({**phase, "card": smi})
 
+    section("8g. env_families, train_env_families")
     # 8g. The env families: the vendored models planned and evaluated on
     # the card against the CPU, arm3, the replays, then the two loops.
     phase, launches = env_families_phase(torch, ndiv_cuda)
@@ -4521,17 +5083,23 @@ def main() -> int:
     for name, n in launches.items():
         path_launches[f"train_loop_{name}"] = n
 
+    section("8h. mpc, mpc_serve, cem, distilled")
     # 8h. Closed-loop MPC and CEM on the family models (no NDiv kernel on
     # either path), MPC serving, and the distilled models' frozen suites.
-    emit({**mpc_phase(torch, ndiv_cuda), "card": smi})
-    emit({**mpc_serve_phase(torch), "card": smi})
+    # The MPC server runs in its subprocess while the MPC suites do.
+    with ThreadPoolExecutor(1) as side:
+        served_mpc = side.submit(mpc_serve_phase, torch)
+        emit({**mpc_phase(torch, ndiv_cuda), "card": smi})
+        emit({**served_mpc.result(), "card": smi})
     emit({**cem_phase(torch, ndiv_cuda), "card": smi})
     phase, launches = distilled_phase(torch, ndiv_cuda)
     emit({**phase, "card": smi})
     for name, n in launches.items():
         path_launches[f"eval_{name}"] = n
+    section("8i. refine")
     # 8i. The gradient refiners (no NDiv kernel on their paths either).
     emit({**refine_phase(torch, ndiv_cuda), "card": smi})
+    section("8j. dataset, distill")
     # 8j. Recorded data and expert iteration: the dataset loop on the
     # planning512 recipe, and one distillation round on quadrotor150k.
     phase, launches = dataset_phase(torch, ndiv_cuda)
@@ -4540,16 +5108,24 @@ def main() -> int:
         path_launches[f"dataset_{run}"] = n
     phase, path_launches["distill_round"] = distill_phase(torch, ndiv_cuda)
     emit({**phase, "card": smi})
+    section("8k. stabilisers")
     # 8k. The stabiliser knobs and the transformer generator: the recorded
     # recipes at full width, then the transformer through the CLI.
     phase, path_launches["stabilisers"] = stabilisers_phase(torch, ndiv_cuda)
     emit({**phase, "card": smi})
+    section("8l. tools")
     # 8l. The port's tools: the profiler, NaN debugging, doctor, the plots
     # and the export bundle on the planning512 model.
     phase, path_launches["tools"] = tools_phase(torch, ndiv_cuda, smi,
                                                 export_job)
     emit(phase)
+    section("8m. sharded_plan")
+    # 8m. The candidate-sharded planners (no NDiv kernel on their paths):
+    # one NCCL rank bitwise the unsharded planners, two gloo ranks sharing
+    # the card, and `cli plan --sharded`.
+    emit(sharded_plan_phase(torch, ndiv_cuda, smi))
 
+    section("9. kernels")
     # 9. Kernel times on the first imagecond step's inputs, every route,
     # beside the tile kernel's (one tiling, the same in every layout).
     totals = {}
@@ -4648,6 +5224,7 @@ def main() -> int:
     emit({"phase": "no_joint_packed", "note": "the JAX package has no "
           "joint kernel under 'packed' (_vjp_fwd sends packed to fwd + "
           "bwd), so neither has the port"})
+    section("10. serving")
     # 10. The serving path on planning512: no NDiv kernel runs on it.
     emit({**p512_phase, "card": smi})
     reset(ndiv_cuda)
@@ -4657,15 +5234,22 @@ def main() -> int:
     emit({**phase, "card": smi})
     emit({**serve_tcp_phase(torch, pipe_answers, p512_cfg, p512_state, smi),
           "card": smi})
-    emit({**profile_serve(torch, ndiv_cuda, p512_cfg, p512_state),
-          "card": smi})
-    emit({**serve_families_phase(torch), "card": smi})
+    # The family servers' subprocesses run while the dispatches are
+    # profiled (after the TCP phase: nothing runs beside its timings).
+    with ThreadPoolExecutor(1) as side:
+        families = side.submit(serve_families_phase, torch)
+        emit({**profile_serve(torch, ndiv_cuda, p512_cfg, p512_state),
+              "card": smi})
+        emit({**families.result(), "card": smi})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
+    emit(summary_line())
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(tools_only() if sys.argv[1:] == ["tools"] else main())
+    sys.exit(reporting_failure({"tools": tools_only,
+                                "sharded_plan": sharded_plan_only}.get(
+        " ".join(sys.argv[1:]), main)))

@@ -8,6 +8,8 @@
     python -m ndivplanning_tpu_torch.cli eval  --workdir checkpoints_torch/quadrotor150k --mpc
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/unicycle150k --refine cem
     python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/quadrotor_distilled_ilqr --refine ilqr
+    python -m ndivplanning_tpu_torch.cli plan  --workdir checkpoints_torch/planning512 --sharded
+    torchrun --nproc-per-node 2 -m ndivplanning_tpu_torch.cli plan --workdir checkpoints_torch/unicycle150k --sharded --refine trajopt --dp-shards 2
     python -m ndivplanning_tpu_torch.cli record-data --preset planning --out runs/p512.npz
     python -m ndivplanning_tpu_torch.cli train --workdir runs/p512 --dataset runs/p512.npz --epochs 30
     python -m ndivplanning_tpu_torch.cli distill --workdir checkpoints_torch/quadrotor150k --planner mpc
@@ -21,7 +23,9 @@ Every command runs on the CUDA card unless ``--device cpu`` is given.  A
 ``--workdir`` holding a recorded ``config.json`` is the base config; eval,
 plan, serve, viz and export prefer its ``best/`` checkpoint.
 ``--profile-dir`` traces any of them with ``torch.profiler``.  ``plan
---sharded`` exits with a message naming it: it is not ported yet.
+--sharded`` splits one scene's candidates over a process group's ranks
+(``parallel/sharded_plan.py``): the group that exists, one that
+``torchrun`` describes, or one rank of its own.
 """
 
 from __future__ import annotations
@@ -36,11 +40,6 @@ import typing
 import torch
 
 from ndivplanning_tpu_torch.utils.device import resolve_device
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to the torch CLI yet (ported: "
-                      "every command and option but plan --sharded)")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -150,11 +149,6 @@ def _load_state(cfg, device, prefer_best: bool = True):
     return restored
 
 
-def _check_ported(args) -> None:
-    if args.cmd == "plan" and args.sharded:
-        raise _not_ported("plan --sharded")
-
-
 def _maybe_profiled(args, fn):
     """Run ``fn`` under a ``torch.profiler`` trace when ``--profile-dir``
     is set (every command but doctor and curves).  A profiler that fails
@@ -209,6 +203,65 @@ def _plan_mpc(cfg, state, device, args) -> dict:
     if n_ep == 1:
         out["final_pos"] = result.positions[0, -1].tolist()
     return out
+
+
+def _process_group(device: torch.device):
+    """The default process group of ``plan --sharded``: the caller's if it
+    exists; one through ``env://`` under ``torchrun`` (``WORLD_SIZE`` set),
+    NCCL where each rank has a card of its own, gloo where ranks share one
+    or the tensors are on the CPU; else one rank through a ``FileStore`` in
+    a temp dir.  Returns ``(device, end)``: under ``torchrun`` a CUDA
+    ``device`` becomes the rank's card (``LOCAL_RANK`` modulo the cards),
+    made current, so that the state, the scene and the generator are built
+    there; ``end`` ends a group made here."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return device, lambda: None
+    cuda = device.type == "cuda"
+    if "WORLD_SIZE" in os.environ:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                      os.environ["WORLD_SIZE"]))
+        own_card = cuda and per_host <= torch.cuda.device_count()
+        if cuda:
+            device = torch.device("cuda", local % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if own_card else "gloo",
+                                init_method="env://")
+        return device, dist.destroy_process_group
+    tmp = tempfile.mkdtemp(prefix="ndiv_plan_")
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1), rank=0, world_size=1)
+
+    def end():
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return device, end
+
+
+def _plan_sharded(cfg, state, scene, condition, generator, refine: str):
+    """``plan --sharded`` inside the process group of ``_process_group``:
+    the candidate-sharded planner of ``refine`` on the ``make_mesh(cfg=cfg)``
+    mesh, from rank 0's ``state``; ``(result, curve or None, rank,
+    "<dp>x<div>")``."""
+    import torch.distributed as dist
+
+    from ndivplanning_tpu_torch.parallel import (
+        make_mesh,
+        shard_state,
+        sharded_plan as sp,
+    )
+
+    mesh = make_mesh(cfg=cfg)
+    fn, _ = sp.BY_REFINE[refine](cfg, mesh)
+    out = fn(shard_state(state, mesh), scene, condition, generator)
+    result, curve = (out, None) if refine == "none" else out
+    return result, curve, dist.get_rank(), f"{mesh.dp}x{mesh.div}"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -348,7 +401,11 @@ def _parser() -> argparse.ArgumentParser:
     plan_p.add_argument("--mpc-episodes", type=int, default=1,
                         help="episodes to run, as one batch")
     plan_p.add_argument("--sharded", action="store_true",
-                        help="the sharded planner (not ported yet)")
+                        help="split the scene's candidates over the ranks "
+                             "of the process group (torchrun's, or one rank "
+                             "of its own) on a --dp-shards x --div-shards "
+                             "mesh; the unsharded plan's result "
+                             "(parallel/sharded_plan.py)")
     serve_p.add_argument("--warmup", action="store_true",
                          help="run one dispatch of every request bucket "
                               "before reading stdin")
@@ -469,7 +526,6 @@ def main(argv=None) -> int:
         return 0 if report.get("healthy", True) else 3
     if args.cmd == "curves":
         return _curves(args)
-    _check_ported(args)
     cfg = _build_config(args)
     device = resolve_device(args.device)
     if args.debug_nans:
@@ -479,6 +535,45 @@ def main(argv=None) -> int:
 
         enable_nan_debugging(True)
     return _maybe_profiled(args, lambda: _run(args, cfg, device))
+
+
+def _plan(args, cfg, device) -> int:
+    """``plan``: one scene from ``cfg.seed``, planned on ``device``."""
+    from ndivplanning_tpu_torch.data.scenes import random_scene
+    from ndivplanning_tpu_torch.envs.types import Scene
+    from ndivplanning_tpu_torch.planning.planner import PlanResult, plan
+    from ndivplanning_tpu_torch.planning.refine import plan_refined_batch
+    from ndivplanning_tpu_torch.planning.server import _condition_for
+
+    state = _load_state(cfg, device)
+    scene = random_scene(
+        torch.Generator(device=device).manual_seed(cfg.seed + 3))
+    condition = _condition_for(cfg, scene)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed + 4)
+    out = {}
+    curve = None
+    if args.sharded:
+        result, curve, rank, out["mesh"] = _plan_sharded(
+            cfg, state, scene, condition, generator, args.refine)
+        if rank:  # one answer, from rank 0
+            return 0
+    elif args.refine != "none":
+        result, curve = plan_refined_batch(
+            cfg, state, Scene.stack([scene]), condition[None],
+            args.refine, generator=generator)
+        result, curve = PlanResult(*(f[0] for f in result)), curve[0]
+    else:
+        result = plan(cfg, state, scene, condition, generator)
+    if curve is not None:
+        key = "best_curve" if args.refine == "cem" else "soft_loss_curve"
+        out[key] = curve.tolist()
+    print(json.dumps({
+        "best_score": float(result.best_score),
+        "best_reached": float(result.best_reached),
+        "n_candidates": int(result.scores.shape[0]),
+        **out,
+    }))
+    return 0
 
 
 def _run(args, cfg, device) -> int:
@@ -613,35 +708,16 @@ def _run(args, cfg, device) -> int:
                                    args)))
         return 0
 
+    if args.cmd == "plan" and args.sharded:
+        # The group first: under torchrun it names the rank's card, where
+        # everything below is built.
+        device, end = _process_group(device)
+        try:
+            return _plan(args, cfg, device)
+        finally:
+            end()
     if args.cmd == "plan":
-        from ndivplanning_tpu_torch.data.scenes import random_scene
-        from ndivplanning_tpu_torch.envs.types import Scene
-        from ndivplanning_tpu_torch.planning.planner import PlanResult, plan
-        from ndivplanning_tpu_torch.planning.refine import plan_refined_batch
-        from ndivplanning_tpu_torch.planning.server import _condition_for
-
-        state = _load_state(cfg, device)
-        scene = random_scene(
-            torch.Generator(device=device).manual_seed(cfg.seed + 3))
-        condition = _condition_for(cfg, scene)
-        generator = torch.Generator(device=device).manual_seed(cfg.seed + 4)
-        out = {}
-        if args.refine != "none":
-            result, curve = plan_refined_batch(
-                cfg, state, Scene.stack([scene]), condition[None],
-                args.refine, generator=generator)
-            result = PlanResult(*(field[0] for field in result))
-            key = "best_curve" if args.refine == "cem" else "soft_loss_curve"
-            out[key] = curve[0].tolist()
-        else:
-            result = plan(cfg, state, scene, condition, generator)
-        print(json.dumps({
-            "best_score": float(result.best_score),
-            "best_reached": float(result.best_reached),
-            "n_candidates": int(result.scores.shape[0]),
-            **out,
-        }))
-        return 0
+        return _plan(args, cfg, device)
 
     from ndivplanning_tpu_torch.planning.server import (
         BestWatcher,

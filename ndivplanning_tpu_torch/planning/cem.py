@@ -16,18 +16,24 @@ the caller's generator on the conditions' device, or injected.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import torch
 
 from ndivplanning_tpu_torch.envs.rollout import ScoreWeights
 from ndivplanning_tpu_torch.envs.types import Scene
 from ndivplanning_tpu_torch.planning.planner import (
     PlanResult,
+    candidate_part,
     nan_safe,
     score_rollouts,
     select_plan,
 )
 from ndivplanning_tpu_torch.train.state import TrainState, gen_params
 from ndivplanning_tpu_torch.utils.config import Config
+
+if TYPE_CHECKING:
+    from ndivplanning_tpu_torch.parallel.sharded_plan import CandidateSplit
 
 
 def cem_population(cfg: Config, n_candidates: int | None = None,
@@ -58,13 +64,16 @@ def plan_cem_batch(cfg: Config, state: TrainState, scenes: Scene,
                    momentum: float = 0.25, sigma_floor: float = 0.05,
                    n_diverse: int = 8,
                    weights: ScoreWeights = ScoreWeights(),
-                   eps: torch.Tensor | None = None
+                   eps: torch.Tensor | None = None,
+                   shard: CandidateSplit | None = None
                    ) -> tuple[PlanResult, torch.Tensor]:
     """CEM-refined plans of B stacked scenes in one pass; returns
     ``(PlanResult, best_curve [B, n_iters])``, the best-so-far score after
     each iteration (non-increasing).  ``eps [B, n_iters + 1, n, zdim]``
-    replaces the noise draws."""
+    replaces the noise draws.  ``shard`` splits each population's decode
+    and rollout over a mesh's ranks; the refit runs on every rank."""
     n, default_elite, iters = cem_population(cfg, n_candidates, n_iters)
+    part = candidate_part(shard, n)
     elite_n = default_elite if n_elite is None else n_elite
     b, device = conditions.shape[0], conditions.device
     zdim = cfg.latent_dim
@@ -85,9 +94,10 @@ def plan_cem_batch(cfg: Config, state: TrainState, scenes: Scene,
     curve = []
     for i in range(iters):
         z = population(mu, sigma, i)
-        taus = gen_params(cfg, state)(conditions, z)
+        taus = gen_params(cfg, state)(conditions, part.local(z))
         # NaN candidates become +inf: never elite, never the best.
-        scores = nan_safe(score_rollouts(cfg, scenes, taus, weights).score)
+        scores, = part.gather(nan_safe(
+            score_rollouts(cfg, scenes, taus, weights).score))
         order = elite_indices(scores, elite_n)
         elite = torch.gather(z, 1, order[:, :, None].expand(-1, -1, zdim))
         new_mu = momentum * mu + (1.0 - momentum) * elite.mean(dim=1)
@@ -103,9 +113,10 @@ def plan_cem_batch(cfg: Config, state: TrainState, scenes: Scene,
         mu, sigma = new_mu, new_sigma
     z = population(mu, sigma, iters)
     z[:, 0] = best_z  # the tracked best at slot 0
-    taus = gen_params(cfg, state)(conditions, z)
-    plan = select_plan(taus, score_rollouts(cfg, scenes, taus, weights),
-                       n_diverse)
+    taus = gen_params(cfg, state)(conditions, part.local(z))
+    taus, results = part.gather_scored(
+        taus, score_rollouts(cfg, scenes, taus, weights))
+    plan = select_plan(taus, results, n_diverse)
     return plan, (torch.stack(curve, dim=1) if curve
                   else best_score.new_zeros((b, 0)))
 

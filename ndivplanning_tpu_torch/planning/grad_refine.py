@@ -22,7 +22,7 @@ clips take ``jnp.clip``'s derivative on their bounds (``ops/clip.py``).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import TYPE_CHECKING, Callable, NamedTuple
 
 import torch
 
@@ -30,7 +30,10 @@ from ndivplanning_tpu_torch.envs.rollout import ScoreWeights
 from ndivplanning_tpu_torch.envs.types import Scene
 from ndivplanning_tpu_torch.ops.clip import clip
 from ndivplanning_tpu_torch.planning.planner import (
+    WHOLE,
     PlanResult,
+    WholeAxis,
+    candidate_part,
     score_rollouts,
     select_plan,
 )
@@ -40,6 +43,12 @@ from ndivplanning_tpu_torch.train.state import (
     gen_params,
 )
 from ndivplanning_tpu_torch.utils.config import Config
+
+if TYPE_CHECKING:
+    from ndivplanning_tpu_torch.parallel.sharded_plan import (
+        CandidatePart,
+        CandidateSplit,
+    )
 
 # optax.adam's defaults.
 ADAM_B1, ADAM_B2 = 0.9, 0.999
@@ -79,24 +88,30 @@ class SoftWeights(NamedTuple):
 
 
 def soft_cost_taus(cfg: Config, scenes: Scene, taus: torch.Tensor,
-                   soft: SoftWeights) -> torch.Tensor:
+                   soft: SoftWeights,
+                   part: CandidatePart | WholeAxis = WHOLE) -> torch.Tensor:
     """``[...]``: each scene's mean soft cost of its candidates ``taus [...,
     N, H, S]``, differentiable through the controller and the dynamics.
     The surrogate of the latent refiner and of the trajectory optimiser
-    (``planning/trajopt.py``)."""
+    (``planning/trajopt.py``).  With ``part``, ``taus`` are this rank's
+    rows and the cost its share of the mean over all ranks' candidates."""
     res = score_rollouts(cfg, scenes, taus, ScoreWeights())
     pen = _segments_penetration(scenes, res.positions, soft.margin)
-    return torch.mean(soft.goal * res.goal_dist + soft.obstacle * pen
-                      + soft.control * res.control_cost, dim=-1)
+    cost = (soft.goal * res.goal_dist + soft.obstacle * pen
+            + soft.control * res.control_cost)
+    return part.mean(cost)
 
 
 def adam_descent(loss_of: Callable[[torch.Tensor], torch.Tensor],
-                 x0: torch.Tensor, n_steps: int,
-                 lr: float) -> tuple[torch.Tensor, torch.Tensor]:
+                 x0: torch.Tensor, n_steps: int, lr: float,
+                 part: CandidatePart | WholeAxis = WHOLE
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``n_steps`` of ``optax.adam(lr)`` on ``x0 [B, ...]`` for the per-scene
     losses ``loss_of(x) -> [B]``; returns ``(x, curve [B, n_steps])``, the
     losses before each update.  The gradient is of their sum: scenes do
-    not share variables, so each scene gets its own loss's gradient."""
+    not share variables, so each scene gets its own loss's gradient.  With
+    ``part``, ``x0`` holds this rank's candidates and ``loss_of`` its
+    share of the losses; the curve is their sum over the ranks."""
     x = x0.detach().clone()
     mu, nu = torch.zeros_like(x), torch.zeros_like(x)
     curve = []
@@ -110,19 +125,22 @@ def adam_descent(loss_of: Callable[[torch.Tensor], torch.Tensor],
         adam_update([x], [grad], [mu], [nu], i + 1, lr, ADAM_B1, ADAM_B2)
     if not curve:
         return x, x.new_zeros((x.shape[0], 0))
-    return x, torch.stack(curve, dim=1)
+    return x, part.total(torch.stack(curve, dim=1))
 
 
 def union_plan(cfg: Config, scenes: Scene, prior: torch.Tensor,
                refined: torch.Tensor, n_diverse: int,
-               weights: ScoreWeights) -> PlanResult:
+               weights: ScoreWeights,
+               part: CandidatePart | WholeAxis = WHOLE) -> PlanResult:
     """Honest selection: the union ``[prior, refined]`` of candidates ``[B,
     n, H, S]`` each, hard-scored, with its NaN-safe best pick and diverse
-    top-m (``PlanResult.scores`` / ``taus`` cover the ``2n``)."""
+    top-m (``PlanResult.scores`` / ``taus`` cover the ``2n``).  With
+    ``part``, each rank scores its rows and the union is gathered."""
     with torch.no_grad():
         taus = torch.cat([prior, refined], dim=1)
-        return select_plan(taus, score_rollouts(cfg, scenes, taus, weights),
-                           n_diverse)
+        taus, results = part.gather_union(
+            taus, score_rollouts(cfg, scenes, taus, weights))
+        return select_plan(taus, results, n_diverse)
 
 
 def draw_latents(cfg: Config, conditions: torch.Tensor, n: int,
@@ -151,23 +169,26 @@ def plan_grad_batch(cfg: Config, state: TrainState, scenes: Scene,
                     n_steps: int | None = None, lr: float = 0.1,
                     soft: SoftWeights = SoftWeights(), n_diverse: int = 8,
                     weights: ScoreWeights = ScoreWeights(),
-                    z: torch.Tensor | None = None
+                    z: torch.Tensor | None = None,
+                    shard: CandidateSplit | None = None
                     ) -> tuple[PlanResult, torch.Tensor]:
     """Gradient-refined plans of B stacked scenes in one pass; returns
     ``(PlanResult, loss_curve [B, n_steps])``, the mean soft objective
     before each Adam step.  ``PlanResult.scores`` / ``taus`` cover the
     ``2n`` union of prior and refined candidates.  ``z [B, n, zdim]``
-    replaces the latent draw."""
+    replaces the latent draw.  ``shard`` refines each rank's latents of a
+    mesh."""
     n, steps = grad_budget(cfg, n_candidates, n_steps)
-    z0 = draw_latents(cfg, conditions, n, generator, z)
+    part = candidate_part(shard, n)
+    z0 = part.local(draw_latents(cfg, conditions, n, generator, z))
     gen = gen_params(cfg, state)
     z_ref, curve = adam_descent(
-        lambda zv: soft_cost_taus(cfg, scenes, gen(conditions, zv), soft),
-        z0, steps, lr)
+        lambda zv: soft_cost_taus(cfg, scenes, gen(conditions, zv), soft,
+                                  part), z0, steps, lr, part)
     with torch.no_grad():
         prior, refined = gen(conditions, z0), gen(conditions, z_ref)
     return union_plan(cfg, scenes, prior, refined, n_diverse,
-                      weights), curve
+                      weights, part), curve
 
 
 def plan_grad(cfg: Config, state: TrainState, scene: Scene,

@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import types
+from typing import TYPE_CHECKING
 
 import torch
 from torch.func import grad, jvp, vmap
@@ -45,9 +46,12 @@ from ndivplanning_tpu_torch.planning.grad_refine import (
     draw_latents,
     union_plan,
 )
-from ndivplanning_tpu_torch.planning.planner import PlanResult
+from ndivplanning_tpu_torch.planning.planner import PlanResult, candidate_part
 from ndivplanning_tpu_torch.train.state import TrainState, gen_params
 from ndivplanning_tpu_torch.utils.config import Config
+
+if TYPE_CHECKING:
+    from ndivplanning_tpu_torch.parallel.sharded_plan import CandidateSplit
 
 # The line search's step sizes, rolled out together; alpha 0 is the
 # nominal, so the branchless accept never moves to a worse trajectory.
@@ -380,21 +384,25 @@ def plan_ilqr_batch(cfg: Config, state: TrainState, scenes: Scene,
                     soft: SoftWeights = SoftWeights(), reg0: float = 1.0,
                     n_diverse: int = 8,
                     weights: ScoreWeights = ScoreWeights(),
-                    z: torch.Tensor | None = None
+                    z: torch.Tensor | None = None,
+                    shard: CandidateSplit | None = None
                     ) -> tuple[PlanResult, torch.Tensor]:
     """iLQR-refined plans of B stacked scenes, warm-started from G's
     candidates of ``z [B, n, zdim]`` (or a draw from ``generator``);
     returns ``(PlanResult, cost_curve [B, n_iters])``, the warm starts'
-    mean cost after each iteration (non-increasing per warm start)."""
+    mean cost after each iteration (non-increasing per warm start).
+    ``shard`` refines each rank's warm starts of a mesh."""
     n, iters = resolve_ilqr_budget(cfg, n_candidates, n_iters)
-    z0 = draw_latents(cfg, conditions, n, generator, z)
+    part = candidate_part(shard, n)
+    z0 = part.local(draw_latents(cfg, conditions, n, generator, z))
     tau0 = gen_params(cfg, state)(conditions, z0)
     u0 = _warm_start_actions(cfg, scenes, tau0)
     u_star, positions, curves = _ilqr_refine(cfg, scenes, u0, iters, soft,
                                              reg0)
     refined = u_star if cfg.rollout_mode == "actions" else positions
-    return (union_plan(cfg, scenes, tau0, refined, n_diverse, weights),
-            curves.mean(dim=1))
+    curve = part.total(part.mean(curves, dim=1))
+    return union_plan(cfg, scenes, tau0, refined, n_diverse, weights,
+                      part), curve
 
 
 def plan_ilqr(cfg: Config, state: TrainState, scene: Scene,

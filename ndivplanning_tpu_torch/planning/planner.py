@@ -6,7 +6,7 @@ among the better-scoring half of the candidates.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
@@ -17,6 +17,44 @@ from ndivplanning_tpu_torch.ops.pairwise import pairwise_l2
 from ndivplanning_tpu_torch.train.state import TrainState, gen_params
 from ndivplanning_tpu_torch.utils.config import Config
 from ndivplanning_tpu_torch.utils.profiling import check_finite
+
+if TYPE_CHECKING:
+    from ndivplanning_tpu_torch.parallel.sharded_plan import CandidateSplit
+
+
+class WholeAxis:
+    """The planners' shard hook when one process holds every candidate:
+    :class:`parallel.sharded_plan.CandidatePart`'s operations as the
+    identity, and ``torch.mean`` for its share of a mean."""
+
+    def part(self, n: int) -> WholeAxis:
+        return self
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def gather(self, *xs: torch.Tensor) -> list[torch.Tensor]:
+        return list(xs)
+
+    def gather_scored(self, taus: torch.Tensor, results):
+        return taus, results
+
+    gather_union = gather_scored
+
+    def mean(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return torch.mean(x, dim)
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+
+WHOLE = WholeAxis()
+
+
+def candidate_part(shard: CandidateSplit | None, n: int):
+    """The part of an axis of ``n`` candidates that this process holds:
+    all of it unless ``shard`` splits it."""
+    return (WHOLE if shard is None else shard).part(n)
 
 
 class PlanResult(NamedTuple):
@@ -90,7 +128,8 @@ def plan_batch(cfg: Config, state: TrainState, scenes: Scene,
                generator: torch.Generator | None = None,
                n_candidates: int | None = None, n_diverse: int = 8,
                weights: ScoreWeights = ScoreWeights(),
-               z: torch.Tensor | None = None) -> PlanResult:
+               z: torch.Tensor | None = None,
+               shard: CandidateSplit | None = None) -> PlanResult:
     """One planning step for each of B stacked scenes, in one pass: G over
     ``[B, N]`` latents, one rollout of the B x N candidates, a NaN-safe
     best pick and the diverse top-m of every scene.  The number of kernel
@@ -98,21 +137,26 @@ def plan_batch(cfg: Config, state: TrainState, scenes: Scene,
 
     ``scenes`` has a leading ``[B]`` axis (:meth:`Scene.stack`) and
     ``conditions`` is ``[B, ...]``.  ``z [B, N, zdim]`` replaces the latent
-    draw from ``generator``.  Every field of the result leads with ``[B]``."""
+    draw from ``generator``.  Every field of the result leads with ``[B]``.
+    ``shard`` splits the candidates over a mesh's ranks
+    (``parallel/sharded_plan.py``)."""
     n = cfg.n_candidates if n_candidates is None else n_candidates
     b = conditions.shape[0]
     if z is None:
         z = torch.randn((b, n, cfg.latent_dim), generator=generator,
                         device=conditions.device)
+    part = candidate_part(shard, n)
     # EMA weights when tracked: planning sees the smoothed generator.
-    taus = gen_params(cfg, state)(conditions, z)  # [B, N, H, S]
-    return select_plan(taus, score_rollouts(cfg, scenes, taus, weights),
-                       n_diverse)
+    taus = gen_params(cfg, state)(conditions, part.local(z))  # [B, N, H, S]
+    taus, results = part.gather_scored(
+        taus, score_rollouts(cfg, scenes, taus, weights))
+    return select_plan(taus, results, n_diverse)
 
 
 def select_plan(taus: torch.Tensor, results, n_diverse: int) -> PlanResult:
-    """The plan of scored candidates ``taus [B, N, H, S]``: a NaN-safe best
-    pick and the diverse top-m of every scene."""
+    """The plan of scored candidates ``taus [B, N, H, S]`` (``results``:
+    their ``score`` and ``reached``): a NaN-safe best pick and the diverse
+    top-m of every scene."""
     sel_scores = nan_safe(results.score)  # +inf: out of both picks
     best = torch.argmin(sel_scores, dim=1, keepdim=True)  # [B, 1]
     diverse_idx = _diverse_top_m(taus.flatten(2), sel_scores, n_diverse)

@@ -629,7 +629,15 @@ class _CrossBatcher:
     Admission control: ``max_pending`` bounds the requests admitted and
     not yet answered (queued or in flight); past it a burst is refused
     whole with ``{"error": "overloaded", "retry_ms": n}``, ``n`` an
-    estimate of when the queue will have drained.  ``deadline_ms`` bounds
+    estimate of when the queue will have drained, counting ahead of this
+    burst the requests shed before it and not yet drained (a dispatch
+    drains ``max_pending`` of them): they come back too, and a burst of
+    clients told one time would all come back at once to a queue that
+    admits ``max_pending`` of them.  That count is forgotten once the
+    latest hint given, and one dispatch more, have passed: a shed client
+    that came back by then was admitted or shed (and counted) again, and
+    one that gave up is not coming.  The staggered hint is the port's own;
+    JAX's batcher tells every shed burst one time.  ``deadline_ms`` bounds
     how long an admitted request may queue: at dispatch time an older one
     is answered ``{"error": "deadline_exceeded", "waited_ms": w,
     "deadline_ms": d}``.  None (or 0) disables either.
@@ -652,6 +660,10 @@ class _CrossBatcher:
         self._deadline_s = (None if not deadline_ms
                             else float(deadline_ms) / 1000.0)
         self._pending_n = 0
+        # Shed requests not yet drained by dispatches (the hint's queue),
+        # and the perf_counter time past which none of them is due back.
+        self._shed_n = 0
+        self._shed_due = 0.0
         self._pending_lock = threading.Lock()
         # A 0.7/0.3 moving average of the dispatch time: the shed reply's
         # retry_ms hint.
@@ -662,11 +674,25 @@ class _CrossBatcher:
                                         name="cross-batcher")
         self._thread.start()
 
-    def _retry_ms_hint(self) -> int:
+    def _per_dispatch(self) -> int:
+        return min(self._max, self._max_pending or self._max)
+
+    def _retry_ms_hint(self, shed: int) -> int:
+        """ms until the dispatches ahead of a burst of ``shed`` refused
+        requests will have run: the pending requests and the ones shed
+        before it and still due back, ``max_pending`` (or ``max_batch``) a
+        dispatch."""
+        now = time.perf_counter()
         with self._pending_lock:
-            n = self._pending_n
-        dispatches_ahead = max(-(-n // self._max), 1)
-        return max(int(dispatches_ahead * self._ema_dispatch_s * 1000), 1)
+            if now > self._shed_due:
+                self._shed_n = 0
+            n = self._pending_n + self._shed_n
+            self._shed_n += shed
+            dispatches_ahead = max(-(-n // self._per_dispatch()), 1)
+            retry_s = dispatches_ahead * self._ema_dispatch_s
+            self._shed_due = max(self._shed_due,
+                                 now + retry_s + self._ema_dispatch_s)
+        return max(int(retry_s * 1000), 1)
 
     def submit(self, reqs: list[dict], arrival: float) -> list[_Pending]:
         """Queue one connection's burst as a unit: it may share a dispatch
@@ -688,7 +714,7 @@ class _CrossBatcher:
             if not over:
                 self._pending_n += len(pendings)
         if over:
-            retry = self._retry_ms_hint()
+            retry = self._retry_ms_hint(len(pendings))
             _record_load_control(shed=len(pendings))
             for p in pendings:
                 p.result = {"error": "overloaded", "retry_ms": retry}
@@ -787,6 +813,8 @@ class _CrossBatcher:
     def _dispatch(self, batch: list[_Pending]) -> None:
         out: list = [None] * len(batch)
         done = [False] * len(batch)
+        with self._pending_lock:
+            self._shed_n = max(self._shed_n - self._per_dispatch(), 0)
 
         def progress() -> None:
             for i, p in enumerate(batch):

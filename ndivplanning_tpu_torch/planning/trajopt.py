@@ -16,6 +16,8 @@ seeds, and the union makes the hybrid no worse than CEM's population.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import torch
 
 from ndivplanning_tpu_torch.envs.rollout import ScoreWeights
@@ -32,9 +34,22 @@ from ndivplanning_tpu_torch.planning.grad_refine import (
     soft_cost_taus,
     union_plan,
 )
-from ndivplanning_tpu_torch.planning.planner import PlanResult, _take, nan_safe
+from ndivplanning_tpu_torch.planning.planner import (
+    WHOLE,
+    PlanResult,
+    WholeAxis,
+    _take,
+    candidate_part,
+    nan_safe,
+)
 from ndivplanning_tpu_torch.train.state import TrainState, gen_params
 from ndivplanning_tpu_torch.utils.config import Config
+
+if TYPE_CHECKING:
+    from ndivplanning_tpu_torch.parallel.sharded_plan import (
+        CandidatePart,
+        CandidateSplit,
+    )
 
 
 def resolve_budget(cfg: Config, n_candidates: int | None = None,
@@ -49,13 +64,17 @@ def resolve_budget(cfg: Config, n_candidates: int | None = None,
 
 def trajopt_core(cfg: Config, scenes: Scene, tau0: torch.Tensor,
                  n_steps: int, lr: float, soft: SoftWeights, n_diverse: int,
-                 weights: ScoreWeights) -> tuple[PlanResult, torch.Tensor]:
+                 weights: ScoreWeights,
+                 part: CandidatePart | WholeAxis = WHOLE
+                 ) -> tuple[PlanResult, torch.Tensor]:
     """Adam on the warm starts ``tau0 [B, n, H, S]`` and the union
-    selection; returns ``(PlanResult, loss_curve [B, n_steps])``."""
+    selection; returns ``(PlanResult, loss_curve [B, n_steps])``.  With
+    ``part``, ``tau0`` holds this rank's warm starts."""
     tau_ref, curve = adam_descent(
-        lambda t: soft_cost_taus(cfg, scenes, t, soft), tau0, n_steps, lr)
+        lambda t: soft_cost_taus(cfg, scenes, t, soft, part), tau0, n_steps,
+        lr, part)
     return union_plan(cfg, scenes, tau0, tau_ref, n_diverse,
-                      weights), curve
+                      weights, part), curve
 
 
 def plan_trajopt_batch(cfg: Config, state: TrainState, scenes: Scene,
@@ -65,17 +84,20 @@ def plan_trajopt_batch(cfg: Config, state: TrainState, scenes: Scene,
                        n_steps: int | None = None, lr: float | None = None,
                        soft: SoftWeights = SoftWeights(), n_diverse: int = 8,
                        weights: ScoreWeights = ScoreWeights(),
-                       z: torch.Tensor | None = None
+                       z: torch.Tensor | None = None,
+                       shard: CandidateSplit | None = None
                        ) -> tuple[PlanResult, torch.Tensor]:
     """Trajectory-optimised plans of B stacked scenes, warm-started from G's
     candidates of ``z [B, n, zdim]`` (or a draw from ``generator``);
-    returns ``(PlanResult, loss_curve [B, n_steps])``."""
+    returns ``(PlanResult, loss_curve [B, n_steps])``.  ``shard`` refines
+    each rank's warm starts of a mesh."""
     n, steps, lr = resolve_budget(cfg, n_candidates, n_steps, lr)
-    z0 = draw_latents(cfg, conditions, n, generator, z)
+    part = candidate_part(shard, n)
+    z0 = part.local(draw_latents(cfg, conditions, n, generator, z))
     with torch.no_grad():
         tau0 = gen_params(cfg, state)(conditions, z0)
     return trajopt_core(cfg, scenes, tau0, steps, lr, soft, n_diverse,
-                        weights)
+                        weights, part)
 
 
 def plan_trajopt(cfg: Config, state: TrainState, scene: Scene,
@@ -107,20 +129,24 @@ def plan_cem_trajopt_batch(cfg: Config, state: TrainState, scenes: Scene,
                            soft: SoftWeights = SoftWeights(),
                            n_diverse: int = 8,
                            weights: ScoreWeights = ScoreWeights(),
-                           eps: torch.Tensor | None = None
+                           eps: torch.Tensor | None = None,
+                           shard: CandidateSplit | None = None
                            ) -> tuple[PlanResult, torch.Tensor]:
     """The CEM -> trajopt hybrid for B stacked scenes: ``plan_cem_batch`` at
     its defaults (``eps [B, iters + 1, n, zdim]`` its noise), then trajopt
     from the best quarter of its final population in
     ``jax.lax.top_k``'s order.  Returns ``(PlanResult, loss_curve [B,
-    n_steps])``, the trajopt stage's curve."""
+    n_steps])``, the trajopt stage's curve.  ``shard`` splits CEM's
+    populations and then the seeds over a mesh's ranks."""
     _, steps, lr = resolve_budget(cfg, None, n_steps, lr)
     cem_plan, _ = plan_cem_batch(cfg, state, scenes, conditions, generator,
                                  n_diverse=n_diverse, weights=weights,
-                                 eps=eps)
-    seeds = elite_indices(nan_safe(cem_plan.scores), cem_seed_count(cfg))
-    return trajopt_core(cfg, scenes, _take(cem_plan.taus, seeds), steps, lr,
-                        soft, n_diverse, weights)
+                                 eps=eps, shard=shard)
+    m = cem_seed_count(cfg)
+    tau0 = _take(cem_plan.taus, elite_indices(nan_safe(cem_plan.scores), m))
+    part = candidate_part(shard, m)
+    return trajopt_core(cfg, scenes, part.local(tau0), steps, lr, soft,
+                        n_diverse, weights, part)
 
 
 def plan_cem_trajopt(cfg: Config, state: TrainState, scene: Scene,

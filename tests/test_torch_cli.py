@@ -5,14 +5,13 @@ pipes, as a deployment would; ``plan`` runs the committed planning512 and
 env-family models at full width (1000 candidates), and arm3 goes from
 ``train`` to ``serve`` in action mode.  The tools (viz, curves, export,
 doctor, --profile-dir, --debug-nans) run on the CPU at a small size; plan
---sharded, the one option the port lacks, exits with a message naming
-it.
+--sharded on a rank of its own matches plan bitwise, and inside two gloo
+ranks' group prints from rank 0.
 """
 
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 
@@ -225,20 +224,119 @@ def test_profile_dir_and_debug_nans_run_on_the_cpu(name, tmp_path, capsys):
             assert json.load(f)["traceEvents"]
 
 
-@pytest.mark.parametrize("args,flag", [
-    pytest.param(["plan", "--refine", "trajopt", "--sharded"], "--sharded",
-                 id="args0---sharded"),
-    pytest.param(["plan", "--sharded"], "--sharded", id="args1---sharded"),
-    pytest.param(["plan", "--refine", "ilqr", "--sharded"], "--sharded",
-                 id="args2---sharded"),
-    pytest.param(["plan", "--refine", "cem+trajopt", "--sharded"],
-                 "--sharded", id="args4---sharded"),
-    pytest.param(["plan", "--refine", "grad", "--sharded"], "--sharded",
-                 id="args6---sharded"),
+# Small budgets for plan --sharded against plan on the CPU.
+SHARDED_SETS = ["--set", "n_candidates=64", "--set", "cem_iters=3", "--set",
+                "grad_refine_steps=3", "--set", "trajopt_steps=4", "--set",
+                "ilqr_iters=2"]
+
+
+def _last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("args", [
+    pytest.param(["plan", "--refine", "trajopt"], id="trajopt"),
+    pytest.param(["plan"], id="plain"),
+    pytest.param(["plan", "--refine", "ilqr"], id="ilqr"),
+    pytest.param(["plan", "--refine", "cem+trajopt"], id="cem+trajopt"),
+    pytest.param(["plan", "--refine", "grad"], id="grad"),
+    pytest.param(["plan", "--refine", "cem"], id="cem"),
 ])
-def test_unported_flags_exit_with_their_name(args, flag):
-    with pytest.raises(SystemExit, match=re.escape(f"{flag} is not ported")):
-        main([*args, "--device", "cpu"])
+def test_plan_sharded_runs_on_one_rank(args, capsys):
+    """plan --sharded with no process group makes one rank of its own: it
+    prints the 1x1 mesh and, bitwise, the unsharded plan of the same seed,
+    and ends the group it made."""
+    import torch.distributed as dist
+
+    common = [*args, "--device", "cpu", *SHARDED_SETS]
+    assert main(common) == 0
+    want = _last_json(capsys.readouterr().out)
+    assert main([*common, "--sharded"]) == 0
+    got = _last_json(capsys.readouterr().out)
+    assert got.pop("mesh") == "1x1"
+    assert got == want
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("local_rank, cards, backend", [
+    pytest.param(1, 2, "nccl", id="a-card-a-rank"),
+    pytest.param(1, 1, "gloo", id="ranks-share-a-card"),
+])
+def test_plan_sharded_under_torchrun_picks_the_rank_card_before_loading(
+        monkeypatch, local_rank, cards, backend):
+    """Under torchrun (WORLD_SIZE set) with a CUDA device, plan --sharded
+    makes the rank's card (LOCAL_RANK modulo the cards) current and opens
+    the group before the state is loaded, and loads onto that card. The
+    card and the group are stubbed: nothing here touches CUDA."""
+    import torch
+    import torch.distributed as dist
+
+    from ndivplanning_tpu_torch import cli
+
+    events = []
+
+    class Loaded(Exception):
+        pass
+
+    def load_state(cfg, device, prefer_best=True):
+        events.append(("load", device))
+        raise Loaded
+
+    for name, value in [("WORLD_SIZE", "2"), ("LOCAL_WORLD_SIZE", "2"),
+                        ("LOCAL_RANK", str(local_rank))]:
+        monkeypatch.setenv(name, value)
+    monkeypatch.setattr(cli, "resolve_device",
+                        lambda name: torch.device("cuda"))
+    monkeypatch.setattr(cli, "_load_state", load_state)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda dev: events.append(("set_device", dev)))
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: events.append(
+                            ("init", backend, kw.get("init_method"))))
+    monkeypatch.setattr(dist, "destroy_process_group",
+                        lambda: events.append(("destroy",)))
+    with pytest.raises(Loaded):
+        main(["plan", "--sharded", "--workdir", PLANNING512])
+    card = torch.device("cuda", local_rank % cards)
+    assert events == [("set_device", card), ("init", backend, "env://"),
+                      ("load", card), ("destroy",)]
+
+
+def cli_rank_worker(argv):
+    """``main(argv)`` in a rank of an existing process group: its exit code
+    and what it printed."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def test_plan_sharded_uses_the_existing_group_and_rank_zero_prints(
+        tmp_path, capsys):
+    """Two gloo ranks call the CLI inside their group on a 2x1 mesh: rank 0
+    prints the plan, rank 1 nothing; the plan is the unsharded one's within
+    tests/test_torch_grad_refine.py's 1e-5 (the curve's sums cross ranks)."""
+    from ndivplanning_tpu_torch.parallel.spawn import run_ranks
+
+    args = ["plan", "--refine", "grad", "--device", "cpu", *SHARDED_SETS]
+    (rc0, out0), (rc1, out1) = run_ranks(
+        cli_rank_worker, 2, tmp_path, [*args, "--sharded", "--dp-shards",
+                                       "2"])
+    assert rc0 == rc1 == 0 and out1 == ""
+    got = _last_json(out0)
+    assert got.pop("mesh") == "2x1"
+    assert main(args) == 0
+    want = _last_json(capsys.readouterr().out)
+    assert got["n_candidates"] == want["n_candidates"]
+    np.testing.assert_allclose(got["best_score"], want["best_score"],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got["soft_loss_curve"],
+                               want["soft_loss_curve"], rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_viz_command(tmp_path, capsys):

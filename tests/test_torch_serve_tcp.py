@@ -675,6 +675,62 @@ def test_cross_batcher_sheds_over_max_pending(monkeypatch):
         b.close()
 
 
+def test_cross_batcher_staggers_retry_hints(monkeypatch):
+    """Each shed burst is told when the dispatches ahead of it will have
+    run, counting the requests shed before it and not yet drained,
+    ``max_pending`` a dispatch: clients told to retry come back spread out
+    instead of all at once.  A dispatch drains ``max_pending`` of them."""
+    cfg = _cfg()
+    gate, calls = _gated_handle_batch(monkeypatch)
+    b = _CrossBatcher(cfg, _state(cfg), max_pending=2)
+    try:
+        first = b.submit([_req()], time.perf_counter())[0]
+        _wait_for(lambda: calls, "the first dispatch")
+        second = b.submit([_req(0.2)], time.perf_counter())[0]
+        b._ema_dispatch_s = 0.1  # 100 ms a dispatch while the gate holds
+        shed = [b.submit([_req(0.3)], time.perf_counter())[0]
+                for _ in range(5)]
+        assert [p.result["retry_ms"] for p in shed] == [100, 200, 200, 300,
+                                                        300]
+        gate.set()
+        for p in (first, second):
+            assert p.event.wait(timeout=TIMEOUT)
+            assert "best_score" in p.result, p.result
+        assert b._shed_n == 3  # second's dispatch drained 2 of the 5
+    finally:
+        gate.set()
+        b.close()
+
+
+def test_cross_batcher_forgets_sheds_past_their_hints(monkeypatch):
+    """Shed clients that never come back do not inflate later hints: once
+    the latest hint given and one dispatch more have passed, a new shed
+    burst counts only what is pending."""
+    cfg = _cfg()
+    gate, calls = _gated_handle_batch(monkeypatch)
+    b = _CrossBatcher(cfg, _state(cfg), max_pending=2)
+    try:
+        first = b.submit([_req()], time.perf_counter())[0]
+        _wait_for(lambda: calls, "the first dispatch")
+        second = b.submit([_req(0.2)], time.perf_counter())[0]
+        b._ema_dispatch_s = 0.2  # 200 ms a dispatch while the gate holds
+        shed = [b.submit([_req(0.3)], time.perf_counter())[0]
+                for _ in range(4)]
+        assert [p.result["retry_ms"] for p in shed] == [200, 400, 400, 600]
+        assert b._shed_n == 4
+        time.sleep(1.0)  # past the latest hint (600 ms) and a dispatch
+        late = b.submit([_req(0.3)], time.perf_counter())[0]
+        assert late.result["retry_ms"] == 200  # the 2 pending only
+        assert b._shed_n == 1
+        gate.set()
+        for p in (first, second):
+            assert p.event.wait(timeout=TIMEOUT)
+            assert "best_score" in p.result, p.result
+    finally:
+        gate.set()
+        b.close()
+
+
 def test_cross_batcher_deadline_drops_stale(monkeypatch):
     """An admitted request that queued past ``deadline_ms`` is answered
     ``deadline_exceeded`` at dispatch time; the batcher keeps serving."""
