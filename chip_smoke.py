@@ -65,6 +65,12 @@ The candidate-sharded planners (parallel/sharded_plan.py): the six on
 one NCCL rank bitwise the unsharded card planners, on two gloo ranks
 sharing the card bitwise alike and against the unsharded planners, and
 `cli plan --sharded` bitwise `cli plan`.
+Multi-rank training (train/loop.py under a process group): `train` on
+pod_dp at full width on one NCCL rank bitwise the sharded step taken
+directly; on two gloo ranks sharing the card at (2, 1) and (1, 2) against
+it, resumed bitwise, rank 0 the only writer; `train_from_dataset` at
+(2, 1) against one process; every stabiliser recipe on two ranks against
+the one-process step; `cli train` under torch.distributed.run.
 Each phase prints one JSON line with its wall seconds (``phase_s``); a
 failure first prints ``{"phase": <the numbered phase>, "error": ...}``,
 then raises and exits non-zero.  Before the last line, a ``smoke_s``
@@ -73,6 +79,7 @@ summary.
 
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py sharded_plan   # the sharded planners alone
+    python3 chip_smoke.py multi_rank_train   # the multi-rank loops alone
 """
 
 from __future__ import annotations
@@ -1191,15 +1198,10 @@ def two_rank_worker(runs):
     return {run: pod_dp_run(*run, TWO_RANK_STEPS) for run in runs}
 
 
-def compare_runs(ref, got, dtype, lr, steps, label):
-    """A sharded run against the 1x1 run from the same state, at
-    TWO_RANK_TOL[dtype]: metrics, and G's params (see TWO_RANK_TOL for the
-    elements whose gradient is within rounding of zero)."""
-    import numpy as np
-
+def compare_metrics(ref_history, history, dtype, label) -> dict:
+    """Per-step metrics against the 1x1 run's at TWO_RANK_TOL[dtype];
+    returns each metric's largest relative error."""
     tol = TWO_RANK_TOL[dtype]
-    ref_history, ref_params, ref_mu = ref
-    history, params, _ = got
     metric_err = {}
     for step, (rec, want) in enumerate(zip(history, ref_history)):
         for key, w in want.items():
@@ -1210,14 +1212,30 @@ def compare_runs(ref, got, dtype, lr, steps, label):
                     f"(rtol {tol['metric_rtol']}, atol {atol})")
             metric_err[key] = max(metric_err.get(key, 0.0),
                                   abs(rec[key] - w) / max(abs(w), 1e-30))
-    param_err, resolved_err, flipped, total = 0.0, 0.0, 0, 0
+    return metric_err
+
+
+def compare_runs(ref, got, dtype, lr, steps, label, hold_resolved=True):
+    """A sharded run against the 1x1 run from the same state, at
+    TWO_RANK_TOL[dtype]: metrics, and G's params (see TWO_RANK_TOL for the
+    elements whose gradient is within rounding of zero; with
+    ``hold_resolved`` False the f32 rule's off elements where the gradient
+    is resolved are counted, not held)."""
+    import numpy as np
+
+    tol = TWO_RANK_TOL[dtype]
+    ref_history, ref_params, ref_mu = ref
+    history, params, _ = got
+    metric_err = compare_metrics(ref_history, history, dtype, label)
+    param_err, resolved_err, flipped, off_resolved, total = 0.0, 0.0, 0, 0, 0
     atol = tol["param_atol"] + tol["param_atol_of_lr"] * lr * steps
     for name, want in ref_params.items():
         diff = np.abs(params[name] - want)
         off = diff > atol + tol["param_rtol"] * np.abs(want)
         mu = np.abs(ref_mu[name])
         resolved = mu > 1e-2 * mu.max()
-        if tol["off_share"] is None and np.any(off & resolved):
+        if (hold_resolved and tol["off_share"] is None
+                and np.any(off & resolved)):
             raise AssertionError(
                 f"{label} G param {name}: {float(diff[off & resolved].max())}"
                 f" off the 1x1 run where its gradient is resolved")
@@ -1227,6 +1245,7 @@ def compare_runs(ref, got, dtype, lr, steps, label):
         param_err = max(param_err, float(diff.max()))
         resolved_err = max(resolved_err, float(diff[resolved].max()))
         flipped += int(np.sum(off))
+        off_resolved += int(np.sum(off & resolved))
         total += diff.size
     if tol["off_share"] is not None and flipped > tol["off_share"] * total:
         raise AssertionError(f"{label}: {flipped} of {total} G params off "
@@ -1236,6 +1255,7 @@ def compare_runs(ref, got, dtype, lr, steps, label):
             "g_params_max_abs_err": param_err,
             "g_params_resolved_grad_max_abs_err": resolved_err,
             "g_params_outside_tol": flipped,
+            "g_params_outside_tol_resolved": off_resolved,
             "g_params": total, "tolerance": tol}
 
 
@@ -3254,7 +3274,7 @@ def check_snapshots_equal(torch, a, b, label) -> int:
     return sum(v.numel() for v in a.values() if isinstance(v, torch.Tensor))
 
 
-def dataset_phase(torch, ndiv_cuda):
+def dataset_phase(torch, ndiv_cuda, keep):
     """The recorded-dataset path on the planning512 recipe at full width:
     `cli record-data`, `cli train --dataset` and `cli eval --dataset` in
     subprocesses; then in process the device-resident run, the streaming
@@ -3262,7 +3282,8 @@ def dataset_phase(torch, ndiv_cuda):
     under the profiler), final states bitwise equal to each other and to
     the CLI's, rows equal but for clocks, launches one ndiv_joint a step and
     one ndiv_fwd an eval leg; step ms from the log windows; a resident
-    step and a held-out eval leg profiled.  Returns (phase, launches)."""
+    step and a held-out eval leg profiled; the recording is copied to
+    ``keep`` for phase 8n.  Returns (phase, launches)."""
     from ndivplanning_tpu_torch.data.host_pipeline import (
         ArrayDataset,
         batch_from_arrays,
@@ -3415,6 +3436,7 @@ def dataset_phase(torch, ndiv_cuda):
     shapes_checked = check_path_shapes(torch, ndiv_cuda, [
         (cfg.batch_size, cfg.k, cfg.latent_dim, dx),
         (n_eval, cfg.k, cfg.latent_dim, dx)])
+    shutil.copy(npz, keep)
     shutil.rmtree(tmp)
     return {
         "phase": "dataset", "workdir_config": PLANNING512,
@@ -4475,6 +4497,564 @@ def sharded_plan_phase(torch, ndiv_cuda, smi):
         "card": smi}
 
 
+# ------------------------------------------------ multi-rank training
+# Phase 8n (train/loop.py and train/step.py under a process group).  (a)
+# train() on pod_dp at full width on a 1x1 mesh of one NCCL rank,
+# MULTI_STEPS steps, a log and a checkpoint every MULTI_EVERY: bitwise
+# MULTI_STEPS steps of make_sharded_train_step taken directly.  (b) Two
+# gloo ranks sharing the card: the same run at (2, 1) and (1, 2), bitwise
+# the same mesh's direct steps, the replicas bitwise; the direct steps'
+# first TWO_RANK_STEPS metrics within TWO_RANK_TOL["bf16"] of (a)'s (the
+# steps it was sized for: past them two meshes drift apart, bf16 by ~1%
+# at step 10, scripts/two_rank_drift.py), the logged rows' gaps reported;
+# at (2, 1) a run stopped at MULTI_EVERY and resumed, bitwise the whole
+# one; rank 0 the only writer; train_from_dataset over one epoch of the
+# dataset phase's planning512 recording at (2, 1) against the
+# one-process run on the card at TWO_RANK_TOL["f32"].  (c) Every
+# stabiliser recipe and a knob-free control at full width, KNOB_STEPS
+# steps at (2, 1) and (1, 2) from one state on the global batches,
+# latents and draws made once here, against the one-process card step on
+# them, at TWO_RANK_TOL (G's f32 rule counted, not held: compare_runs);
+# `reduced`: the D restart recipe restarts on its third step
+# (d_reset_every 10 -> 3), ADA starts at p = 0.5 (so its masks are not
+# all 0).  (d) `cli train` under torch.distributed.run on two ranks (gloo,
+# they share the card), traced, then a one-process `cli eval` on its
+# workdir.  (b)-(d) run in their processes from the end of the dataset
+# phase, beside phases 8k-8m (start_multi_rank); 8n runs (a) and the
+# one-process references, then joins them.  The phase's budget:
+# MULTI_BUDGET_S (reported, not held).
+MULTI_STEPS = 20
+MULTI_EVERY = 10
+KNOB_STEPS = 3
+KNOB_RESTART = dict(d_reset_every=3, d_reset_start=3)
+KNOB_ADA_P = 0.5
+KNOB_CONTROL = "imagecond_no_knob"  # the same steps without a knob
+MULTI_BUDGET_S = 75
+
+
+def rank_shape(cfg, dp, div, b=None):
+    """The (conditions, k, dz, dx) a rank's ndiv_joint launch takes at the
+    sharded call site: its dp slice's gathered k, its chunk of them."""
+    b = cfg.batch_size if b is None else b
+    return (-(-b // dp // div), cfg.k, cfg.latent_dim,
+            cfg.horizon * cfg.state_dim)
+
+
+@contextlib.contextmanager
+def counted_loop_writes():
+    """Count this process's calls to the loop's writers (checkpoints, the
+    config, the dataset marker, best/'s marker) while inside."""
+    from ndivplanning_tpu_torch.train import loop
+
+    calls = {}
+    names = ("save_config", "_write_dataset_marker", "_write_best_marker")
+    saved = {name: getattr(loop, name) for name in names}
+    saved_ckpt = loop.ckpt.save_checkpoint
+
+    def counted(fn, name):
+        def wrapper(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name in names:
+        setattr(loop, name, counted(saved[name], name))
+    loop.ckpt.save_checkpoint = counted(saved_ckpt, "save_checkpoint")
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(loop, name, saved[name])
+        loop.ckpt.save_checkpoint = saved_ckpt
+
+
+def loop_run(torch, ndiv_cuda, fn, cfg, **kwargs):
+    """``train`` (fn "train") or ``train_from_dataset`` of ``cfg`` on the
+    card under the process group there is: its logged rows (the last row
+    for a dataset run), G's params and Adam first moments on the host, the
+    writes this process made, its ndiv_cuda launches and its wall s."""
+    from ndivplanning_tpu_torch.train import loop
+
+    reset(ndiv_cuda)
+    t0 = time.perf_counter()
+    with counted_loop_writes() as calls:
+        if fn == "train":
+            state, rows = loop.train(cfg, echo=False, **kwargs)
+        else:
+            state, last = loop.train_from_dataset(cfg, **kwargs)
+            rows = [last]
+    torch.cuda.synchronize()
+    return {"rows": rows,
+            "g": {n: p.detach().cpu().numpy()
+                  for n, p in state.g.named_parameters()},
+            "g_mu": {n: v.cpu().numpy() for n, v in state.g_opt.mu.items()},
+            "writes": dict(calls), "launches": launched(ndiv_cuda),
+            "seconds": time.perf_counter() - t0}
+
+
+def loop_is_direct(run, direct) -> bool:
+    """Whether a loop run's rows (at its log steps), G and G's mu are
+    bitwise ``pod_dp_run``'s direct steps."""
+    import numpy as np
+
+    rows, g, mu = as_compared(run)
+    return (rows == [direct[0][r["step"] - 1] for r in run["rows"]]
+            and all(np.array_equal(g[n], direct[1][n]) for n in g)
+            and all(np.array_equal(mu[n], direct[2][n]) for n in mu))
+
+
+def as_compared(run):
+    """A loop run as compare_runs takes it: (metric rows, G, G's mu)."""
+    clocks = ("step", "steps_per_sec")
+    return ([{k: v for k, v in r.items() if k not in clocks}
+             for r in run["rows"]], run["g"], run["g_mu"])
+
+
+def runs_bitwise(a, b) -> bool:
+    """Two loop runs' rows (but for clocks), G and G's mu bitwise equal."""
+    import numpy as np
+
+    ra, ga, ma = as_compared(a)
+    rb, gb, mb = as_compared(b)
+    return ra == rb and all(np.array_equal(ga[n], gb[n]) for n in ga) \
+        and all(np.array_equal(ma[n], mb[n]) for n in ma)
+
+
+def multi_pod_cfg(dp, div, **kw):
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    return get_config("pod_dp", dp_shards=dp, div_shards=div,
+                      log_every=MULTI_EVERY, checkpoint_every=MULTI_EVERY,
+                      **{"steps": MULTI_STEPS, **kw})
+
+
+def knob_recipes():
+    """Every stabiliser recipe's config at full width (phase 8n (c))."""
+    from ndivplanning_tpu_torch.utils.config import get_config
+
+    out = {}
+    for preset, recipes in (("imagecond", STAB_IMAGECOND),
+                            ("goalcond", STAB_GOALCOND)):
+        for name, overrides in recipes.items():
+            if name == "dreset":
+                overrides = {**overrides, **KNOB_RESTART}
+            out[name] = get_config(preset, **overrides)
+    out[KNOB_CONTROL] = get_config("imagecond")
+    return out
+
+
+def knob_inputs(torch, tmp):
+    """Phase 8n (c)'s start states (checkpoints in ``tmp/<recipe>``) and
+    global inputs (``tmp/inputs.pt``): per preset KNOB_STEPS batches and
+    latents, per recipe each step's draws, made once on the card."""
+    from ndivplanning_tpu_torch.data.tasks import make_task
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.train.step import draw_step
+    from ndivplanning_tpu_torch.utils import checkpoint as ckpt
+
+    recipes = knob_recipes()
+    batches, draws = {}, {}
+    for name, cfg in recipes.items():
+        state = create_train_state(cfg, seed=0)
+        if cfg.ada_target > 0:
+            state.ada["p"] = torch.full_like(state.ada["p"], KNOB_ADA_P)
+        ckpt.save_checkpoint(os.path.join(tmp, name), state)
+        if cfg.name not in batches:
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            batches[cfg.name] = []
+            for _ in range(KNOB_STEPS):
+                batch = make_task(cfg).sample(gen, cfg.batch_size)
+                z = torch.randn((cfg.batch_size, cfg.k, cfg.latent_dim),
+                                generator=gen, device="cuda")
+                batches[cfg.name].append((batch.conditions.cpu(),
+                                          batch.real_traj.cpu(), z.cpu()))
+        draws[name] = []
+        for i, (cond, real, _) in enumerate(batches[cfg.name]):
+            state.step = i  # a restart's fresh D is drawn on its step
+            step_draws = draw_step(cfg, state, knob_batch(torch, cond, real))
+            draws[name].append(draws_to(step_draws, "cpu"))
+    torch.save({"batches": batches, "draws": draws},
+               os.path.join(tmp, "inputs.pt"))
+    return recipes
+
+
+def knob_batch(torch, cond, real):
+    from ndivplanning_tpu_torch.data.tasks import Batch
+
+    return Batch(cond.cuda(), real.cuda(), None)
+
+
+def knob_runs(torch, ndiv_cuda, tmp, recipes, mesh=None):
+    """Phase 8n (c): KNOB_STEPS steps of each recipe from its start state
+    on the saved inputs, on ``mesh`` (None: the one-process step): per
+    recipe (metric rows, G, G's mu) on the host, and the launches."""
+    from ndivplanning_tpu_torch.parallel.sharded_step import shard_state
+    from ndivplanning_tpu_torch.train.state import create_train_state
+    from ndivplanning_tpu_torch.train.step import train_step_impl
+    from ndivplanning_tpu_torch.utils import checkpoint as ckpt
+
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    out, launches = {}, {}
+    for name, cfg in recipes.items():
+        state = ckpt.restore_latest(os.path.join(tmp, name),
+                                    create_train_state(cfg))
+        if mesh is not None:
+            state = shard_state(state, mesh)
+        rows = []
+        reset(ndiv_cuda)
+        for (cond, real, z), draws in zip(inputs["batches"][cfg.name],
+                                          inputs["draws"][name]):
+            state, m = train_step_impl(
+                cfg, state, knob_batch(torch, cond, real), z=z.cuda(),
+                mesh=mesh, draws=draws_to(draws, "cuda"))
+            rows.append({k: float(v) for k, v in m.items()})
+        launches[name] = launched(ndiv_cuda)
+        out[name] = (rows, {n: p.detach().cpu().numpy()
+                            for n, p in state.g.named_parameters()},
+                     {n: v.cpu().numpy() for n, v in state.g_opt.mu.items()})
+    return out, launches
+
+
+def multi_rank_worker(tmp, recording):
+    """One of two gloo ranks sharing the card (phase 8n (b) and (c)): the
+    pod_dp loop at (2, 1) and (1, 2), the resumed run, the dataset run,
+    then the recipes at both meshes."""
+    import torch
+
+    from ndivplanning_tpu_torch.data.host_pipeline import ArrayDataset
+    from ndivplanning_tpu_torch.ops import ndiv_cuda
+    from ndivplanning_tpu_torch.parallel import make_mesh
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    out = {}
+    for dp, div in TWO_RANK_MESHES:
+        out[f"pod_{dp}x{div}"] = loop_run(
+            torch, ndiv_cuda, "train", multi_pod_cfg(dp, div),
+            workdir=os.path.join(tmp, f"pod_{dp}x{div}"))
+        reset(ndiv_cuda)
+        out[f"direct_{dp}x{div}"] = (
+            pod_dp_run("bf16", dp, div, MULTI_STEPS), launched(ndiv_cuda))
+    resumed = os.path.join(tmp, "pod_resumed")
+    out["pod_first"] = loop_run(torch, ndiv_cuda, "train",
+                                multi_pod_cfg(2, 1, steps=MULTI_EVERY),
+                                workdir=resumed)
+    out["pod_resumed"] = loop_run(torch, ndiv_cuda, "train",
+                                  multi_pod_cfg(2, 1), workdir=resumed)
+    dcfg = load_config(PLANNING512).replace(dp_shards=2, div_shards=1)
+    out["dataset"] = loop_run(
+        torch, ndiv_cuda, "dataset", dcfg,
+        dataset=ArrayDataset.from_npz(recording), num_epochs=1,
+        workdir=os.path.join(tmp, "dataset"))
+    recipes = knob_recipes()
+    for dp, div in TWO_RANK_MESHES:
+        out[f"knobs_{dp}x{div}"] = knob_runs(
+            torch, ndiv_cuda, tmp, recipes, make_mesh(dp=dp, div=div))
+    return out
+
+
+def multi_rank_cli(tmp):
+    """Phase 8n (d): `cli train` under torch.distributed.run on two ranks,
+    each traced; then `cli eval` on its workdir.  Their JSON, the warp
+    kernel's launches in each rank's trace, and the wall s of each."""
+    workdir, traces = os.path.join(tmp, "cli"), os.path.join(tmp, "traces")
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "ndivplanning_tpu_torch.cli",
+         "train", "--preset", "pod_dp", "--dp-shards", "2", "--steps",
+         str(MULTI_STEPS), "--workdir", workdir, "--profile-dir", traces],
+        capture_output=True, text=True, timeout=600)
+    train_s = time.perf_counter() - t0
+    if done.returncode:
+        raise AssertionError(f"torchrun cli train exited {done.returncode}: "
+                             f"{done.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in done.stdout.splitlines()
+             if ln.startswith("{")]
+    t0 = time.perf_counter()
+    evaluated = cli_json(["eval", "--workdir", workdir])
+    return {"lines": lines, "rows": _rows(workdir), "workdir": workdir,
+            "launches_by_trace": [
+                trace_warp_launches(os.path.join(traces, name))
+                for name in sorted(os.listdir(traces))],
+            "train_s": train_s, "eval": evaluated,
+            "eval_s": time.perf_counter() - t0}
+
+
+def multi_recording(tmp) -> str:
+    """Where phase 8n's dataset run reads the planning512 recording."""
+    return os.path.join(tmp, "p512.npz")
+
+
+def start_multi_rank(torch, tmp) -> dict:
+    """Phase 8n's legs in their processes, started after the dataset phase
+    so that they run beside phases 8k-8m: (b) and (c) on two gloo ranks
+    sharing the card, (d) `cli train` under torch.distributed.run, all in
+    ``tmp``, which holds the dataset phase's recording (made here when 8n
+    runs alone).  Returns the job that multi_rank_train_phase joins."""
+    from ndivplanning_tpu_torch.parallel.spawn import run_ranks
+
+    t0 = time.perf_counter()
+    recording = multi_recording(tmp)
+    if not os.path.exists(recording):
+        cli_json(["record-data", "--workdir", PLANNING512, "--out",
+                  recording, "--n-examples", str(DATASET_EXAMPLES)])
+    recipes = knob_inputs(torch, tmp)
+    pool = ThreadPoolExecutor(2)
+    job = {"tmp": tmp, "recording": recording, "recipes": recipes,
+           "spawned": pool.submit(timed, functools.partial(
+               run_ranks, multi_rank_worker, 2, tmp, tmp, recording,
+               cuda_device=0, timeout=900)),
+           "cli": pool.submit(multi_rank_cli, tmp),
+           "started": time.perf_counter(),
+           "start_s": time.perf_counter() - t0}
+    pool.shutdown(wait=False)
+    return job
+
+
+def multi_rank_train_phase(torch, ndiv_cuda, smi, job):
+    """Phase 8n: the train loops under a process group (see MULTI_STEPS):
+    (a) one NCCL rank, (b) two gloo ranks sharing the card, (c) the knobs
+    on two ranks, (d) `cli train` under torch.distributed.run; (b)-(d)
+    from ``job`` (start_multi_rank), joined here.  Returns (phase,
+    launches)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ndivplanning_tpu_torch.data.host_pipeline import ArrayDataset
+    from ndivplanning_tpu_torch.parallel import make_mesh
+    from ndivplanning_tpu_torch.utils import checkpoint as ckpt
+    from ndivplanning_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    tmp, recording, recipes = job["tmp"], job["recording"], job["recipes"]
+    try:
+        # (a) One NCCL rank through the loop, then the same steps taken
+        # directly.
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            backend = str(dist.get_backend())
+            one = loop_run(torch, ndiv_cuda, "train", multi_pod_cfg(1, 1),
+                           workdir=os.path.join(tmp, "one"))
+            reset(ndiv_cuda)
+            direct = pod_dp_run("bf16", 1, 1, MULTI_STEPS,
+                                make_mesh(dp=1, div=1))
+            direct_launches = launched(ndiv_cuda)
+        finally:
+            dist.destroy_process_group()
+        one_bitwise = loop_is_direct(one, direct)
+        if not one_bitwise:
+            raise AssertionError("train() on one NCCL rank is not bitwise "
+                                 "make_sharded_train_step's steps")
+        if ckpt.all_steps(os.path.join(tmp, "one")) != [MULTI_EVERY,
+                                                        MULTI_STEPS]:
+            raise AssertionError("the one-rank loop's checkpoints: "
+                                 f"{ckpt.all_steps(os.path.join(tmp, 'one'))}")
+
+        # The references of (b)'s dataset run and of (c), in one process.
+        dcfg = load_config(PLANNING512)
+        dataset_one = loop_run(torch, ndiv_cuda, "dataset", dcfg,
+                               dataset=ArrayDataset.from_npz(recording),
+                               num_epochs=1, workdir=None)
+        knob_one, _ = knob_runs(torch, ndiv_cuda, tmp, recipes)
+        reference_s = time.perf_counter() - t_phase
+    finally:
+        # The legs end before their directory can go.
+        ranks, ranks_s = job["spawned"].result()
+        cli = job["cli"].result()
+    legs_s = time.perf_counter() - job["started"]
+
+    # (b) Two ranks through the loop.
+    failures, two = [], {}
+    pcfg = multi_pod_cfg(1, 1)
+    one_rows, one_g, _ = as_compared(one)
+    for key in ("pod_2x1", "pod_1x2", "pod_first", "pod_resumed", "dataset",
+                "knobs_2x1", "knobs_1x2"):
+        if key.startswith("knobs"):
+            same = all(
+                ranks[0][key][0][name][0] == ranks[1][key][0][name][0]
+                and all(np.array_equal(ranks[0][key][0][name][i][n],
+                                       ranks[1][key][0][name][i][n])
+                        for i in (1, 2) for n in ranks[0][key][0][name][i])
+                for name in recipes)
+        else:
+            same = runs_bitwise(ranks[0][key], ranks[1][key])
+        if not same:
+            failures.append(f"{key}: the two ranks differ")
+    for dp, div in TWO_RANK_MESHES:
+        key, direct_two = f"pod_{dp}x{div}", ranks[0][f"direct_{dp}x{div}"][0]
+        # The loop is the sharded step: bitwise its direct steps.  Against
+        # (a), TWO_RANK_TOL holds over the TWO_RANK_STEPS it was sized for;
+        # past them the two runs drift apart (scripts/two_rank_drift.py),
+        # so the logged rows' gaps are reported, not held.
+        if not loop_is_direct(ranks[0][key], direct_two):
+            failures.append(f"{key}: the loop is not bitwise its direct "
+                            "sharded steps")
+        first_err = compare_metrics(direct[0][:TWO_RANK_STEPS],
+                                    direct_two[0][:TWO_RANK_STEPS], "bf16",
+                                    f"{key} direct")
+        rows, g, _ = as_compared(ranks[0][key])
+        two[key] = {
+            "bitwise_direct_steps": True,
+            "first_steps_metrics_max_rel_err": first_err,
+            "rows_max_rel_gap_to_1x1": [
+                max(abs(r[k] - w[k]) / max(abs(w[k]), 1e-30) for k in w
+                    if k not in SIGN_METRICS)
+                for r, w in zip(rows, one_rows)],
+            "g_max_abs_gap_over_lr_step": max(
+                float(np.abs(g[n] - one_g[n]).max()) for n in g)
+            / (pcfg.g_lr * MULTI_STEPS),
+            "step_ms_windows": [1e3 / r["steps_per_sec"]
+                                for r in ranks[0][key]["rows"]],
+            "seconds": ranks[0][key]["seconds"]}
+    resumed_bitwise = runs_bitwise(ranks[0]["pod_resumed"], {
+        **ranks[0]["pod_2x1"], "rows": [r for r in ranks[0]["pod_2x1"]["rows"]
+                                        if r["step"] > MULTI_EVERY]})
+    if not resumed_bitwise:
+        failures.append("the resumed (2, 1) run is not bitwise the whole one")
+    writes = {key: [ranks[0][key]["writes"], ranks[1][key]["writes"]]
+              for key in ("pod_2x1", "pod_1x2", "pod_resumed", "dataset")}
+    for key, (w0, w1) in writes.items():
+        if w1 or not w0.get("save_checkpoint") or not w0.get("save_config"):
+            failures.append(f"{key}: writes by rank {w0} / {w1}")
+    dataset_steps = ArrayDataset.from_npz(recording).size // dcfg.batch_size
+    dataset_two = compare_runs(as_compared(dataset_one),
+                               as_compared(ranks[0]["dataset"]), "f32",
+                               dcfg.g_lr, dataset_steps, "dataset 2x1")
+
+    # (c) The knobs on two ranks against the one-process step.
+    knobs = {}
+    for dp, div in TWO_RANK_MESHES:
+        got, _ = ranks[0][f"knobs_{dp}x{div}"]
+        for name, cfg in recipes.items():
+            dtype = cfg.compute_dtype
+            # G's params: within 2 lr a step (and bf16's share); the f32
+            # rule's off elements where the gradient is resolved are
+            # counted, not held: a rank's G runs half the rows through
+            # another GEMM, a sample an ulp off can cross an NDiv hinge
+            # kink, and Adam turns that grad into up to ~lr (PERF.md §4).
+            row = compare_runs(knob_one[name], got[name], dtype, cfg.g_lr,
+                               KNOB_STEPS, f"{name} {dp}x{div}",
+                               hold_resolved=False)
+            knobs.setdefault(name, {})[f"{dp}x{div}"] = {
+                "max_rel_gap": max(row["metrics_max_rel_err"].values()),
+                "metrics_max_rel_err": row["metrics_max_rel_err"],
+                "g_params_max_abs_err": row["g_params_max_abs_err"],
+                "g_params_outside_tol": row["g_params_outside_tol"],
+                "g_params_outside_tol_resolved": row[
+                    "g_params_outside_tol_resolved"],
+                "dtype": dtype}
+    knob_metrics = ("d_noise_sigma", "ada_p", "d_r1", "d_lecam", "g_fm",
+                    "g_divfloor")
+    seen = {m for rows, _, _ in knob_one.values() for m in rows[0]}
+    if not set(knob_metrics) <= seen:
+        failures.append(f"knob metrics missing: {set(knob_metrics) - seen}")
+
+    # (d) The CLI.
+    if len(cli["lines"]) != 1 or cli["lines"][0].get("mesh") != "2x1" or (
+            cli["lines"][0].get("backend") != "gloo"
+            or cli["lines"][0].get("final_step") != MULTI_STEPS):
+        failures.append(f"torchrun cli train printed {cli['lines']}")
+    steps = [r["step"] for r in cli["rows"] if "kind" not in r]
+    if steps != sorted(set(steps)) or not steps:
+        failures.append(f"cli train's metrics rows: steps {steps}")
+    if "eval_success_rate" not in cli["eval"]:
+        failures.append(f"cli eval on the torchrun workdir: {cli['eval']}")
+
+    # Launches: one ndiv_joint a rank a step, per run and rank.
+    by_run = {"one_rank": [one["launches"]],
+              "one_rank_direct": [direct_launches]}
+    steps_of = {"one_rank": MULTI_STEPS, "one_rank_direct": MULTI_STEPS,
+                "pod_first": MULTI_EVERY,
+                "pod_resumed": MULTI_STEPS - MULTI_EVERY,
+                "dataset": dataset_steps, "cli": MULTI_STEPS}
+    for key in ("pod_2x1", "pod_1x2", "pod_first", "pod_resumed",
+                "dataset"):
+        by_run[key] = [r[key]["launches"] for r in ranks]
+    for dp, div in TWO_RANK_MESHES:
+        mesh = f"{dp}x{div}"
+        steps_of[f"pod_{mesh}"] = steps_of[f"direct_{mesh}"] = MULTI_STEPS
+        by_run[f"direct_{mesh}"] = [r[f"direct_{mesh}"][1] for r in ranks]
+        for name in recipes:
+            steps_of[f"{name} {mesh}"] = KNOB_STEPS
+            by_run[f"{name} {mesh}"] = [r[f"knobs_{mesh}"][1][name]
+                                        for r in ranks]
+    by_run["cli"] = [{"joint": t.get("ndiv_joint", 0),
+                      "fwd": t.get("ndiv_fwd", 0)}
+                     for t in cli["launches_by_trace"]]
+    bad = {key: runs for key, runs in by_run.items()
+           if len(runs) != (1 if key.startswith("one_rank") else 2)
+           or any(n.get("joint", 0) != steps_of[key] for n in runs)}
+    if bad:
+        failures.append(f"ndiv_joint launches, want one a rank a step: {bad}")
+    if failures:
+        raise AssertionError(f"multi-rank training: {failures}")
+    total_joint, total_fwd = (sum(n.get(kern, 0) for runs in by_run.values()
+                                  for n in runs) for kern in ("joint", "fwd"))
+    # The launch shapes new to the smoke: a rank's chunk at each mesh.
+    shapes = {rank_shape(pcfg, dp, div) for dp, div in TWO_RANK_MESHES}
+    shapes.add(rank_shape(dcfg, 2, 1))
+    shapes |= {rank_shape(cfg, dp, div) for cfg in recipes.values()
+               for dp, div in TWO_RANK_MESHES}
+    shapes.add((pcfg.eval_suite_scenes, pcfg.k, pcfg.latent_dim,
+                pcfg.horizon * pcfg.state_dim))
+    shapes_checked = check_path_shapes(torch, ndiv_cuda, shapes)
+    shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    launches = {"joint": total_joint, "fwd": total_fwd}
+    return {
+        "phase": "multi_rank_train",
+        "one_rank": {"backend": backend, "mesh": "1x1",
+                     "steps": MULTI_STEPS, "every": MULTI_EVERY,
+                     "bitwise_make_sharded_train_step": one_bitwise,
+                     "step_ms_windows": [1e3 / r["steps_per_sec"]
+                                         for r in one["rows"]],
+                     "seconds": one["seconds"], "launches": one["launches"],
+                     "writes": one["writes"]},
+        "two_ranks": {"backend": "gloo", "runs": two,
+                      "resumed_at": MULTI_EVERY,
+                      "resumed_bitwise": resumed_bitwise,
+                      "writes_by_rank": writes,
+                      "dataset_2x1": {"steps": dataset_steps,
+                                      **dataset_two},
+                      "spawn_s": ranks_s},
+        "knobs": {"steps": KNOB_STEPS, "meshes": ["2x1", "1x2"],
+                  "reduced": {"dreset": KNOB_RESTART,
+                              "ada_start_p": KNOB_ADA_P},
+                  "max_rel_gap": {name: max(v["max_rel_gap"]
+                                            for v in runs.values())
+                                  for name, runs in knobs.items()},
+                  "recipes": knobs},
+        "cli": {"json": cli["lines"], "launches_by_trace":
+                cli["launches_by_trace"], "train_s": cli["train_s"],
+                "eval": cli["eval"], "eval_s": cli["eval_s"]},
+        "ndiv_launches_by_run": by_run, "ndiv_joint_launches": total_joint,
+        "ndiv_fwd_launches": total_fwd,
+        "path_shapes_checked": shapes_checked,
+        "reference_s": reference_s, "legs_start_s": job["start_s"],
+        "legs_s": legs_s, "budget_s": MULTI_BUDGET_S,
+        "within_budget": phase_s <= MULTI_BUDGET_S, "phase_s": phase_s,
+        "card": smi}, launches
+
+
+def multi_rank_train_only() -> int:
+    """``python3 chip_smoke.py multi_rank_train``: the device, the build
+    and phase 8n alone (a development run)."""
+    import torch
+
+    from ndivplanning_tpu_torch.ops import ndiv_cuda
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    ndiv_cuda.build()
+    ndiv_cuda.load()
+    job = start_multi_rank(torch, tempfile.mkdtemp(prefix="chip_smoke_multi_"))
+    emit(multi_rank_train_phase(torch, ndiv_cuda, nvidia_smi_line(), job)[0])
+    return 0
+
+
 def sharded_plan_only() -> int:
     """``python3 chip_smoke.py sharded_plan``: the device and phase 8m
     alone (a development run)."""
@@ -5102,10 +5682,14 @@ def main() -> int:
     section("8j. dataset, distill")
     # 8j. Recorded data and expert iteration: the dataset loop on the
     # planning512 recipe, and one distillation round on quadrotor150k.
-    phase, launches = dataset_phase(torch, ndiv_cuda)
+    multi_tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    phase, launches = dataset_phase(torch, ndiv_cuda,
+                                    multi_recording(multi_tmp))
     emit({**phase, "card": smi})
     for run, n in launches.items():
         path_launches[f"dataset_{run}"] = n
+    # Phase 8n's subprocess legs run from here, beside phases 8k-8m.
+    multi_rank_job = start_multi_rank(torch, multi_tmp)
     phase, path_launches["distill_round"] = distill_phase(torch, ndiv_cuda)
     emit({**phase, "card": smi})
     section("8k. stabilisers")
@@ -5124,6 +5708,14 @@ def main() -> int:
     # one NCCL rank bitwise the unsharded planners, two gloo ranks sharing
     # the card, and `cli plan --sharded`.
     emit(sharded_plan_phase(torch, ndiv_cuda, smi))
+    section("8n. multi_rank_train")
+    # 8n. The train loops under a process group: one NCCL rank bitwise the
+    # sharded step, two gloo ranks sharing the card (the loop, its resume,
+    # the dataset loop, every stabiliser recipe), `cli train` under
+    # torch.distributed.run; the last three started after phase 8j.
+    phase, path_launches["multi_rank_train"] = multi_rank_train_phase(
+        torch, ndiv_cuda, smi, multi_rank_job)
+    emit(phase)
 
     section("9. kernels")
     # 9. Kernel times on the first imagecond step's inputs, every route,
@@ -5211,9 +5803,11 @@ def main() -> int:
         "source": "ndivplanning_tpu_torch/parallel/sharded_step.py "
                   "(kernel: ndivplanning_tpu_torch/csrc/ndiv.cu)",
         "replaces": "ndivplanning_tpu/parallel/sharded_step.py:187",
-        "launches": path_launches["pod_dp_train"]["joint"],
+        "launches": (path_launches["pod_dp_train"]["joint"]
+                     + path_launches["multi_rank_train"]["joint"]),
         "launches_by_path": {
-            "pod_dp_train": path_launches["pod_dp_train"]["joint"]},
+            "pod_dp_train": path_launches["pod_dp_train"]["joint"],
+            "multi_rank_train": path_launches["multi_rank_train"]["joint"]},
         "max_abs_err": site_err, "ms": pod_times["site_ms"],
         "plain_ms": pod_times["site_plain_ms"], "bound_ms": site_bound,
         "bound_by": site_by, "allgather_bytes": 0, "library_ms": None,
@@ -5250,6 +5844,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(reporting_failure({"tools": tools_only,
-                                "sharded_plan": sharded_plan_only}.get(
-        " ".join(sys.argv[1:]), main)))
+    sys.exit(reporting_failure({
+        "tools": tools_only, "sharded_plan": sharded_plan_only,
+        "multi_rank_train": multi_rank_train_only}.get(
+            " ".join(sys.argv[1:]), main)))

@@ -12,6 +12,8 @@
     torchrun --nproc-per-node 2 -m ndivplanning_tpu_torch.cli plan --workdir checkpoints_torch/unicycle150k --sharded --refine trajopt --dp-shards 2
     python -m ndivplanning_tpu_torch.cli record-data --preset planning --out runs/p512.npz
     python -m ndivplanning_tpu_torch.cli train --workdir runs/p512 --dataset runs/p512.npz --epochs 30
+    torchrun --standalone --nproc-per-node 2 -m ndivplanning_tpu_torch.cli train --preset pod_dp --dp-shards 2 --workdir runs/pod2
+    torchrun --standalone --nproc-per-node 2 -m ndivplanning_tpu_torch.cli train --preset planning --workdir runs/p512x2 --dataset runs/p512.npz --epochs 30 --dp-shards 2
     python -m ndivplanning_tpu_torch.cli distill --workdir checkpoints_torch/quadrotor150k --planner mpc
     python -m ndivplanning_tpu_torch.cli train --preset goalcond --profile-dir runs/prof --debug-nans
     python -m ndivplanning_tpu_torch.cli viz --workdir checkpoints_torch/planning512 --out plan.png
@@ -25,7 +27,13 @@ plan, serve, viz and export prefer its ``best/`` checkpoint.
 ``--profile-dir`` traces any of them with ``torch.profiler``.  ``plan
 --sharded`` splits one scene's candidates over a process group's ranks
 (``parallel/sharded_plan.py``): the group that exists, one that
-``torchrun`` describes, or one rank of its own.
+``torchrun`` describes, or one rank of its own.  ``train`` (and ``train
+--dataset``) under ``torchrun``, or inside a group that exists, trains on
+the ``--dp-shards`` x ``--div-shards`` mesh of its ranks, which must fill
+the world (NCCL where each rank has a card, gloo where ranks share one or
+run on the CPU); rank 0 alone writes the workdir and prints the JSON
+line.  A plain ``train`` opens no group: one process over the global
+batch.
 """
 
 from __future__ import annotations
@@ -206,11 +214,12 @@ def _plan_mpc(cfg, state, device, args) -> dict:
 
 
 def _process_group(device: torch.device):
-    """The default process group of ``plan --sharded``: the caller's if it
-    exists; one through ``env://`` under ``torchrun`` (``WORLD_SIZE`` set),
-    NCCL where each rank has a card of its own, gloo where ranks share one
-    or the tensors are on the CPU; else one rank through a ``FileStore`` in
-    a temp dir.  Returns ``(device, end)``: under ``torchrun`` a CUDA
+    """The default process group of ``plan --sharded`` and of ``train``
+    under ``torchrun``: the caller's if it exists; one through ``env://``
+    under ``torchrun`` (``WORLD_SIZE`` set), NCCL where each rank has a
+    card of its own, gloo where ranks share one or the tensors are on the
+    CPU; else (``plan --sharded`` alone) one rank through a ``FileStore``
+    in a temp dir.  Returns ``(device, end)``: under ``torchrun`` a CUDA
     ``device`` becomes the rank's card (``LOCAL_RANK`` modulo the cards),
     made current, so that the state, the scene and the generator are built
     there; ``end`` ends a group made here."""
@@ -576,6 +585,42 @@ def _plan(args, cfg, device) -> int:
     return 0
 
 
+def _train(args, cfg, device) -> int:
+    """``train``, on the sampler or a recorded ``--dataset``; under a
+    process group on its mesh (``train/loop.py``), rank 0 printing the one
+    JSON line, with the mesh and the backend."""
+    import torch.distributed as dist
+
+    from ndivplanning_tpu_torch.train.loop import train, train_from_dataset
+
+    if args.dataset:
+        from ndivplanning_tpu_torch.data.host_pipeline import (
+            ArrayDataset,
+            train_eval_split,
+        )
+
+        ds = ArrayDataset.from_npz(args.dataset)
+        eval_ds = None
+        if args.eval_fraction > 0:
+            ds, eval_ds = train_eval_split(ds, args.eval_fraction,
+                                           seed=cfg.seed)
+        state, last = train_from_dataset(
+            cfg, ds, num_epochs=args.epochs, workdir=cfg.workdir, echo=True,
+            eval_dataset=eval_ds, device=device)
+    else:
+        state, history = train(cfg, device=device)
+        last = history[-1] if history else None
+    out = {"final_step": int(state.step), "last": last}
+    if dist.is_initialized():
+        if dist.get_rank():
+            return 0
+        out.update(mesh=f"{cfg.dp_shards}x{cfg.div_shards}",
+                   backend=str(dist.get_backend()),
+                   world=dist.get_world_size())
+    print(json.dumps(out))
+    return 0
+
+
 def _run(args, cfg, device) -> int:
     """The commands that build a config and run on ``device``."""
     if args.cmd == "viz":
@@ -638,31 +683,18 @@ def _run(args, cfg, device) -> int:
         print(json.dumps({"rounds": report}))
         return 0
 
-    if args.cmd == "train" and args.dataset:
-        from ndivplanning_tpu_torch.data.host_pipeline import (
-            ArrayDataset,
-            train_eval_split,
-        )
-        from ndivplanning_tpu_torch.train.loop import train_from_dataset
-
-        ds = ArrayDataset.from_npz(args.dataset)
-        eval_ds = None
-        if args.eval_fraction > 0:
-            ds, eval_ds = train_eval_split(ds, args.eval_fraction,
-                                           seed=cfg.seed)
-        state, last = train_from_dataset(
-            cfg, ds, num_epochs=args.epochs, workdir=cfg.workdir, echo=True,
-            eval_dataset=eval_ds, device=device)
-        print(json.dumps({"final_step": int(state.step), "last": last}))
-        return 0
-
     if args.cmd == "train":
-        from ndivplanning_tpu_torch.train.loop import train
+        import torch.distributed as dist
 
-        state, history = train(cfg, device=device)
-        print(json.dumps({"final_step": int(state.step),
-                          "last": history[-1] if history else None}))
-        return 0
+        if "WORLD_SIZE" in os.environ or dist.is_initialized():
+            # The group first: under torchrun it names the rank's card,
+            # where everything is built.
+            device, end = _process_group(device)
+            try:
+                return _train(args, cfg, device)
+            finally:
+                end()
+        return _train(args, cfg, device)
 
     if args.cmd == "eval":
         from ndivplanning_tpu_torch.train import evaluate as ev

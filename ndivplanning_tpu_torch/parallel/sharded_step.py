@@ -77,6 +77,13 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+def world_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``, the same bits on every rank,
+    differentiable: for a value every rank then holds whole, each rank's
+    cotangent is that of its own summand."""
+    return _AllReduceSum.apply(t, group)
+
+
 def gather_k(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``[b, k/div, ...]`` -> ``[b, k, ...]`` over the div group,
     differentiable."""
@@ -175,8 +182,7 @@ def ndiv_loss_sharded(z: torch.Tensor, x: torch.Tensor, alpha: float,
     value and its grads (each rank's for its own blocks) equal
     ``ndiv_loss_reference`` on the unsharded arrays.
     """
-    return _AllReduceSum.apply(ndiv_share_sharded(z, x, alpha, mesh, impl),
-                               mesh.world)
+    return world_sum(ndiv_share_sharded(z, x, alpha, mesh, impl), mesh.world)
 
 
 def _state_tensors(state: TrainState):

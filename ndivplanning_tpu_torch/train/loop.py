@@ -10,13 +10,20 @@ start, so a stopped run resumes its exact bitwise loss curve.
 deterministic epoch stream, so its step counter is a position in one
 dataset, which a marker file in the workdir vouches for on resume.
 
-The port runs in one process.  A config with ``dp_shards * div_shards >
-1`` trains over its global batch without a mesh, as the unsharded step
-does; the JAX loop routes it to the sharded step.  :func:`train` ends its
-metrics with a ``kind="compile"`` row: the programs the run compiled
-(``utils/compile_guard.py``: the CUDA kernels' and the host plane's
-builds and ``torch.compile`` graphs), as the JAX loop counts its XLA
-programs.
+Under a torch.distributed process group both loops build the
+``make_mesh(cfg=cfg)`` mesh (its ``(dp_shards, div_shards)`` must fill the
+world; a 1x1 group is a mesh too) and run the sharded step
+(``parallel/sharded_step.py``) from rank 0's state: every rank walks the
+same global batches, keeps its block, and returns the same metrics.
+Rank 0 alone writes the workdir (metrics, checkpoints, the config, the
+dataset marker, ``best/``), echoes and evaluates; the others wait for it
+at the next step's first collective, and for its last checkpoint before
+they return.  Without a process group a ``dp_shards * div_shards > 1``
+config trains over its global batch in one process, as the unsharded
+step does.  :func:`train` ends its metrics with a ``kind="compile"`` row:
+the programs the run compiled (``utils/compile_guard.py``: the CUDA
+kernels' and the host plane's builds and ``torch.compile`` graphs), as
+the JAX loop counts its XLA programs.
 """
 
 from __future__ import annotations
@@ -280,14 +287,26 @@ class _LoopObserver:
             ckpt.save_checkpoint(self.workdir, state)
 
 
-def _check_one_process() -> None:
+def _mesh_of(cfg: Config):
+    """The run's mesh under a process group (``make_mesh`` raises where
+    dp_shards x div_shards does not fill the world), else None."""
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and (
-            dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "train: the multi-rank loop is not ported yet; the port's loop "
-            "runs in one process (a dp_shards * div_shards > 1 config "
-            "trains over its global batch there)")
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from ndivplanning_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(cfg=cfg)
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes the run's files: rank 0 of a mesh."""
+    return mesh is None or torch.distributed.get_rank() == 0
+
+
+def _sync(mesh) -> None:
+    """On a mesh, wait for every rank: rank 0's files are complete."""
+    if mesh is not None:
+        torch.distributed.barrier(group=mesh.world)
 
 
 def train(cfg: Config, num_steps: Optional[int] = None,
@@ -297,18 +316,39 @@ def train(cfg: Config, num_steps: Optional[int] = None,
 
     ``workdir=None`` means ``cfg.workdir``; ``""`` disables checkpoints,
     metrics and restore.  Returns (final_state, history), history the list
-    of logged metric rows."""
-    _check_one_process()
+    of logged metric rows: on a mesh the same on every rank but for
+    ``steps_per_sec``, each rank's own clock."""
     num_steps = cfg.steps if num_steps is None else num_steps
     workdir = cfg.workdir if workdir is None else workdir
     # Every program this run compiles, set-up included (logged at the end).
     compile_rec, stop_compile_count = start_compile_count()
 
+    mesh = _mesh_of(cfg)
     state = create_train_state(cfg, device=device)
     if restore and workdir:
         restored = ckpt.restore_latest(workdir, state)
         if restored is not None:
             state = restored
+    chunk_steps = {}
+    if mesh is not None:
+        from ndivplanning_tpu_torch.parallel.sharded_step import (
+            make_sharded_train_step,
+            shard_state,
+        )
+
+        state = shard_state(state, mesh)
+
+        def run_chunk(cfg, state, n):
+            # One step function per chunk size, reused.
+            if n not in chunk_steps:
+                chunk_steps[n] = make_sharded_train_step(cfg, mesh,
+                                                         chunk=n)[0]
+            return chunk_steps[n](state)
+    else:
+        run_chunk = train_chunk
+    writes = _writes(mesh)
+    if not writes:
+        workdir, echo = "", False
     if workdir:
         # Record the config so eval, plan and serve rebuild the same
         # models without retyping flags.
@@ -318,15 +358,17 @@ def train(cfg: Config, num_steps: Optional[int] = None,
     writer = MetricsWriter(workdir, echo=echo)
     obs = _LoopObserver(
         cfg, workdir, num_steps, writer,
-        eval_fn=lambda state, step, use_ema: host_floats(evaluate_fixed(
-            cfg, state, n_scenes=cfg.eval_suite_scenes, use_ema=use_ema)))
+        eval_fn=None if not writes else (
+            lambda state, step, use_ema: host_floats(evaluate_fixed(
+                cfg, state, n_scenes=cfg.eval_suite_scenes,
+                use_ema=use_ema))))
 
     step = state.step
     try:
         while step < num_steps:
             target = obs.next_boundary(step)
             chunk = target - step
-            state, metrics = train_chunk(cfg, state, chunk)
+            state, metrics = run_chunk(cfg, state, chunk)
             # The one read of the chunk's metrics: where the host waits for
             # the card, inside the try so an interrupt here still saves.
             last = host_floats({k: v[-1] for k, v in metrics.items()})
@@ -341,6 +383,7 @@ def train(cfg: Config, num_steps: Optional[int] = None,
     finally:
         stop_compile_count()
         writer.close()
+    _sync(mesh)
     return state, obs.history
 
 
@@ -375,6 +418,9 @@ def train_from_dataset(cfg: Config, dataset, num_epochs: int,
     - Each step runs as its batch arrives; metrics are read from the
       device at the log, checkpoint and eval boundaries, the JAX loop's
       flush points.
+    - Under a process group every rank walks the same global batches
+      (device-resident or streamed, as above) through the sharded step,
+      which keeps each rank's block; rank 0 alone writes and evaluates.
 
     ``state=None`` starts from ``create_train_state(cfg, device=device)``
     (default: the card).  Returns (state, the last metrics row)."""
@@ -385,7 +431,6 @@ def train_from_dataset(cfg: Config, dataset, num_epochs: int,
     )
     from ndivplanning_tpu_torch.train.evaluate import evaluate_on_batch
 
-    _check_one_process()
     if eval_suite and eval_dataset is not None:
         raise ValueError("eval_suite and eval_dataset are mutually "
                          "exclusive: pick one eval protocol")
@@ -396,6 +441,7 @@ def train_from_dataset(cfg: Config, dataset, num_epochs: int,
             f"batch ({cfg.batch_size})")
     total_steps = num_epochs * steps_per_epoch
 
+    mesh = _mesh_of(cfg)
     if state is None:
         state = create_train_state(cfg, device=device)
     device = state.rng.device
@@ -405,6 +451,13 @@ def train_from_dataset(cfg: Config, dataset, num_epochs: int,
         # it into the state.
         _check_dataset_marker(workdir, dataset, cfg)
         state = ckpt.restore_latest(workdir, state)
+    if mesh is not None:
+        from ndivplanning_tpu_torch.parallel.sharded_step import shard_state
+
+        state = shard_state(state, mesh)
+    writes = _writes(mesh)
+    if not writes:
+        workdir, echo = None, False
     if workdir:
         _write_dataset_marker(workdir, dataset, cfg)
         save_config(cfg, workdir)
@@ -413,12 +466,12 @@ def train_from_dataset(cfg: Config, dataset, num_epochs: int,
     def to_batch(arrays):
         return batch_from_arrays(arrays, cfg.conditioning)
 
-    eval_fn = None
-    if eval_suite:
+    eval_fn = None  # rank 0 alone evaluates
+    if eval_suite and writes:
         def eval_fn(state, step, use_ema):
             return host_floats(evaluate_fixed(
                 cfg, state, n_scenes=cfg.eval_suite_scenes, use_ema=use_ema))
-    elif eval_dataset is not None:
+    elif eval_dataset is not None and writes:
         n_eval = ((eval_dataset.size // cfg.batch_size) * cfg.batch_size
                   or eval_dataset.size)
         eval_batch = to_batch({k: v[:n_eval] for k, v in
@@ -474,7 +527,7 @@ def train_from_dataset(cfg: Config, dataset, num_epochs: int,
     target = obs.next_boundary(step)
     try:
         for batch in stream:
-            state, metrics = train_step_impl(cfg, state, batch)
+            state, metrics = train_step_impl(cfg, state, batch, mesh=mesh)
             step += 1
             if step < target:
                 continue
@@ -488,6 +541,7 @@ def train_from_dataset(cfg: Config, dataset, num_epochs: int,
         raise
     finally:
         writer.close()
+    _sync(mesh)
     return state, last
 
 

@@ -7,9 +7,10 @@ Covers every preset, unsharded or over a (dp, div) mesh of
 torch.distributed ranks, in float32 or bf16 compute, with the JAX step's
 stabiliser knobs: instance noise, DiffAugment and ADA, R1, LeCam, D
 warm restarts, feature matching, the top-k G update, the diversity floor
-and rematerialisation.  On a mesh the knobs raise: their global forms
-(top-k over every fake, feature means, the floor across the div axis)
-need collectives inside the losses.
+and rematerialisation.  On a mesh every knob keeps its global form, as
+GSPMD gives the JAX step: the draws are sliced to each rank's block, the
+means behind LeCam's trackers, feature matching and the floor are summed
+over the world, and the top-k G update keeps the global top-k.
 
 Every draw of a step comes from ``state.rng`` in the JAX step's order:
 the latents, then the three instance-noise tensors, then each DiffAugment
@@ -34,7 +35,12 @@ from ndivplanning_tpu_torch.data.tasks import Batch, make_task
 from ndivplanning_tpu_torch.ops.gan_losses import get_gan_losses
 from ndivplanning_tpu_torch.ops.ndiv import ndiv_loss
 from ndivplanning_tpu_torch.ops.pairwise import pairwise_l2
-from ndivplanning_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_, flat_
+from ndivplanning_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_cat,
+    all_reduce_sum_,
+    flat_,
+)
 from ndivplanning_tpu_torch.train.state import (
     Adam,
     ConditionedDiscriminator,
@@ -50,35 +56,14 @@ from ndivplanning_tpu_torch.utils.profiling import check_finite, nan_debugging
 _F32_TINY = torch.finfo(torch.float32).tiny
 
 
-def _knobs(cfg: Config) -> dict[str, bool]:
-    return {
-        "instance_noise_sigma": cfg.instance_noise_sigma > 0,
-        "diffaug": bool(cfg.diffaug),
-        "ada_target": cfg.ada_target > 0,
-        "r1_weight": cfg.r1_weight > 0,
-        "lecam_weight": cfg.lecam_weight > 0,
-        "topk_g_fraction": cfg.topk_g_fraction > 0,
-        "feature_matching_weight": cfg.feature_matching_weight > 0,
-        "div_floor": cfg.div_floor > 0,
-        "d_reset_every": cfg.d_reset_every > 0,
-        "remat": cfg.remat,
-    }
-
-
-def check_step_knobs(cfg: Config, mesh: Mesh | None = None) -> None:
-    """Raise ``ValueError`` for a config the JAX step refuses, and on a mesh
-    ``NotImplementedError`` naming every stabiliser knob set."""
+def check_step_knobs(cfg: Config) -> None:
+    """Raise ``ValueError`` for a config the JAX step refuses."""
     check_model_knobs(cfg)
     check_optimizer_knobs(cfg)
     if cfg.ada_target > 0 and not cfg.diffaug:
         raise ValueError("ada_target > 0 needs a diffaug transform set "
                          "(e.g. --set diffaug=shift) — ADA modulates the "
                          "APPLICATION PROBABILITY of those transforms")
-    on = [name for name, set_ in _knobs(cfg).items() if set_]
-    if mesh is not None and on:
-        raise NotImplementedError(
-            f"{', '.join(on)}: not ported to the sharded train step (a "
-            "mesh) yet")
 
 
 @dataclasses.dataclass
@@ -265,9 +250,12 @@ def _ndiv(cfg: Config, z: torch.Tensor, traj: torch.Tensor,
                               impl="pallas" if fused else "jnp")
 
 
-def _local_block(batch: Batch, z: torch.Tensor, mesh: Mesh):
-    """This rank's conditions and reals ``[dp slice]`` and latents
-    ``[dp slice, div slice]`` of the global batch and z."""
+def _local_block(batch: Batch, z: torch.Tensor, draws: StepDraws,
+                 mesh: Mesh):
+    """This rank's conditions and reals ``[dp slice]``, latents ``[dp slice,
+    div slice]`` and draws of the global batch, z and draws: the reals'
+    noise and each DiffAugment pass's draws by dp rows (a condition's k
+    fakes share its draw), the fakes' noise by dp rows and div columns."""
     b, k = z.shape[:2]
     if b % mesh.dp or k % mesh.div:
         raise ValueError(f"batch {b} and k={k} must divide over the "
@@ -275,8 +263,43 @@ def _local_block(batch: Batch, z: torch.Tensor, mesh: Mesh):
     bl, kl = b // mesh.dp, k // mesh.div
     rows = slice(mesh.dp_index * bl, (mesh.dp_index + 1) * bl)
     cols = slice(mesh.div_index * kl, (mesh.div_index + 1) * kl)
+    noise = tuple(n[rows] if i == 0 else n[rows, cols]
+                  for i, n in enumerate(draws.noise))
+    aug = tuple(AugDraws(*(None if t is None else t[rows]
+                           for t in (a.mask, a.shift, a.cutout)))
+                for a in draws.aug)
     return (batch.conditions[rows], batch.real_traj[rows],
-            z[rows, cols].contiguous())
+            z[rows, cols].contiguous(),
+            StepDraws(noise=noise, aug=aug, fresh_d=draws.fresh_d))
+
+
+def _global_topk(g_logits: torch.Tensor, n_keep: int,
+                 mesh: Mesh) -> torch.Tensor:
+    """This rank's logits among the global top ``n_keep`` of every rank's
+    ``[B/dp, k/div]`` block, picked from the logits gathered into the
+    unsharded ``[B, k]`` row-major order, so that ties break as there."""
+    bl, kl = g_logits.shape
+    blocks = all_gather_cat(g_logits.detach()[None], mesh.world, dim=0)
+    full = blocks.reshape(mesh.dp, mesh.div, bl, kl).permute(0, 2, 1, 3)
+    kept = torch.zeros(full.numel(), dtype=torch.bool, device=full.device)
+    kept[torch.topk(full.reshape(-1), n_keep).indices] = True
+    mine = kept.reshape(mesh.dp, bl, mesh.div, kl)[mesh.dp_index, :,
+                                                   mesh.div_index]
+    return g_logits[mine]
+
+
+def _floor_partial(tau: torch.Tensor, k: int, mesh: Mesh) -> torch.Tensor:
+    """The off-diagonal pairwise distances of this rank's samples to every
+    sample of their condition, summed: the div group's samples gathered
+    (differentiably), this rank's rows of the ``[b, k, k]`` distances."""
+    from ndivplanning_tpu_torch.parallel.sharded_step import gather_k
+
+    b, kl = tau.shape[:2]
+    full = gather_k(tau.reshape(b, kl, -1), mesh)
+    lo = mesh.div_index * kl
+    own = torch.arange(kl, device=tau.device)[:, None] + lo
+    off = own != torch.arange(k, device=tau.device)[None, :]
+    return torch.sum(torch.where(off, pairwise_l2(full)[:, lo:lo + kl], 0.0))
 
 
 def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
@@ -287,18 +310,20 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
     ``z [B, k, zdim]`` replaces the latent draw from ``state.rng``, and
     ``draws`` the stabiliser knobs' draws (:func:`draw_step`).
     With a ``mesh`` (``parallel/mesh.py``) this is the explicit form of the
-    JAX step under GSPMD: ``batch`` and ``z`` are global and every rank
-    keeps its block of them; its losses are its shares of the global ones,
-    which sum over the ranks to the unsharded objective.  The blocks divide
-    the batch and k evenly, so a GAN term's share is its local mean over
-    the world size (a real logit, replicated over the div group, counts
-    1/div on each of its ranks), and NDiv's is the call site's partial
-    over the global pair count.  D's and G's grads are summed over the
-    world before every rank's identical Adam step, and the metrics are the
-    summed shares.
+    JAX step under GSPMD: ``batch``, ``z`` and ``draws`` are global and
+    every rank keeps its block of them; its losses are its shares of the
+    global ones, which sum over the ranks to the unsharded objective.  The
+    blocks divide the batch and k evenly, so a mean's share is its local
+    mean over the world size (a real logit, replicated over the div group,
+    counts 1/div on each of its ranks): the GAN terms, R1 and LeCam's;
+    NDiv's is the call site's partial over the global pair count.  Feature
+    matching and the diversity floor are functions of global means, which
+    every rank sums over the world (differentiably) and holds whole.  D's
+    and G's grads are summed over the world before every rank's identical
+    Adam step, and every metric is the global value.
     Returns (state, metrics), metrics a dict of 0-d float32 tensors.
     """
-    check_step_knobs(cfg, mesh)
+    check_step_knobs(cfg)
     d_loss_fn, g_loss_fn = get_gan_losses(cfg.gan_loss)
     b = batch.real_traj.shape[0]
     if z is None:
@@ -309,10 +334,19 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
     if mesh is None:
         conditions, real = batch.conditions, batch.real_traj
     else:
-        conditions, real, z = _local_block(batch, z, mesh)
+        from ndivplanning_tpu_torch.parallel.sharded_step import world_sum
+
+        conditions, real, z, draws = _local_block(batch, z, draws, mesh)
 
     def share(loss):
         return loss if mesh is None else loss / (mesh.dp * mesh.div)
+
+    def world_mean(local_mean):
+        """The global mean from this rank's local one, the same bits on
+        every rank; differentiable."""
+        if mesh is None:
+            return local_mean
+        return world_sum(share(local_mean), mesh.world)
 
     def world_sum_(tensors):
         if mesh is not None:
@@ -354,22 +388,23 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
                       for key, v in state.lecam_ema.items()}
         lecam = (torch.mean(torch.square(real_logits - anchor["fake"]))
                  + torch.mean(torch.square(fake_logits - anchor["real"])))
-        d_loss = d_loss + cfg.lecam_weight * lecam
-        metrics["d_lecam"] = lecam.detach()
+        d_loss = d_loss + share(cfg.lecam_weight * lecam)
+        metrics["d_lecam"] = share(lecam.detach())
     if cfg.r1_weight > 0:
         # R1: the squared gradient of D's summed real logits with respect
         # to the trajectory D saw, summed per sample, batch mean.
         (g_traj,) = torch.autograd.grad(real_logits.sum(), real_d,
                                         create_graph=True)
         r1 = torch.mean(torch.sum(torch.square(g_traj.float()), dim=(1, 2)))
-        d_loss = d_loss + 0.5 * cfg.r1_weight * r1
-        metrics["d_r1"] = r1.detach()
+        d_loss = d_loss + share(0.5 * cfg.r1_weight * r1)
+        metrics["d_r1"] = share(r1.detach())
     check_finite("train step: D's forward", {"d_loss": d_loss})
     d_grads = torch.autograd.grad(d_loss, list(state.d.parameters()))
     state.d_opt.step(state.d, world_sum_(list(d_grads)))
     if reset_due(cfg, state.step):
         # D warm restart: a fresh D and a fresh Adam chain at count 0 (its
-        # LR schedule starts over); G keeps its momentum.
+        # LR schedule starts over); G keeps its momentum.  The fresh D's
+        # seed came from the replicated state.rng: every rank's is alike.
         with torch.no_grad():
             for name, p in state.d.named_parameters():
                 p.copy_(draws.fresh_d[name])
@@ -378,11 +413,14 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
     if cfg.lecam_weight > 0:
         # One tracker update a step, on the means D saw before its update.
         lc_d = cfg.lecam_decay
-        state.lecam_ema = {
-            "real": lc_d * state.lecam_ema["real"]
-            + (1.0 - lc_d) * torch.mean(real_logits.detach()),
-            "fake": lc_d * state.lecam_ema["fake"]
-            + (1.0 - lc_d) * torch.mean(fake_logits.detach())}
+        means = {"real": torch.mean(real_logits.detach()),
+                 "fake": torch.mean(fake_logits.detach())}
+        if mesh is not None:
+            summed = world_mean(torch.stack([means["real"], means["fake"]]))
+            means = dict(zip(means, summed.unbind()))
+        state.lecam_ema = {key: lc_d * state.lecam_ema[key]
+                           + (1.0 - lc_d) * means[key]
+                           for key in ("real", "fake")}
 
     # ---------------- G update against the updated D ----------------
     tau = gen(conditions, z)
@@ -402,36 +440,60 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
         with torch.no_grad():
             _, real_feats = state.d(cond_real_d, real_d.detach(),
                                     return_features=True)
+        real_mean = torch.mean(real_feats, dim=0)
         fake_mean = torch.mean(fake_feats.reshape(-1, fake_feats.shape[-1]),
                                dim=0)
-        fm = torch.mean(torch.square(torch.mean(real_feats, dim=0)
-                                     - fake_mean))
+        if mesh is not None:
+            real_mean, fake_mean = world_mean(
+                torch.stack([real_mean, fake_mean])).unbind()
+        fm = torch.mean(torch.square(real_mean - fake_mean))
     else:
         g_logits = disc(cond_g, tau_d)
     if cfg.topk_g_fraction > 0:
         # Adversarial gradients only through the fakes D scores most real;
-        # the rest still get NDiv's.  Python's round, as the JAX step.
-        flat = g_logits.reshape(-1)
-        n_keep = max(int(round(cfg.topk_g_fraction * flat.shape[0])), 1)
-        g_logits = torch.topk(flat, n_keep).values
-    g_adv = share(g_loss_fn(g_logits))
+        # the rest still get NDiv's.  Python's round, as the JAX step; on a
+        # mesh the global top-k, each rank's share its own kept logits'
+        # loss over the global count.
+        n_all = g_logits.numel() * (1 if mesh is None
+                                    else mesh.dp * mesh.div)
+        n_keep = max(int(round(cfg.topk_g_fraction * n_all)), 1)
+        if mesh is None:
+            g_adv = g_loss_fn(torch.topk(g_logits.reshape(-1), n_keep).values)
+        else:
+            kept = _global_topk(g_logits.reshape(tau.shape[:2]), n_keep, mesh)
+            g_adv = (g_loss_fn(kept) * (kept.numel() / n_keep)
+                     if kept.numel() else 0.0 * g_logits.sum())
+    else:
+        g_adv = share(g_loss_fn(g_logits))
     g_ndiv = _ndiv(cfg, z, tau, mesh)
-    g_total = g_adv + cfg.ndiv_weight * g_ndiv
+    # The objective takes whole the terms every rank holds whole (feature
+    # matching, the floor): each rank's grads of them are its own samples'
+    # part, so the world sum counts them once.  The g_total metric, a
+    # world sum, takes their shares.
+    g_obj = g_total = g_adv + cfg.ndiv_weight * g_ndiv
+    whole = []
     if fm_w > 0:
-        g_total = g_total + fm_w * fm
+        whole.append(fm_w * fm)
         metrics["g_fm"] = fm.detach()
     if cfg.div_floor > 0:
         # A hinge on the absolute mean pairwise distance of a condition's k
         # samples, which NDiv's row normalisation cannot see.
-        flat = tau.reshape(tau.shape[0], cfg.k, -1)
-        off = ~torch.eye(cfg.k, dtype=torch.bool, device=tau.device)
-        mpd = torch.sum(torch.where(off, pairwise_l2(flat), 0.0)) / (
-            flat.shape[0] * cfg.k * (cfg.k - 1))
+        if mesh is None:
+            flat = tau.reshape(tau.shape[0], cfg.k, -1)
+            off = ~torch.eye(cfg.k, dtype=torch.bool, device=tau.device)
+            mpd = torch.sum(torch.where(off, pairwise_l2(flat), 0.0)) / (
+                flat.shape[0] * cfg.k * (cfg.k - 1))
+        else:
+            mpd = world_sum(_floor_partial(tau, cfg.k, mesh), mesh.world) / (
+                b * cfg.k * (cfg.k - 1))
         dfloor = F.relu(cfg.div_floor - mpd)
-        g_total = g_total + cfg.div_floor_weight * dfloor
+        whole.append(cfg.div_floor_weight * dfloor)
         metrics["g_divfloor"] = dfloor.detach()
-    check_finite("train step: G's forward", {"g_total": g_total})
-    g_grads = torch.autograd.grad(g_total, list(state.g.parameters()))
+    for term in whole:
+        g_obj = g_obj + term
+        g_total = g_obj if mesh is None else g_total + share(term)
+    check_finite("train step: G's forward", {"g_total": g_obj})
+    g_grads = torch.autograd.grad(g_obj, list(state.g.parameters()))
     state.g_opt.step(state.g, world_sum_(list(g_grads)))
 
     # EMA of G (decay 0 reduces to a copy).
@@ -449,6 +511,9 @@ def train_step_impl(cfg: Config, state: TrainState, batch: Batch,
               "g_ndiv": g_ndiv.detach(), "g_total": g_total.detach(),
               "d_rt": rt}
     if mesh is not None:
+        # The shares summed: R1's and LeCam's too.
+        shared.update({key: metrics.pop(key) for key in ("d_lecam", "d_r1")
+                       if key in metrics})
         summed = world_sum_([torch.stack(list(shared.values()))])[0]
         shared = dict(zip(shared, summed.unbind()))
     metrics.update(shared)

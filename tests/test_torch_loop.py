@@ -4,9 +4,11 @@ The ported behaviours of the JAX package's ``tests/test_loop.py``,
 ``tests/test_train_chunk.py``, ``tests/test_metrics.py`` and
 ``test_determinism.py::test_run_steps_helper_matches_loop``, then what the
 port adds: a resumed run bitwise equal to an uninterrupted one, the
-interrupt save of an in-place state, and the one-process rule.  The two
-packages' random streams never agree, so these hold the port to itself;
-``tests/test_torch_evaluate.py`` holds its metrics to JAX's.
+interrupt save of an in-place state, and the one-process rule without a
+process group (tests/test_torch_multi_rank_train.py runs the loop under
+one).  The two packages' random streams never agree, so these hold the
+port to itself; ``tests/test_torch_evaluate.py`` holds its metrics to
+JAX's.
 """
 
 import json
@@ -419,13 +421,6 @@ def test_sharded_config_trains_in_one_process_over_the_global_batch():
     for shards in (dict(dp_shards=2), dict(div_shards=2)):
         sharded, _ = _train(cfg.replace(**shards), workdir="")
         assert_states_bitwise_equal(sharded, plain)
-
-
-def test_multi_rank_loop_is_not_ported_yet(monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-rank loop"):
-        _train(_chunk_cfg(), workdir="")
 
 
 # ------------------------------------------------------ tests/test_metrics.py

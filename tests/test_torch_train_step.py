@@ -17,9 +17,8 @@ from ndivplanning_tpu.train.state import create_train_state as jax_create
 from ndivplanning_tpu.train.state import lr_schedule as jax_lr_schedule
 from ndivplanning_tpu.train.step import train_step as jax_train_step
 from ndivplanning_tpu.utils.config import get_config as jax_get_config
-from ndivplanning_tpu_torch.data.tasks import Batch, make_task
+from ndivplanning_tpu_torch.data.tasks import Batch
 from ndivplanning_tpu_torch.envs.types import Scene
-from ndivplanning_tpu_torch.parallel.mesh import Mesh
 from ndivplanning_tpu_torch.train.state import (
     check_optimizer_knobs,
     create_train_state,
@@ -226,24 +225,6 @@ def test_sharded_config_without_a_mesh_matches_jax(shards):
     _assert_metrics_close(m[0], jm[0], m[0].keys())
     assert m[0]["g_ndiv"] > 0.0
     _assert_state_close(jstate, state, 1)
-
-
-@pytest.mark.parametrize("knob,value", [
-    ("r1_weight", 1.0), ("lecam_weight", 0.1), ("diffaug", "shift"),
-    ("ada_target", 0.6), ("instance_noise_sigma", 0.1),
-    ("topk_g_fraction", 0.5), ("div_floor", 0.1),
-    ("feature_matching_weight", 1.0), ("d_reset_every", 10),
-    ("remat", True)])
-def test_unported_step_knobs_raise_with_their_name(knob, value):
-    """On a mesh (here 1x1, no collective reached) every stabiliser knob
-    raises naming itself: their global forms need collectives inside the
-    losses.  Without a mesh they run (tests/test_torch_stabilisers.py)."""
-    extra = {"diffaug": "shift"} if knob == "ada_target" else {}
-    cfg = get_config("goalcond", **SMALL, **extra, **{knob: value})
-    state = create_train_state(cfg, device="cpu")
-    batch = make_task(cfg).sample(state.rng, cfg.batch_size)
-    with pytest.raises(NotImplementedError, match=knob):
-        train_step_impl(cfg, state, batch, mesh=Mesh(1, 1, 0, 0, None, None))
 
 
 def test_pod_dp_shaped_step_on_the_recompute_route_matches_jax(monkeypatch):

@@ -106,7 +106,157 @@ def sharded_step_worker(cfg, meshes, state_dict, inputs, repeats):
     return out
 
 
+# ------------------------------------------------- multi-rank training
+
+
+def state_snapshot(state):
+    """Every tensor and counter of a TrainState, as numpy on the host."""
+    def host(tensors):
+        return {k: v.detach().cpu().numpy().copy() for k, v in tensors.items()}
+
+    snap = {"step": state.step,
+            "rng": state.rng.get_state().numpy().copy(),
+            "ada": host(state.ada), "lecam_ema": host(state.lecam_ema)}
+    for name in ("g", "d", "g_ema"):
+        snap[name] = host(getattr(state, name).state_dict())
+    for name in ("g_opt", "d_opt"):
+        opt = getattr(state, name)
+        snap[name] = {"count": opt.count, "mu": host(opt.mu),
+                      "nu": host(opt.nu)}
+    return snap
+
+
+def state_from_snapshot(cfg, snap):
+    """A CPU TrainState holding ``snap`` (from :func:`state_snapshot`)."""
+    from ndivplanning_tpu_torch.train.state import create_train_state
+
+    def dev(arrays):
+        return {k: torch.tensor(v) for k, v in arrays.items()}
+
+    state = create_train_state(cfg, device="cpu")
+    state.step = snap["step"]
+    state.rng.set_state(torch.tensor(snap["rng"]))
+    state.ada, state.lecam_ema = dev(snap["ada"]), dev(snap["lecam_ema"])
+    for name in ("g", "d", "g_ema"):
+        getattr(state, name).load_state_dict(dev(snap[name]))
+    for name in ("g_opt", "d_opt"):
+        opt = getattr(state, name)
+        opt.count = snap[name]["count"]
+        opt.mu, opt.nu = dev(snap[name]["mu"]), dev(snap[name]["nu"])
+    return state
+
+
+def draws_numpy(draws):
+    """A StepDraws as plain numpy: (noise, aug fields, fresh D)."""
+    def host(t):
+        return None if t is None else t.detach().cpu().numpy()
+
+    return ([host(n) for n in draws.noise],
+            [(host(a.mask), host(a.shift), host(a.cutout))
+             for a in draws.aug],
+            None if draws.fresh_d is None
+            else {k: host(v) for k, v in draws.fresh_d.items()})
+
+
+def draws_torch(arrays):
+    """The StepDraws of :func:`draws_numpy`'s arrays."""
+    from ndivplanning_tpu_torch.train.step import AugDraws, StepDraws
+
+    def dev(a):
+        return None if a is None else torch.tensor(a)
+
+    noise, aug, fresh = arrays
+    return StepDraws(
+        noise=tuple(dev(n) for n in noise),
+        aug=tuple(AugDraws(*(dev(t) for t in fields)) for fields in aug),
+        fresh_d=None if fresh is None else {k: dev(v)
+                                            for k, v in fresh.items()})
+
+
+def mesh_knob_worker(runs):
+    """Each run ``(name, cfg, (dp, div), snapshot, steps)``, ``steps`` a
+    list of global ``(conditions, real_traj, z, draws_numpy)``: those steps
+    of the sharded step on a (dp, div) mesh from the snapshot's state.
+    Per run: each step's metrics and the state snapshot after each step."""
+    from ndivplanning_tpu_torch.data.tasks import Batch
+    from ndivplanning_tpu_torch.parallel import make_mesh, shard_state
+    from ndivplanning_tpu_torch.train.step import train_step_impl
+
+    out = {}
+    for name, cfg, (dp, div), snap, steps in runs:
+        mesh = make_mesh(dp=dp, div=div)
+        state = shard_state(state_from_snapshot(cfg, snap), mesh)
+        metrics, snaps = [], []
+        for cond, real, z, draws in steps:
+            batch = Batch(torch.tensor(cond), torch.tensor(real), None)
+            state, m = train_step_impl(cfg, state, batch, z=torch.tensor(z),
+                                       mesh=mesh, draws=draws_torch(draws))
+            metrics.append({k: float(v) for k, v in m.items()})
+            snaps.append(state_snapshot(state))
+        out[name, dp, div] = (metrics, snaps)
+    return out
+
+
+# The loop's writers, counted per rank by train_jobs_worker.
+LOOP_WRITERS = ("save_checkpoint", "save_config", "_write_dataset_marker",
+                "_write_best_marker")
+
+
+def train_jobs_worker(jobs):
+    """Each job ``(name, fn, cfg, kwargs)``, in order, under the group on
+    the CPU: ``fn`` "train" (``train(cfg, echo=False, **kwargs)``) or
+    "dataset" (``train_from_dataset(cfg, **kwargs)``).  Per job: the
+    history rows (or the last row) without ``steps_per_sec``, the state
+    snapshot, and the calls this rank made to each of LOOP_WRITERS; or
+    ``("error", message)`` for a ValueError."""
+    from ndivplanning_tpu_torch.train import loop
+
+    calls = {}
+
+    def counted(fn, name):
+        def wrapper(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    saved = {"save_checkpoint": loop.ckpt.save_checkpoint}
+    loop.ckpt.save_checkpoint = counted(saved["save_checkpoint"],
+                                        "save_checkpoint")
+    for name in LOOP_WRITERS[1:]:
+        saved[name] = getattr(loop, name)
+        setattr(loop, name, counted(saved[name], name))
+    out = {}
+    try:
+        for name, fn, cfg, kwargs in jobs:
+            calls.clear()
+            try:
+                if fn == "train":
+                    state, rows = loop.train(cfg, echo=False, device="cpu",
+                                             **kwargs)
+                else:
+                    state, last = loop.train_from_dataset(cfg, device="cpu",
+                                                          **kwargs)
+                    rows = [last]
+            except ValueError as e:
+                out[name] = ("error", str(e))
+                continue
+            rows = [{k: v for k, v in r.items() if k != "steps_per_sec"}
+                    for r in rows]
+            out[name] = (rows, state_snapshot(state), dict(calls))
+    finally:
+        loop.ckpt.save_checkpoint = saved.pop("save_checkpoint")
+        for name, fn in saved.items():
+            setattr(loop, name, fn)
+    return out
+
 
 def failing_worker():
     """Raises in every rank."""
     raise ValueError(f"rank {dist.get_rank()} fails on purpose")
+
+
+def multi_rank_train_worker(jobs, runs):
+    """train_jobs_worker's ``jobs``, then mesh_knob_worker's ``runs``, in
+    one process group."""
+    return {"train": train_jobs_worker(jobs),
+            "knobs": mesh_knob_worker(runs)}
